@@ -17,9 +17,7 @@
 // (1P) read once; is_elem (1P), parent_row (4P), first_child and
 // next_sib (4N each) written once. The sort's log2(M)(log2(M)+1)/2
 // passes over 8M bytes are what the simple design pays beyond that.
-#include "common.cuh"
-
-#define AMT_KEY_MAX 0x7fffffffffffffffLL
+#include "bitonic.cuh"
 
 __global__ void fo_links(const int* __restrict__ action,
                          const bool* __restrict__ insert,
@@ -65,21 +63,6 @@ __global__ void bs_pad(const long long* __restrict__ in, long long* __restrict__
   if (i < M) buf[i] = i < n ? in[i] : AMT_KEY_MAX;
 }
 
-// one compare-exchange step of the bitonic network (stage k, distance j)
-__global__ void bs_step(long long* __restrict__ keys, int M, int j, int k) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  int l = i ^ j;
-  if (l <= i) return;
-  long long a = keys[i];
-  long long b = keys[l];
-  bool ascending = (i & k) == 0;
-  if ((a > b) == ascending) {
-    keys[i] = b;
-    keys[l] = a;
-  }
-}
-
 // Sorts n int64 keys ascending into buf[0:n]; buf holds M >= n slots, M a
 // power of two. in and buf may not alias.
 AMT_API int amt_bitonic_sort(const long long* in, long long* buf, int n, int M,
@@ -88,11 +71,7 @@ AMT_API int amt_bitonic_sort(const long long* in, long long* buf, int n, int M,
   if (M < n || (M & (M - 1)) != 0) return (int)cudaErrorInvalidValue;
   bs_pad<<<amt_blocks(M), AMT_THREADS, 0, stream>>>(in, buf, n, M);
   AMT_LAUNCHED;
-  for (int k = 2; k <= M; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      bs_step<<<amt_blocks(M), AMT_THREADS, 0, stream>>>(buf, M, j, k);
-      AMT_LAUNCHED;
-    }
+  amt_bitonic_steps(buf, M, stream, launched);
   return (int)cudaGetLastError();
 }
 

@@ -5,6 +5,7 @@ PyTorch version.
 | --- | --- |
 | ``succ_vis.succ_vis`` | ``succ_resolution`` :59 + ``visibility`` :91 |
 | ``scatter_winners.scatter_winners`` | ``resolve_state_scatter`` :595-648 |
+| ``sort_winners.sort_winners`` | ``resolve_state`` :110-213 (its winners) |
 | ``forest.forest`` (+ ``forest.bitonic_sort``) | ``forest`` :551-592 |
 | ``linearize.linearize`` | ``device_linearize`` :216-285 |
 
@@ -22,11 +23,13 @@ def wrappers():
     from .forest import bitonic_sort, forest
     from .linearize import linearize
     from .scatter_winners import scatter_winners
+    from .sort_winners import sort_winners
     from .succ_vis import succ_vis
 
     return {
         "succ_vis": succ_vis,
         "scatter_winners": scatter_winners,
+        "sort_winners": sort_winners,
         "forest": forest,
         "bitonic_sort": bitonic_sort,
         "linearize": linearize,

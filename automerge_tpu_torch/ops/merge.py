@@ -9,19 +9,19 @@ part of ``automerge_tpu/ops/merge.py``'s all-device ``merge_kernel`` (:288):
                            the host columnizer) counted into per-op succ /
                            increment counters, then the visibility rule.
   2. ``scatter_winners`` — per-key winners and conflict counts over dense
-                           group ids (the sort-free ``resolve_state_scatter``
-                           form), plus per-object visible length and width.
+     or ``sort_winners``   group ids (the sort-free ``resolve_state_scatter``
+                           form) while the group table passes
+                           ``scatter_geometry_ok``, else over sorted group
+                           keys (``resolve_state``), plus per-object
+                           visible length and width.
   3. ``forest``          — the RGA sibling forest (parent / first child /
                            next sibling, by a bitonic sort of sibling keys).
   4. ``linearize``       — document order by pointer-doubling successor
                            threading + Wyllie list ranking.
 
 Everything is int32 (counters wrap as in the reference). There is no host
-engine and no packed transport: on CUDA the kernels always run, and a
-group-table geometry that fails ``scatter_geometry_ok`` raises, naming the
-sort-based winner kernel that is not ported yet. The CPU (``device="cpu"``)
-runs each kernel's plain PyTorch version and, beyond the gate, the plain
-sort-based ``resolve_state_sorted``.
+engine and no packed transport: on CUDA the kernels always run. The CPU
+(``device="cpu"``) runs each kernel's plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -37,8 +37,9 @@ from ..device import resolve_device
 from ..kernels.forest import forest
 from ..kernels.linearize import linearize
 from ..kernels.scatter_winners import scatter_winners
+from ..kernels.sort_winners import sort_winners
 from ..kernels.succ_vis import succ_vis
-from .oplog import PAD_ACTION, _next_pow2, pad_columns
+from .oplog import _next_pow2, pad_columns
 
 ALL_OUTPUTS = (
     "visible", "counter_inc", "winner", "conflicts", "succ_count",
@@ -61,56 +62,6 @@ def scatter_geometry_ok(P: int, n_objs: int, n_props: int) -> bool:
     # bounds the actual table, not the pre-bucket request
     n_objs2, np_eff = scatter_geom_key(n_objs, n_props)
     return n_objs2 * np_eff <= 8 * P + 65536
-
-
-def resolve_state_sorted(c, visible):
-    """Plain sort-based winners (``automerge_tpu/ops/merge.py``
-    ``resolve_state`` :110-213): rows stably sorted by (obj, kind, key),
-    segment max / sum of the visible sorted positions, scattered back.
-    Returns (winner, conflicts, obj_vis_len, obj_text_width). It serves
-    the CPU and the tests; its CUDA kernel is not ported yet."""
-    action = c["action"]
-    P = action.shape[0]
-    dev = action.device
-    rows = torch.arange(P, dtype=torch.int32, device=dev)
-    valid = action != PAD_ACTION
-    is_map = c["prop"] >= 0
-    run_key = torch.where(c["insert"], rows, c["elem_ref"])
-    g_obj = torch.where(valid, c["obj_dense"], P)
-    g_kind = is_map.to(torch.int32)
-    g_key = torch.where(is_map, c["prop"], run_key)
-    # stable lexsort, least significant key first
-    sort_idx = torch.arange(P, dtype=torch.int64, device=dev)
-    for k in (g_key, g_kind, g_obj):
-        sort_idx = sort_idx[torch.sort(k[sort_idx], stable=True).indices]
-    keys = torch.stack([g_obj, g_kind, g_key])[:, sort_idx]
-    newseg = torch.ones(P, dtype=torch.bool, device=dev)
-    newseg[1:] = (keys[:, 1:] != keys[:, :-1]).any(dim=0)
-    seg = (torch.cumsum(newseg.to(torch.int32), 0) - 1).long()
-    vis_s = visible[sort_idx]
-    cand = torch.where(vis_s, rows, -1)
-    win_pos = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    win_pos.scatter_reduce_(0, seg, cand, "amax", include_self=True)
-    seg_vis = torch.zeros(P, dtype=torch.int32, device=dev)
-    seg_vis.index_add_(0, seg, vis_s.to(torch.int32))
-    win_row = torch.where(
-        win_pos >= 0,
-        sort_idx[win_pos.long().clamp(0, P - 1)].to(torch.int32),
-        -1,
-    )
-    seg_of_row = torch.empty(P, dtype=torch.int64, device=dev)
-    seg_of_row[sort_idx] = seg
-    winner = win_row[seg_of_row]
-    conflicts = seg_vis[seg_of_row]
-    elem_vis = c["insert"] & valid & (winner >= 0)
-    obj_idx = torch.where(valid, c["obj_dense"], P + 1).long()
-    keep = (obj_idx >= 0) & (obj_idx < P + 2)
-    w_width = torch.where(elem_vis, c["width"][winner.long().clamp(0, P - 1)], 0)
-    obj_vis_len = torch.zeros(P + 2, dtype=torch.int32, device=dev)
-    obj_vis_len.index_add_(0, obj_idx[keep], elem_vis[keep].to(torch.int32))
-    obj_text_width = torch.zeros(P + 2, dtype=torch.int32, device=dev)
-    obj_text_width.index_add_(0, obj_idx[keep], w_width[keep])
-    return winner, conflicts, obj_vis_len, obj_text_width
 
 
 @contextlib.contextmanager
@@ -139,29 +90,20 @@ def merge_kernel(c, n_objs: int, n_props: int, phases=None):
     dev = action.device
     P = action.shape[0]
     scatter = scatter_geometry_ok(P, n_objs, n_props)
-    if not scatter and dev.type == "cuda":
-        raise NotImplementedError(
-            f"group table of {n_objs} objects x {n_props} keys fails "
-            f"scatter_geometry_ok at P={P}: it needs the sort-based winner "
-            "kernel (automerge_tpu/ops/merge.py resolve_state), which has no "
-            "CUDA port yet"
-        )
     with _phase(phases, "succ_vis", dev):
         succ, inc, counter_inc, visible = succ_vis(
             action, c["value_tag"], c["value_i32"], c["covered"],
             c["pred_src"], c["pred_tgt"],
         )
-    with _phase(phases, "scatter_winners", dev):
+    winner_args = (action, c["insert"], c["elem_ref"], c["obj_dense"],
+                   c["prop"], c["width"], visible)
+    with _phase(phases, "scatter_winners" if scatter else "sort_winners", dev):
         if scatter:
-            n_objs2, np_eff = scatter_geom_key(n_objs, n_props)
             winner, conflicts, obj_vis_len, obj_text_width = scatter_winners(
-                action, c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
-                c["width"], visible, n_objs2, np_eff,
-            )
+                *winner_args, *scatter_geom_key(n_objs, n_props))
         else:
-            winner, conflicts, obj_vis_len, obj_text_width = resolve_state_sorted(
-                c, visible
-            )
+            winner, conflicts, obj_vis_len, obj_text_width = sort_winners(
+                *winner_args)
     with _phase(phases, "forest", dev):
         is_elem, parent_row, first_child, next_sib = forest(
             action, c["insert"], c["elem_ref"], c["obj_dense"]

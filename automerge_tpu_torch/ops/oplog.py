@@ -16,13 +16,16 @@ searchsorted, so the device kernels are pure int32: comparisons are plain
 row-index comparisons.
 
 This is the per-op host path of ``automerge_tpu.ops.oplog`` (its
-``_collect_slow`` + ``_finalize``); the native and vectorised extraction
-paths and the incremental append are not part of this package yet.
+``_collect_slow`` + ``_finalize``) and its incremental append
+(``append_changes``: new changes spliced into the resident columns by
+position arithmetic, with an ``AppendInfo`` saying what moved); the native
+and vectorised extraction paths and the compressed column image are not
+part of this package.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -121,6 +124,10 @@ class OpLog:
         "pred_tgt",
         "expand",
         "mark_name_idx",
+        "elem_key",
+        "pred_key",
+        "_hash_set",
+        "_bufs",
     )
 
     def __init__(self):
@@ -131,6 +138,12 @@ class OpLog:
         self.mark_names: List[str] = []
         self.n = 0
         self.n_objs = 1
+        # packed reference keys (elem per row: -1 map op, 0 HEAD; pred per
+        # edge), kept by _finalize for the append path's re-resolution
+        self.elem_key = None
+        self.pred_key = None
+        self._hash_set = None
+        self._bufs = None  # capacity-bucketed backing buffers of the splice
 
     # -- construction --------------------------------------------------
 
@@ -164,65 +177,13 @@ class OpLog:
 
     @classmethod
     def _collect(cls, log, deduped, rank_of) -> "OpLog":
-        prop_of: Dict[str, int] = {}
-        mark_of: Dict[str, int] = {}
-        id_key, obj, prop, elem = [], [], [], []
-        action, insert, vtag, vint, width = [], [], [], [], []
-        pred_src, pred_key = [], []
-        expand, mark_idx = [], []
-        values: List[ScalarValue] = []
-
-        for ch in deduped:
-            ranks = [rank_of[bytes(a)] for a in ch.actors]
-            author = ranks[0]
-            for i, cop in enumerate(ch.ops):
-                row = len(id_key)
-                id_key.append(pack_id(ch.start_op + i, author))
-                if cop.obj[0] == 0:
-                    obj.append(0)
-                else:
-                    obj.append(pack_id(cop.obj[0], ranks[cop.obj[1]]))
-                if cop.key.prop is not None:
-                    prop.append(prop_of.setdefault(cop.key.prop, len(prop_of)))
-                    elem.append(-1)
-                else:
-                    e = cop.key.elem
-                    prop.append(-1)
-                    elem.append(0 if e[0] == 0 else pack_id(e[0], ranks[e[1]]))
-                action.append(int(cop.action))
-                insert.append(bool(cop.insert))
-                v = cop.value
-                vtag.append(_value_tag(v))
-                vint.append(_int_payload(v))
-                values.append(v)
-                width.append(str_width(v.value) if v.tag == "str" else 1)
-                for pc, pa in cop.pred:
-                    pred_src.append(row)
-                    pred_key.append(pack_id(pc, ranks[pa]))
-                expand.append(bool(cop.expand))
-                if cop.mark_name is not None:
-                    mark_idx.append(mark_of.setdefault(cop.mark_name, len(mark_of)))
-                else:
-                    mark_idx.append(-1)
-
-        log.props = [p for p, _ in sorted(prop_of.items(), key=lambda kv: kv[1])]
-        log.mark_names = [m for m, _ in sorted(mark_of.items(), key=lambda kv: kv[1])]
+        f = _flatten(deduped, rank_of)
+        log.props = f["key_table"]
+        log.mark_names = f["mark_table"]
         return cls._finalize(
-            log,
-            np.asarray(id_key, np.int64),
-            np.asarray(obj, np.int64),
-            np.asarray(prop, np.int32),
-            np.asarray(elem, np.int64),
-            np.asarray(action, np.int32),
-            np.asarray(insert, np.bool_),
-            np.asarray(vtag, np.int32),
-            np.asarray(vint, np.int64),
-            np.asarray(width, np.int32),
-            np.asarray(expand, np.bool_),
-            np.asarray(mark_idx, np.int32),
-            np.asarray(pred_src, np.int64),
-            np.asarray(pred_key, np.int64),
-            values,
+            log, f["id_key"], f["obj"], f["prop_ids"], f["elem"], f["action"],
+            f["insert"], f["vtag"], f["value_int"], f["width"], f["expand"],
+            f["mark_ids"], f["pred_src"], f["pred_key"], f["values"],
         )
 
     @classmethod
@@ -302,6 +263,8 @@ class OpLog:
             else np.empty(0, np.int32)
         )
         log.pred_tgt = tgt.astype(np.int32)
+        log.elem_key = elem
+        log.pred_key = np.asarray(pred_key, np.int64)
         return log
 
     # -- device prep -----------------------------------------------------
@@ -350,6 +313,425 @@ class OpLog:
             if a.bytes == target:
                 return pack_id(int(ctr_s), rank)
         raise KeyError(f"unknown actor in id {exid!r}")
+
+    # -- incremental append -------------------------------------------------
+
+    def hashes(self) -> set:
+        hs = self._hash_set
+        if hs is None:
+            hs = self._hash_set = {ch.hash for ch in self.changes}
+        return hs
+
+    def _splice_col(self, name, old, new_vals, row_map, new_rows, tail, m):
+        """One column's splice into a capacity-bucketed backing buffer.
+
+        Tail appends into a still-roomy buffer write only the k new slots;
+        everything else allocates at the bucket capacity and scatters both
+        sides through the position maps (one vectorized pass per column)."""
+        old = np.asarray(old)
+        new_vals = np.asarray(new_vals).astype(old.dtype, copy=False)
+        n = len(old)
+        buf = self._bufs.get(name)
+        if tail and buf is not None and old.base is buf and len(buf) >= m:
+            buf[n:m] = new_vals
+            return buf[:m]
+        nbuf = np.empty(_capacity(m), old.dtype)
+        out = nbuf[:m]
+        if tail:
+            out[:n] = old
+            out[n:] = new_vals
+        else:
+            out[row_map] = old
+            out[new_rows] = new_vals
+        self._bufs[name] = nbuf
+        return out
+
+    def append_changes(self, changes: Iterable[StoredChange]):
+        """Splice new changes into the existing columns WITHOUT re-collecting
+        prior replicas: flatten only the fresh changes, merge their rows
+        into the Lamport order with searchsorted position arithmetic,
+        re-resolve references that touch the delta, and report the dirty
+        object set.
+
+        Returns an ``AppendInfo`` on success, or ``None`` when the log
+        cannot be updated in place (packed-id collisions, too many
+        actors): the caller then rebuilds via ``from_changes``. New actors are handled in place:
+        actor ranks are byte-ordered, so inserting actors remaps every
+        packed key through a MONOTONE rank map, which preserves the
+        existing sort order.
+        """
+        known = self.hashes()
+        fresh: List[StoredChange] = []
+        batch_seen = set()
+        for ch in changes:
+            if ch.hash is None or ch.hash in known or ch.hash in batch_seen:
+                continue
+            batch_seen.add(ch.hash)
+            fresh.append(ch)
+        if not fresh:
+            return AppendInfo(self.n, 0, np.empty(0, np.int64), None, True,
+                              np.empty(0, np.int64), None, False)
+
+        # -- actor universe (monotone rank remap keeps old order sorted) --
+        old_bytes = [a.bytes for a in self.actors]
+        old_bytes_set = set(old_bytes)
+        delta_bytes = {bytes(a) for ch in fresh for a in ch.actors}
+        actors_changed = not delta_bytes.issubset(old_bytes_set)
+        if actors_changed:
+            all_bytes = sorted(old_bytes_set | delta_bytes)
+            if len(all_bytes) >= (1 << ACTOR_BITS):
+                return None
+        else:
+            all_bytes = old_bytes
+        rank_of = {b: i for i, b in enumerate(all_bytes)}
+        if actors_changed:
+            rank_map = np.fromiter(
+                (rank_of[b] for b in old_bytes), np.int64, count=len(old_bytes)
+            )
+
+            def remap_packed(key):
+                key = np.asarray(key, np.int64)
+                idx = np.where(key > 0, key, 0) & ACTOR_MASK
+                return np.where(
+                    key > 0,
+                    ((key >> ACTOR_BITS) << ACTOR_BITS) | rank_map[idx],
+                    key,
+                )
+        else:
+            def remap_packed(key):
+                return np.asarray(key, np.int64)
+
+        # -- flatten ONLY the fresh changes -------------------------------
+        r = _flatten(fresh, rank_of)
+        k = len(r["id_key"])
+
+        n = self.n
+        old_id = remap_packed(self.id_key) if n else np.empty(0, np.int64)
+
+        if k == 0:
+            # dependency-only changes: commit bookkeeping, no rows
+            self._commit_actors(all_bytes, actors_changed, remap_packed, old_id)
+            self.changes.extend(fresh)
+            known.update(batch_seen)
+            return AppendInfo(n, 0, np.empty(0, np.int64), None, True,
+                              np.empty(0, np.int64), None, actors_changed)
+
+        order = np.argsort(r["id_key"], kind="stable")
+        d_id = r["id_key"][order]
+        if np.any(d_id[1:] == d_id[:-1]):
+            return None  # duplicate op ids within the delta
+        pos = np.searchsorted(old_id, d_id)
+        if n:
+            posc = np.clip(pos, 0, n - 1)
+            if np.any(old_id[posc] == d_id):
+                return None  # an op id the log already holds
+        tail = n == 0 or pos[0] == n
+        m = n + k
+        new_rows = pos + np.arange(k, dtype=np.int64)
+        if tail:
+            row_map = None
+        else:
+            cnt = np.bincount(pos, minlength=n + 1)
+            row_map = np.arange(n, dtype=np.int64) + np.cumsum(cnt[:n])
+        if self._bufs is None:
+            self._bufs = {}
+
+        # -- string tables (old ids stable; new names appended) ------------
+        props, d_prop = _merge_table(self.props, r["key_table"],
+                                     r["prop_ids"], order)
+        mark_names, d_mark = _merge_table(self.mark_names, r["mark_table"],
+                                          r["mark_ids"], order)
+
+        # -- splice the plain per-row columns ------------------------------
+        sp = lambda name, old, new: self._splice_col(  # noqa: E731
+            name, old, new, row_map, new_rows, tail, m
+        )
+        id_new = sp("id_key", old_id, d_id)
+        obj_new = sp("obj_key", remap_packed(self.obj_key), r["obj"][order])
+        ek_new = sp("elem_key", remap_packed(self.elem_key), r["elem"][order])
+        action_new = sp("action", self.action, r["action"][order])
+        prop_new = sp("prop", self.prop, d_prop)
+        insert_new = sp("insert", np.asarray(self.insert, np.bool_),
+                        r["insert"][order])
+        vtag_new = sp("value_tag", self.value_tag, r["vtag"][order])
+        vint_new = sp("value_int", self.value_int, r["value_int"][order])
+        width_new = sp("width", self.width, r["width"][order])
+        expand_new = sp("expand", np.asarray(self.expand, np.bool_),
+                        r["expand"][order])
+        mark_new = sp("mark_name_idx", self.mark_name_idx, d_mark)
+
+        def rows_of(keys):
+            return join_rows(id_new, keys, ELEM_MISSING)
+
+        # -- element references --------------------------------------------
+        old_er = self.elem_ref
+        if not tail:
+            old_er = np.where(
+                old_er >= 0, row_map[np.clip(old_er, 0, max(n - 1, 0))], old_er
+            )
+        d_ek = r["elem"][order]
+        d_er = np.where(
+            d_ek == -1,
+            np.int32(ELEM_MAP),
+            np.where(d_ek == 0, np.int32(ELEM_HEAD), rows_of(d_ek)),
+        ).astype(np.int32)
+        er_new = sp("elem_ref", old_er.astype(np.int32, copy=False), d_er)
+        # previously-MISSING refs may now resolve (their target arrived)
+        rere_rows = np.empty(0, np.int64)
+        miss = np.flatnonzero(er_new == ELEM_MISSING)
+        if len(miss):
+            res = rows_of(ek_new[miss])
+            got = res != ELEM_MISSING
+            if np.any(got):
+                er_new[miss[got]] = res[got]
+                rere_rows = miss[got]
+
+        # -- pred edges (appended at the end; order is irrelevant) ---------
+        q = len(self.pred_src)
+        old_ps = self.pred_src
+        old_pt = self.pred_tgt
+        if not tail and q:
+            safe_n = max(n - 1, 0)
+            old_ps = row_map[np.clip(old_ps, 0, safe_n)].astype(np.int32)
+            old_pt = np.where(
+                old_pt >= 0, row_map[np.clip(old_pt, 0, safe_n)], old_pt
+            ).astype(np.int32)
+        inv = np.empty(k, np.int64)
+        inv[order] = np.arange(k)
+        d_ps = new_rows[inv[r["pred_src"]]].astype(np.int32) \
+            if len(r["pred_src"]) else np.empty(0, np.int32)
+        d_pk = r["pred_key"]
+        d_pt = rows_of(d_pk).astype(np.int32) if len(d_pk) \
+            else np.empty(0, np.int32)
+        d_pt = np.where(d_pt == ELEM_MISSING, np.int32(-1), d_pt)
+        qm = q + len(d_ps)
+        cat = lambda name, old, new: self._splice_col(  # noqa: E731
+            name, np.asarray(old), new, None, None, True, qm
+        )
+        ps_new = cat("pred_src", old_ps, d_ps)
+        pt_new = cat("pred_tgt", old_pt, d_pt)
+        pk_new = cat("pred_key", remap_packed(self.pred_key), d_pk)
+        # previously-unresolved pred targets may now resolve
+        rere_pred = np.empty(0, np.int64)
+        pmiss = np.flatnonzero(pt_new == -1)
+        if len(pmiss):
+            res = rows_of(pk_new[pmiss])
+            got = res != ELEM_MISSING
+            if np.any(got):
+                pt_new[pmiss[got]] = res[got]
+                rere_pred = pmiss[got]
+
+        # -- object table / dense ids --------------------------------------
+        old_table = remap_packed(self.obj_table)
+        make_new = d_id[np.isin(r["action"][order], MAKE_ACTIONS)]
+        add = np.concatenate([make_new, r["obj"][order]])
+        new_table = np.union1d(old_table, add)
+        if len(new_table) == len(old_table):
+            obj_remap = None
+            od_old = self.obj_dense
+        else:
+            obj_remap = np.searchsorted(new_table, old_table).astype(np.int32)
+            od_old = obj_remap[self.obj_dense]
+        self.obj_table = new_table
+        od_new = np.searchsorted(new_table, r["obj"][order]).astype(np.int32)
+        od_all = sp("obj_dense", od_old.astype(np.int32, copy=False), od_new)
+
+        # -- values (a Python list; fromiter keeps each ScalarValue, a
+        # tuple, one object instead of a row of two) ---------------------
+        new_vals = [r["values"][i] for i in order]
+        if tail:
+            values = list(self.values) + new_vals
+        else:
+            arr = np.empty(m, object)
+            arr[row_map] = np.fromiter(self.values, object, count=n)
+            arr[new_rows] = np.fromiter(new_vals, object, count=k)
+            values = arr.tolist()
+
+        # -- dirty objects (NEW dense numbering) ---------------------------
+        parts = [od_new, np.searchsorted(new_table, make_new)]
+        if len(rere_rows):
+            parts.append(od_all[rere_rows])
+        if len(rere_pred):
+            src = ps_new[rere_pred]
+            tgt = pt_new[rere_pred]
+            parts.append(od_all[src])
+            parts.append(od_all[np.clip(tgt, 0, m - 1)])
+        if len(d_pt):
+            hit = d_pt >= 0
+            if np.any(hit):
+                parts.append(od_all[d_pt[hit]])
+        dirty = np.unique(np.concatenate(parts)).astype(np.int64)
+
+        # -- commit ---------------------------------------------------------
+        self.id_key = id_new
+        self.obj_key = obj_new
+        self.elem_key = ek_new
+        self.action = action_new
+        self.prop = prop_new
+        self.insert = insert_new
+        self.value_tag = vtag_new
+        self.value_int = vint_new
+        self.width = width_new
+        self.expand = expand_new
+        self.mark_name_idx = mark_new
+        self.elem_ref = er_new
+        self.obj_dense = od_all
+        self.pred_src = ps_new
+        self.pred_tgt = pt_new
+        self.pred_key = pk_new
+        self.values = values
+        self.props = props
+        self.mark_names = mark_names
+        self.n = m
+        self.n_objs = len(new_table)
+        self.actors = [ActorId(b) for b in all_bytes]
+        self.changes.extend(fresh)
+        known.update(batch_seen)
+        return AppendInfo(n, k, new_rows, row_map, tail, dirty, obj_remap,
+                          actors_changed, n_pred_old=q,
+                          rere_elem_rows=rere_rows, rere_pred_edges=rere_pred)
+
+    def _commit_actors(self, all_bytes, actors_changed, remap_packed, old_id):
+        if not actors_changed:
+            return
+        self.id_key = old_id
+        self.obj_key = remap_packed(self.obj_key)
+        self.elem_key = remap_packed(self.elem_key)
+        self.pred_key = remap_packed(self.pred_key)
+        self.obj_table = remap_packed(self.obj_table)
+        self.actors = [ActorId(b) for b in all_bytes]
+        # remapped arrays no longer alias the backing buffers
+        self._bufs = {}
+
+
+class AppendInfo:
+    """What an in-place ``OpLog.append_changes`` did: everything a resident
+    consumer (DeviceDoc) needs to splice its own row-indexed state.
+
+    ``row_map`` maps old row index -> new row index (None = identity, the
+    tail-append fast path); ``new_rows`` are the spliced rows' positions;
+    ``dirty_objs`` are the dense object ids (NEW numbering) whose resolution
+    is stale; ``obj_remap`` maps old dense ids -> new (None = identity)."""
+
+    __slots__ = (
+        "n_old", "n_new", "new_rows", "row_map", "tail", "dirty_objs",
+        "obj_remap", "actors_changed", "n_pred_old",
+        "rere_elem_rows", "rere_pred_edges",
+    )
+
+    def __init__(self, n_old, n_new, new_rows, row_map, tail, dirty_objs,
+                 obj_remap, actors_changed, n_pred_old=0,
+                 rere_elem_rows=None, rere_pred_edges=None):
+        self.n_old = n_old
+        self.n_new = n_new
+        self.new_rows = new_rows
+        self.row_map = row_map
+        self.tail = tail
+        self.dirty_objs = dirty_objs
+        self.obj_remap = obj_remap
+        self.actors_changed = actors_changed
+        # edge bookkeeping for host-side delta resolution: edges before
+        # index n_pred_old are carried; rere_* name previously-MISSING
+        # references that resolved when their target arrived in this append
+        self.n_pred_old = n_pred_old
+        self.rere_elem_rows = (
+            rere_elem_rows if rere_elem_rows is not None
+            else np.empty(0, np.int64)
+        )
+        self.rere_pred_edges = (
+            rere_pred_edges if rere_pred_edges is not None
+            else np.empty(0, np.int64)
+        )
+
+
+def _merge_table(old: List[str], delta_table, ids, order) -> Tuple[List[str], np.ndarray]:
+    """Union a delta's string table into the resident one (old ids stable,
+    new names appended) and translate the delta's per-row ids."""
+    merged = list(old)
+    k = len(order)
+    if not delta_table:
+        return merged, np.full(k, -1, np.int32)
+    pos_of = {s: i for i, s in enumerate(merged)}
+    remap = np.empty(len(delta_table), np.int32)
+    for j, s in enumerate(delta_table):
+        gi = pos_of.get(s)
+        if gi is None:
+            gi = len(merged)
+            merged.append(s)
+            pos_of[s] = gi
+        remap[j] = gi
+    ids = np.asarray(ids)
+    out = np.where(
+        ids >= 0, remap[np.clip(ids, 0, len(delta_table) - 1)], np.int32(-1)
+    ).astype(np.int32)
+    return merged, out[order]
+
+
+def _flatten(changes: Sequence[StoredChange], rank_of) -> dict:
+    """The changes' ops as unsorted columns, in change order: packed
+    ``id_key``/``obj`` (0 = root)/``elem`` (-1 = map op, 0 = HEAD) and
+    ``pred_key`` per edge with its delta-local ``pred_src`` row; map keys
+    and mark names as ids into the ``key_table``/``mark_table`` of first
+    appearance; the ``values`` list."""
+    prop_of: Dict[str, int] = {}
+    mark_of: Dict[str, int] = {}
+    id_key, obj, prop, elem = [], [], [], []
+    action, insert, vtag, vint, width = [], [], [], [], []
+    pred_src, pred_key = [], []
+    expand, mark_idx = [], []
+    values: List[ScalarValue] = []
+
+    for ch in changes:
+        ranks = [rank_of[bytes(a)] for a in ch.actors]
+        author = ranks[0]
+        for i, cop in enumerate(ch.ops):
+            row = len(id_key)
+            id_key.append(pack_id(ch.start_op + i, author))
+            if cop.obj[0] == 0:
+                obj.append(0)
+            else:
+                obj.append(pack_id(cop.obj[0], ranks[cop.obj[1]]))
+            if cop.key.prop is not None:
+                prop.append(prop_of.setdefault(cop.key.prop, len(prop_of)))
+                elem.append(-1)
+            else:
+                e = cop.key.elem
+                prop.append(-1)
+                elem.append(0 if e[0] == 0 else pack_id(e[0], ranks[e[1]]))
+            action.append(int(cop.action))
+            insert.append(bool(cop.insert))
+            v = cop.value
+            vtag.append(_value_tag(v))
+            vint.append(_int_payload(v))
+            values.append(v)
+            width.append(str_width(v.value) if v.tag == "str" else 1)
+            for pc, pa in cop.pred:
+                pred_src.append(row)
+                pred_key.append(pack_id(pc, ranks[pa]))
+            expand.append(bool(cop.expand))
+            if cop.mark_name is not None:
+                mark_idx.append(mark_of.setdefault(cop.mark_name, len(mark_of)))
+            else:
+                mark_idx.append(-1)
+
+    return {
+        "id_key": np.asarray(id_key, np.int64),
+        "obj": np.asarray(obj, np.int64),
+        "prop_ids": np.asarray(prop, np.int32),
+        "elem": np.asarray(elem, np.int64),
+        "action": np.asarray(action, np.int32),
+        "insert": np.asarray(insert, np.bool_),
+        "vtag": np.asarray(vtag, np.int32),
+        "value_int": np.asarray(vint, np.int64),
+        "width": np.asarray(width, np.int32),
+        "expand": np.asarray(expand, np.bool_),
+        "mark_ids": np.asarray(mark_idx, np.int32),
+        "pred_src": np.asarray(pred_src, np.int64),
+        "pred_key": np.asarray(pred_key, np.int64),
+        "values": values,
+        "key_table": list(prop_of),
+        "mark_table": list(mark_of),
+    }
 
 
 def _value_tag(v: ScalarValue) -> int:

@@ -1,4 +1,9 @@
-"""The edit-trace N-replica fan-in workload, built at the change level.
+"""The N-replica fan-in workloads, built at the change level.
+
+Two documents: the edit trace (a text object, below) and the record store
+(a map of records, ``record_store`` at the end of the module).
+
+The edit trace:
 
 A copy of ``automerge_tpu/bench.py``'s generator (:37-232) that needs no
 document or transaction layer: ``build_base`` replays the trace into ONE
@@ -14,7 +19,7 @@ a deterministic synthetic one (``numpy.random.default_rng(0)``).
 from __future__ import annotations
 
 import json
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -24,9 +29,11 @@ from .types import Key, ScalarValue
 TRACE_EDITS = 260_000
 BASE_ACTOR = bytes([1]) * 16
 
+_ACTION_MAKE_MAP = 0
 _ACTION_PUT = 1
 _ACTION_DELETE = 3
 _ACTION_MAKE_TEXT = 4
+_ACTION_INCREMENT = 5
 
 
 def load_trace(limit: Optional[int] = None, path: Optional[str] = None) -> list:
@@ -282,3 +289,213 @@ def expected_text_length(changes: Sequence[StoredChange]) -> int:
             elif op.action == _ACTION_DELETE:
                 deleted.add((op.key.elem[0], actors[op.key.elem[1]]))
     return inserts - len(deleted)
+
+
+# -- the record store ----------------------------------------------------
+#
+# BASELINE's "Map+Counter CRDT" workload reshaped into the collection
+# layout Automerge documents use for keyed records (a todo list, a kanban
+# board, a table of rows): ``_root.records`` is a map of R records, each a
+# map of seven scalar fields and one counter, ``votes``. Every replica
+# forks from the base heads with one change of about 60% puts to random
+# (record, scalar field) keys, 25% ``votes`` increments, 10% new records
+# (a make_map under a key of its own plus its fields) and 5% deletes of a
+# base record. Each replica puts a given key at most once and deletes a
+# given record at most once, so the merge's counts follow from the ops.
+
+RECORDS = 65_536
+RECORD_REPLICAS, RECORD_PER_REPLICA = 1024, 250
+RECORD_BATCH = 16  # replica changes per served batch
+# the seven scalar fields and their types; the eighth field is the counter
+RECORD_FIELDS = (
+    ("title", "str"), ("owner", "str"), ("status", "str"),
+    ("priority", "int"), ("points", "int"), ("done", "bool"), ("due", "null"),
+)
+COUNTER_FIELD = "votes"
+RECORDS_OBJ = f"1@{BASE_ACTOR.hex()}"  # _root.records, the base's op 1
+_OPS_PER_RECORD = 2 + len(RECORD_FIELDS)  # make_map, scalars, counter
+
+
+def _record_key(i: int) -> str:
+    return f"r{i:06d}"
+
+
+def _field_value(field_type: str, i: int) -> ScalarValue:
+    if field_type == "str":
+        return ScalarValue("str", f"v{i}")
+    if field_type == "int":
+        return ScalarValue("int", i % 1000)
+    if field_type == "bool":
+        return ScalarValue("bool", bool(i & 1))
+    return ScalarValue("null")
+
+
+def _make_record(obj, key: str) -> ChangeOp:
+    return ChangeOp(obj=obj, key=Key.map(key), insert=False,
+                    action=_ACTION_MAKE_MAP, value=ScalarValue("null"))
+
+
+def _field_ops(record, i: int) -> List[ChangeOp]:
+    """The eight field puts of the record whose make_map is ``record``."""
+    ops = [
+        ChangeOp(obj=record, key=Key.map(name), insert=False,
+                 action=_ACTION_PUT, value=_field_value(t, i))
+        for name, t in RECORD_FIELDS
+    ]
+    ops.append(ChangeOp(obj=record, key=Key.map(COUNTER_FIELD), insert=False,
+                        action=_ACTION_PUT, value=ScalarValue("counter", 0)))
+    return ops
+
+
+def record_base_change(n_records: int) -> StoredChange:
+    """The base (actor ``BASE_ACTOR``, not yet encoded): op 1 makes
+    ``_root.records``; record i is the make_map at op 2 + 9i under key
+    ``r%06d``, then its fields at the next eight ops (``votes`` last)."""
+    ops: List[ChangeOp] = [
+        ChangeOp(obj=(0, -1), key=Key.map("records"), insert=False,
+                 action=_ACTION_MAKE_MAP, value=ScalarValue("null"))
+    ]
+    for i in range(n_records):
+        ops.append(_make_record((1, 0), _record_key(i)))
+        ops += _field_ops((len(ops), 0), i)  # the make_map's counter
+    return StoredChange(dependencies=[], actor=BASE_ACTOR, other_actors=[],
+                        seq=1, start_op=1, timestamp=0, message=None, ops=ops)
+
+
+def _record_ctr(i: int) -> int:
+    """Op counter of base record i's make_map."""
+    return 2 + _OPS_PER_RECORD * i
+
+
+def _record_replica_actor(i: int) -> bytes:
+    return b"\x04" + i.to_bytes(3, "big") + bytes(12)
+
+
+class RecordExpect:
+    """What a merge of the base and some replicas must show, counted from
+    the generator's own ops: visible records, the sum of ``votes`` over
+    them, and the (record, scalar field) keys with more than one visible
+    value."""
+
+    def __init__(self, n_records: int):
+        self.n_records = n_records
+        self.deleted: set = set()
+        self.created = 0
+        self.votes: Dict[int, int] = {}  # base record -> increments landed
+        self.puts: Dict[Tuple[int, int], int] = {}  # (record, field) -> puts
+
+    def counts(self) -> dict:
+        live = lambda rec: rec not in self.deleted  # noqa: E731
+        return {
+            "records": self.n_records - len(self.deleted) + self.created,
+            "votes": sum(v for rec, v in self.votes.items() if live(rec)),
+            "conflict_keys": sum(
+                1 for (rec, _), n in self.puts.items() if n > 1 and live(rec)),
+        }
+
+
+def record_replica_change(base: StoredChange, n_records: int, replica: int,
+                          n_ops: int, expect: RecordExpect) -> StoredChange:
+    """Replica ``replica``'s change (not yet encoded), forked from the
+    base heads: n_ops ops, of which 10% new records (whole records of
+    nine ops), 5% deletes, 25% increments and the rest puts, in a seeded
+    order. Puts and deletes pred the base op they overwrite, increments
+    the base counter put. Adds what it does to ``expect``."""
+    rng = np.random.default_rng(1000 + replica)
+    n_new = int(n_ops * 0.10 / _OPS_PER_RECORD + 0.5)
+    if n_ops >= 2 * _OPS_PER_RECORD:
+        n_new = max(n_new, 1)  # a small change still makes a record
+    n_del = int(n_ops * 0.05 + 0.5)
+    n_inc = int(n_ops * 0.25 + 0.5)
+    n_put = n_ops - n_new * _OPS_PER_RECORD - n_del - n_inc
+    n_fields = len(RECORD_FIELDS)
+    puts = rng.choice(n_records * n_fields, n_put, replace=False)
+    dels = rng.choice(n_records, n_del, replace=False)
+    incs = rng.integers(0, n_records, n_inc)
+    amounts = rng.integers(1, 6, n_inc)
+    events = ([("put", int(x)) for x in puts] + [("del", int(x)) for x in dels]
+              + [("inc", j) for j in range(n_inc)]
+              + [("new", j) for j in range(n_new)])
+    order = rng.permutation(len(events))
+
+    B = 1  # the base actor's index in this change's actor table
+    ops: List[ChangeOp] = []
+    ctr = base.max_op
+    for e in order:
+        kind, x = events[int(e)]
+        if kind == "put":
+            rec, f = divmod(x, n_fields)
+            name, t = RECORD_FIELDS[f]
+            ops.append(ChangeOp(
+                obj=(_record_ctr(rec), B), key=Key.map(name), insert=False,
+                action=_ACTION_PUT, value=_field_value(t, replica + x),
+                pred=[(_record_ctr(rec) + 1 + f, B)]))
+            expect.puts[(rec, f)] = expect.puts.get((rec, f), 0) + 1
+        elif kind == "del":
+            ops.append(ChangeOp(
+                obj=(1, B), key=Key.map(_record_key(x)), insert=False,
+                action=_ACTION_DELETE, value=ScalarValue("null"),
+                pred=[(_record_ctr(x), B)]))
+            expect.deleted.add(x)
+        elif kind == "inc":
+            rec, by = int(incs[x]), int(amounts[x])
+            votes = _record_ctr(rec) + 1 + n_fields
+            ops.append(ChangeOp(
+                obj=(_record_ctr(rec), B), key=Key.map(COUNTER_FIELD),
+                insert=False, action=_ACTION_INCREMENT,
+                value=ScalarValue("int", by), pred=[(votes, B)]))
+            expect.votes[rec] = expect.votes.get(rec, 0) + by
+        else:
+            ops.append(_make_record((1, B), f"n{replica:06d}x{x}"))
+            ops += _field_ops((ctr + len(ops), 0), replica + x)
+            expect.created += 1
+    return StoredChange(
+        dependencies=[base.hash], actor=_record_replica_actor(replica),
+        other_actors=[BASE_ACTOR], seq=1, start_op=ctr + 1, timestamp=0,
+        message=None, ops=ops)
+
+
+def record_store(n_records: int = RECORDS, n_replicas: int = RECORD_REPLICAS,
+                 per_replica: int = RECORD_PER_REPLICA):
+    """(encoded base change, encoded replica changes, expected counts of
+    their merge). The records map is the object ``RECORDS_OBJ``."""
+    base = build_change(record_base_change(n_records))
+    expect = RecordExpect(n_records)
+    reps = [
+        build_change(record_replica_change(base, n_records, i, per_replica,
+                                           expect))
+        for i in range(n_replicas)
+    ]
+    return base, reps, expect.counts()
+
+
+def record_batches(changes: Sequence, batch: int = RECORD_BATCH) -> List[list]:
+    """The served order: the replicas in groups of ``batch``."""
+    return [list(changes[i : i + batch]) for i in range(0, len(changes), batch)]
+
+
+def record_counts(doc) -> dict:
+    """The counts of ``RecordExpect`` read off a merged ``DeviceDoc``:
+    ``keys`` of the records map, ``map_entries`` of every visible record for the
+    ``votes`` sum, and the winner rows of its scalar fields whose
+    conflict count exceeds one."""
+    records = doc.keys(RECORDS_OBJ)
+    votes = 0
+    rec_objs = []
+    for _, (_, _, rec), _ in doc.map_entries(RECORDS_OBJ):
+        rec_objs.append(doc.log.import_id(rec))
+        for name, value, _ in doc.map_entries(rec):
+            if name == COUNTER_FIELD:
+                votes += value[1]
+    log = doc.log
+    n = log.n
+    scalar = [log.props.index(f) for f, _ in RECORD_FIELDS if f in log.props]
+    rows = np.arange(n)
+    winners = (
+        np.isin(log.obj_key[:n], np.asarray(rec_objs, np.int64))
+        & np.isin(log.prop[:n], np.asarray(scalar, np.int32))
+        & (doc.winner[:n] == rows)
+        & (doc.conflicts[:n] > 1)
+    )
+    return {"records": len(records), "votes": votes,
+            "conflict_keys": int(np.count_nonzero(winners))}

@@ -1,28 +1,43 @@
-"""Chip smoke test of automerge_tpu_torch: the N-replica fan-in merge end to
-end on one NVIDIA GPU, through hand-written CUDA kernels.
+"""Chip smoke test of automerge_tpu_torch on one NVIDIA GPU: the fan-in
+merge of a text document, the fan-in of a record store and the record
+store served batch by batch, end to end through hand-written CUDA kernels.
 
-    python3 chip_smoke.py            # full width: 260,000-edit base, 1024 x 250
+    python3 chip_smoke.py     # full width, as below
 
 Phases, each raising on failure (nothing is caught):
 
  1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
     no CUDA device is an error;
  2. build the kernels from automerge_tpu_torch/csrc with nvcc (sm_90a);
- 3. the main path: generate the fan-in workload, encode it to change
-    chunks, then parse, OpLog, DeviceDoc.merge on the card and text(),
-    with every kernel's launch count set to 0 just before and read just
-    after; the text length must equal the generator's own count
-    (inserts minus distinct deleted elements) and every kernel must have
-    launched;
- 4. every kernel's output at the main path's shapes against its plain
-    PyTorch version on the same CUDA tensors (exact equality: all integer
-    arithmetic), and a small fan-in merged on the card against the plain
-    CPU path on all 13 outputs;
- 5. one {"kernels": [...]} line: kernel launches on the main path,
-    median CUDA-event times of the kernel, its plain version and (where
-    one exists) a single PyTorch call computing the same function, and
-    the bound: the larger of the bytes the function must move over
-    3.35 TB/s and its integer operations over the int32 rate (``work``);
+ 3. three main paths, each with every kernel's launch count set to 0 just
+    before it and read just after:
+    a. text fan-in (BASELINE width: a 260,000-edit base, 1024 x 250):
+       parse, OpLog, DeviceDoc.merge on the card and text(); the text
+       length must equal the generator's count; scatter_winners must run
+       (the group table passes the scatter gate), sort_winners must not;
+    b. record-store fan-in (65,536 records x 8 fields, 1024 x 250): the
+       same phases, then keys of the records map and map_entries of every
+       visible record; the generator's counts (visible records, the votes
+       sum, keys with concurrent values) must hold; sort_winners must run,
+       scatter_winners must not;
+    c. the record store served: the base merged on the card (its launches
+       read on their own), then DeviceDoc.apply_batches of the replicas in
+       64 batches of 16, with the counts set to 0 just before; every
+       READ_FETCH array must equal (b)'s exactly;
+ 4. every kernel against its plain PyTorch version on the same CUDA
+    tensors (exact equality: all integer arithmetic) at the shapes of
+    each path that runs it: the text fan-in, the record fan-in and the
+    last served batch's subset columns (whose prop ids are the whole
+    log's); sort_winners also on synthetic columns with P > 2^20; the
+    whole merge on the card against the plain CPU path on all 13 outputs
+    for that served subset and for a small fan-in;
+ 5. one {"kernels": [...]} line: kernel launches on the main paths (their
+    sum, and by path), median CUDA-event times of the kernel, its plain
+    version and (where one exists) a single PyTorch call computing the
+    same function, and the bound: the larger of the bytes the function
+    must move over 3.35 TB/s and its integer operations over the int32
+    rate (``work``); the top-level numbers are those of the first path
+    that runs the kernel, ``by_path`` has each path's;
  6. the last line: {"ok": true, "device": {...}}.
 """
 
@@ -43,6 +58,10 @@ INT32_OPS_PER_S = 67e12 / 4
 
 # The BASELINE fan-in: a 260,000-edit base and 1024 replicas x 250 edits.
 BASE_EDITS, REPLICAS, PER_REPLICA = 260_000, 1024, 250
+# The record store: 65,536 records of 8 fields, 1024 replicas x 250 ops,
+# served in batches of 16.
+RECORDS, RECORD_REPLICAS, RECORD_PER_REPLICA, RECORD_BATCH = 65_536, 1024, 250, 16
+WIDE_P = (1 << 20) + 12_345  # sort_winners past 2^20 rows
 REPS = 20  # timed calls per kernel
 
 
@@ -92,7 +111,7 @@ def work(name: str, args, out):
         read = nbytes(pred_src, pred_tgt, action, value_tag, covered)
         # value_i32 only at the sources of counted increment edges
         return read + 4 * distinct(src[inc]) + nbytes(*out), 3 * Q + 6 * P
-    if name == "scatter_winners":
+    if name in ("scatter_winners", "sort_winners"):
         action, insert, elem_ref, obj_dense, prop, _width, visible = args[:7]
         winner = out[0]
         elem_vis = insert & (action != PAD_ACTION) & (winner >= 0)
@@ -116,6 +135,44 @@ def work(name: str, args, out):
                 + 4 * distinct(obj_dense[is_elem]))
         return read + nbytes(*out), 10 * P
     raise KeyError(name)
+
+
+def winner_columns(P: int, seed: int, device, max_prop: int = 70_000):
+    """Synthetic inputs of the winner kernels at any P: (action, insert,
+    elem_ref, obj_dense, prop, width, visible). Map ops (about half) carry
+    prop ids up to ``max_prop``, sequence ops run keys over the rows and
+    the elem_ref sentinels; a tail of padding rows, as pad_columns makes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = P - P // 64
+    is_map = rng.random(P) < 0.5
+    action = np.where(rng.random(P) < 0.8, 1, 3).astype(np.int32)
+    action[n:] = 15
+    insert = ~is_map & (action == 1) & (rng.random(P) < 0.6)
+    elem_ref = np.where(is_map, -2, rng.integers(-3, P, P)).astype(np.int32)
+    prop = np.where(is_map, rng.integers(0, max_prop, P), -1).astype(np.int32)
+    prop[n:], elem_ref[n:] = -1, -2
+    obj_dense = rng.integers(0, max(P // 16, 1), P).astype(np.int32)
+    width = rng.integers(1, 4, P).astype(np.int32)
+    visible = (action == 1) & (rng.random(P) < 0.7)
+    cols = (action, insert, elem_ref, obj_dense, prop, width, visible)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in cols)
+
+
+def group_keys(action, insert, elem_ref, obj_dense, prop):
+    """sort_winners' int64 group key per row (csrc/sort_winners.cu
+    ``sk_key``), ``((g_obj * 2 + g_kind) << 32) | uint32(g_key + 4)``: the
+    keys whose torch.sort is sort_winners' library time."""
+    from automerge_tpu_torch.ops.oplog import PAD_ACTION
+
+    P = action.shape[0]
+    rows = torch.arange(P, dtype=torch.int64, device=action.device)
+    is_map = prop >= 0
+    g_obj = torch.where(action != PAD_ACTION, obj_dense.long(), P)
+    g_key = torch.where(is_map, prop.long(),
+                        torch.where(insert, rows, elem_ref.long()))
+    return ((g_obj * 2 + is_map.long()) << 32) | ((g_key + 4) & 0xFFFFFFFF)
 
 
 def max_abs_err(got, want) -> int:
@@ -175,72 +232,316 @@ def check_small_against_cpu(device) -> None:
             raise AssertionError(f"small fan-in: {k} differs between cuda and cpu")
 
 
-def kernel_report(log, counts, device, reps: int):
-    """Each kernel against its plain version at the main path's shapes."""
+def record_workload():
+    """(base chunk, replica chunks, expected counts, seconds of generation
+    and of encoding) of the record store."""
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.storage.change import build_change
+
+    t0 = time.perf_counter()
+    base_ch = W.record_base_change(RECORDS)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base = build_change(base_ch)
+    t_enc = time.perf_counter() - t0
+    expect = W.RecordExpect(RECORDS)
+    reps = []
+    for i in range(RECORD_REPLICAS):
+        t0 = time.perf_counter()
+        ch = W.record_replica_change(base, RECORDS, i, RECORD_PER_REPLICA, expect)
+        t1 = time.perf_counter()
+        reps.append(build_change(ch).raw_bytes)
+        t_gen += t1 - t0
+        t_enc += time.perf_counter() - t1
+    return base.raw_bytes, reps, expect.counts(), t_gen, t_enc
+
+
+def check_launches(path: str, counts: dict, must: tuple, must_not: tuple) -> None:
+    idle = [k for k in must if counts[k] < 1]
+    if idle:
+        raise AssertionError(f"{path}: kernels not launched: {idle}")
+    stray = [k for k in must_not if counts[k]]
+    if stray:
+        raise AssertionError(f"{path}: kernels launched that must not be: {stray}")
+
+
+SHARED = ("succ_vis", "forest", "bitonic_sort", "linearize")
+
+
+def text_path(card: str, device):
+    """(a) the text fan-in: (log, launch counts)."""
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    blobs, expect_len, text_obj, t_gen, t_enc = workload(
+        BASE_EDITS, REPLICAS, PER_REPLICA)
+    print(f"text workload: {len(blobs)} changes, {sum(map(len, blobs))} bytes; "
+          f"generate {t_gen:.3f} s, encode {t_enc:.3f} s", flush=True)
+    kernels.reset_launches()
+    phases = {}
+    t0 = time.perf_counter()
+    doc = DeviceDoc.merge(blobs, device=device, phases=phases)
+    t1 = time.perf_counter()
+    text = doc.text(text_obj)
+    t_end = time.perf_counter()
+    phases["read"] = t_end - t1
+    counts = kernels.launch_counts()
+    log = doc.log
+    report_path("text fan-in", log, phases, t_end - t0, counts, card)
+    if len(text) != expect_len:
+        raise AssertionError(f"text length {len(text)} != expected {expect_len}")
+    check_launches("text fan-in", counts, SHARED + ("scatter_winners",),
+                   ("sort_winners",))
+    print(f"text: {len(text)} characters, as the generator counted", flush=True)
+    return log, counts
+
+
+def report_path(name, log, phases, e2e, counts, card) -> None:
+    padded = log.padded_columns()
+    print(f"{name}: ops {log.n}, P {len(padded['action'])}, "
+          f"Q {len(padded['pred_src'])}, pred edges {len(log.pred_src)}, "
+          f"objects {log.n_objs}, keys {len(log.props)}", flush=True)
+    print(f"{name} phases_s " + json.dumps(
+        {k: round(v, 6) for k, v in phases.items()}), flush=True)
+    print(f"{name} end to end (parse..read): {e2e:.3f} s, "
+          f"{log.n / e2e:.1f} ops/s on {card}", flush=True)
+    print(f"{name} launches {json.dumps(counts)}", flush=True)
+
+
+def record_paths(card: str, device):
+    """(b) the record-store fan-in and (c) the record store served:
+    (fan-in log, launch counts of each)."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.oplog import pad_columns
+
+    base, reps, expect, t_gen, t_enc = record_workload()
+    print(f"record workload: {1 + len(reps)} changes, "
+          f"{len(base) + sum(map(len, reps))} bytes; generate {t_gen:.3f} s, "
+          f"encode {t_enc:.3f} s; expected {json.dumps(expect)}", flush=True)
+
+    # (b) fan-in
+    kernels.reset_launches()
+    phases = {}
+    t0 = time.perf_counter()
+    doc = DeviceDoc.merge([base] + reps, device=device, phases=phases)
+    t1 = time.perf_counter()
+    got = W.record_counts(doc)
+    t_end = time.perf_counter()
+    phases["read"] = t_end - t1
+    fanin_counts = kernels.launch_counts()
+    report_path("record fan-in", doc.log, phases, t_end - t0, fanin_counts, card)
+    if got != expect:
+        raise AssertionError(f"record fan-in read {got}, generator counted {expect}")
+    check_launches("record fan-in", fanin_counts, SHARED + ("sort_winners",),
+                   ("scatter_winners",))
+    print(f"record fan-in: {json.dumps(got)}, as the generator counted", flush=True)
+
+    # (c) served: the base resident on the card, then 64 batches of 16
+    batches = W.record_batches(reps, RECORD_BATCH)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    served = DeviceDoc.merge([base], device=device)
+    t_base = time.perf_counter() - t0
+    base_counts = kernels.launch_counts()
+    print(f"record served base launches {json.dumps(base_counts)}", flush=True)
+    check_launches("record served base", base_counts, SHARED + ("sort_winners",),
+                   ("scatter_winners",))
+    # note each batch's subset (its dirty objects) to check the kernels at
+    # a served batch's shapes afterwards
+    dirty_sets = []
+    dispatch = DeviceDoc._dispatch_async
+
+    def noting_dispatch(self, dirty, phases=None):
+        handle = dispatch(self, dirty, phases)
+        subset = handle is not None and not handle.get("fallback")
+        dirty_sets.append(np.array(dirty, np.int64) if subset else None)
+        return handle
+
+    phases = {}
+    DeviceDoc._dispatch_async = noting_dispatch
+    try:
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        applied = served.apply_batches(batches, phases)
+        t_end = time.perf_counter()
+        served_counts = kernels.launch_counts()
+    finally:
+        DeviceDoc._dispatch_async = dispatch
+    seconds = phases.pop("batches")
+    print(f"record served: base merge {t_base:.3f} s, {len(batches)} batches of "
+          f"{RECORD_BATCH}: {t_end - t1:.3f} s, per batch p50 "
+          f"{statistics.median(seconds):.6f} s max {max(seconds):.6f} s on {card}",
+          flush=True)
+    print("record served stages_s " + json.dumps(
+        {k: round(v, 6) for k, v in phases.items()}), flush=True)
+    print(f"record served launches {json.dumps(served_counts)}", flush=True)
+    if applied != len(reps):
+        raise AssertionError(f"served {applied} of {len(reps)} changes")
+    check_launches("record served", served_counts, SHARED + ("sort_winners",),
+                   ("scatter_winners",))
+    n = doc.log.n
+    if served.log.n != n or served.log.n_objs != doc.log.n_objs:
+        raise AssertionError("served log differs in size from the fan-in's")
+    for k in DeviceDoc.READ_FETCH:
+        cut = doc.log.n_objs + 2 if k.startswith("obj_") else n
+        if not np.array_equal(np.asarray(served.res[k])[:cut],
+                              np.asarray(doc.res[k])[:cut]):
+            raise AssertionError(f"served {k} differs from the fan-in's")
+    if not np.array_equal(served.counter_val[:n], doc.counter_val[:n]):
+        raise AssertionError("served counter values differ from the fan-in's")
+    if W.record_counts(served) != expect:
+        raise AssertionError("served reads differ from the generator's counts")
+    print("record served == record fan-in on every READ_FETCH array", flush=True)
+    # the last batch's subset columns: they are those of the final log
+    if len(dirty_sets) != len(batches) or dirty_sets[-1] is None:
+        raise AssertionError("the last served batch did not take the subset "
+                             "re-resolve")
+    dirty = dirty_sets[-1]
+    last = (pad_columns(served._subset_cols(served._subset_rows(dirty), dirty),
+                        len(dirty)), len(dirty), len(served.log.props))
+    counts = {"records": fanin_counts, "served base": base_counts,
+              "served": served_counts}
+    return doc.log, last, counts
+
+
+def check_served_subset(last, device) -> None:
+    """One served batch's subset columns: the whole merge on the card
+    equals the plain CPU path on every output, exactly."""
+    import numpy as np
+
+    from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.ops.merge import ALL_OUTPUTS, merge_kernel
+
+    cols, n_objs, n_props = last
+    gpu = merge_kernel(columns_from_numpy(cols, device), n_objs, n_props)
+    cpu = merge_kernel(columns_from_numpy(cols, "cpu"), n_objs, n_props)
+    for k in ALL_OUTPUTS:
+        if not np.array_equal(gpu[k].cpu().numpy(), cpu[k].numpy()):
+            raise AssertionError(f"served subset: {k} differs between cuda and cpu")
+    print(f"served subset (P {len(cols['action'])}, {n_objs} objects, prop ids "
+          f"to {int(cols['prop'].max())}): cuda == cpu on all outputs", flush=True)
+
+
+def path_kernels(cols, n_objs: int, n_props: int, device):
+    """The kernels of ``merge_kernel`` run on one path's padded columns as
+    the merge runs them: [(name, kernel, plain, args, out, library)]."""
     from automerge_tpu_torch.convert import columns_from_numpy
     from automerge_tpu_torch.kernels import forest as F
     from automerge_tpu_torch.kernels import linearize as L
     from automerge_tpu_torch.kernels import scatter_winners as SW
+    from automerge_tpu_torch.kernels import sort_winners as SO
     from automerge_tpu_torch.kernels import succ_vis as SV
-    from automerge_tpu_torch.ops.merge import scatter_geom_key
+    from automerge_tpu_torch.ops.merge import scatter_geom_key, scatter_geometry_ok
 
-    c = columns_from_numpy(log.padded_columns(), device)
-    n_objs2, n_props = scatter_geom_key(log.n_objs, len(log.props))
+    c = columns_from_numpy(cols, device)
     sv_in = (c["action"], c["value_tag"], c["value_i32"], c["covered"],
              c["pred_src"], c["pred_tgt"])
     sv = SV.succ_vis(*sv_in)
-    visible = sv[3]
-    sw_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
-             c["width"], visible, n_objs2, n_props)
-    sw = SW.scatter_winners(*sw_in)
+    rows = [("succ_vis", SV.succ_vis, SV.succ_vis_plain, sv_in, sv, None)]
+    win_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
+              c["width"], sv[3])
+    if scatter_geometry_ok(c["action"].numel(), n_objs, n_props):
+        sw_in = win_in + scatter_geom_key(n_objs, n_props)
+        rows.append(("scatter_winners", SW.scatter_winners,
+                     SW.scatter_winners_plain, sw_in, SW.scatter_winners(*sw_in),
+                     None))
+    else:
+        keys = group_keys(*win_in[:5])
+        rows.append(("sort_winners", SO.sort_winners, SO.sort_winners_plain,
+                     win_in, SO.sort_winners(*win_in), lambda: torch.sort(keys)))
     fo_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
     fo = F.forest(*fo_in)
-    keys = F.sibling_keys(fo[0], fo[1])
-    srt = F.bitonic_sort(keys)
+    sib = F.sibling_keys(fo[0], fo[1])
+    rows.append(("forest", F.forest, F.forest_plain, fo_in, fo, None))
+    rows.append(("bitonic_sort", F.bitonic_sort, F.bitonic_sort_plain, (sib,),
+                 (F.bitonic_sort(sib),), lambda: torch.sort(sib)))
     li_in = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"])
-    li = L.linearize(*li_in)
-    torch.cuda.synchronize()
+    rows.append(("linearize", L.linearize, L.linearize_plain, li_in,
+                 (L.linearize(*li_in),), None))
+    return rows
 
-    rows = [
-        ("succ_vis", "automerge_tpu/ops/merge.py:59", SV.succ_vis,
-         SV.succ_vis_plain, sv_in, sv, None),
-        ("scatter_winners", "automerge_tpu/ops/merge.py:595", SW.scatter_winners,
-         SW.scatter_winners_plain, sw_in, sw, None),
-        ("forest", "automerge_tpu/ops/merge.py:551", F.forest, F.forest_plain,
-         fo_in, fo, None),
-        ("bitonic_sort", "automerge_tpu/ops/merge.py:582", F.bitonic_sort,
-         F.bitonic_sort_plain, (keys,), (srt,), lambda: torch.sort(keys)),
-        ("linearize", "automerge_tpu/ops/merge.py:216", L.linearize,
-         L.linearize_plain, li_in, (li,), None),
-    ]
-    sources = {
-        "succ_vis": "succ_vis.cu", "scatter_winners": "scatter_winners.cu",
-        "forest": "forest.cu", "bitonic_sort": "forest.cu",
-        "linearize": "linearize.cu",
+
+REPLACES = {
+    "succ_vis": ("automerge_tpu/ops/merge.py:59", "succ_vis.cu"),
+    "scatter_winners": ("automerge_tpu/ops/merge.py:595", "scatter_winners.cu"),
+    "sort_winners": ("automerge_tpu/ops/merge.py:110", "sort_winners.cu"),
+    "forest": ("automerge_tpu/ops/merge.py:551", "forest.cu"),
+    "bitonic_sort": ("automerge_tpu/ops/merge.py:582", "forest.cu"),
+    "linearize": ("automerge_tpu/ops/merge.py:216", "linearize.cu"),
+}
+
+
+def measure(name, kern, plain, args, out, library, reps: int) -> dict:
+    """One kernel at one path's shapes: its output against its plain
+    version (raising unless equal), its bound and its times."""
+    want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max_abs_err(out, want)
+    moved, ops = work(name, args, out)
+    bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+              "operations": ops / INT32_OPS_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: kern(*args), reps),
+        "plain_ms": cuda_ms(lambda: plain(*args), reps),
+        "bound_ms": bounds[bound_by],
+        "bound_by": bound_by,
+        "library_ms": cuda_ms(library, reps) if library else None,
     }
-    report = []
-    for name, replaces, kern, plain, args, out, library in rows:
-        want = plain(*args)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(out, want)
-        moved, ops = work(name, args, out)
-        bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
-                  "operations": ops / INT32_OPS_PER_S * 1e3}
-        bound_by = max(bounds, key=bounds.get)
-        report.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"automerge_tpu_torch/csrc/{sources[name]}",
-            "replaces": replaces,
-            "launches": counts[name],
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: kern(*args), reps),
-            "plain_ms": cuda_ms(lambda: plain(*args), reps),
-            "bound_ms": bounds[bound_by],
-            "bound_by": bound_by,
-            "library_ms": cuda_ms(library, reps) if library else None,
-        })
-    return report
+
+
+def kernel_report(paths, by_path, device, reps: int):
+    """Each kernel against its plain version at the shapes of every path
+    that runs it (``paths``: name -> (padded columns, n_objs, n_props)),
+    and sort_winners past 2^20 rows. A kernel's top-level numbers are
+    those of the first path that runs it; ``by_path`` has them all."""
+    from automerge_tpu_torch.kernels import sort_winners as SO
+
+    report = {}
+    for path, (cols, n_objs, n_props) in paths.items():
+        for name, kern, plain, args, out, library in path_kernels(
+                cols, n_objs, n_props, device):
+            m = {"P": len(cols["action"]),
+                 **measure(name, kern, plain, args, out, library, reps)}
+            m["launches"] = by_path[path][name]
+            print(f"{path}: {name} equal to its plain version, "
+                  f"{json.dumps(m)}", flush=True)
+            if name not in report:
+                replaces, source = REPLACES[name]
+                report[name] = {"name": name, "route": "cuda",
+                                "source": f"automerge_tpu_torch/csrc/{source}",
+                                "replaces": replaces, **m, "by_path": {}}
+            entry = report[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
+            entry["by_path"][path] = m
+    for name, entry in report.items():
+        launches = {path: counts[name] for path, counts in by_path.items()}
+        entry["launches"] = sum(launches.values())
+        entry["launches_by_path"] = launches
+
+    # sort_winners past 2^20 rows, where a key packing the row would overflow
+    wide = winner_columns(WIDE_P, 11, device)
+    SO.sort_winners.launches = 0
+    got = SO.sort_winners(*wide)
+    wide_launches = SO.sort_winners.launches
+    wide_keys = group_keys(*wide[:5])
+    m = {"P": WIDE_P, **measure("sort_winners", SO.sort_winners,
+                                SO.sort_winners_plain, wide, got,
+                                lambda: torch.sort(wide_keys), reps)}
+    m["launches"] = wide_launches
+    report["sort_winners"]["wide"] = m
+    report["sort_winners"]["max_abs_err"] = max(
+        report["sort_winners"]["max_abs_err"], m["max_abs_err"])
+    print(f"sort_winners at P = {WIDE_P}: equal to its plain version in "
+          f"{wide_launches} launches", flush=True)
+    order = ("succ_vis", "scatter_winners", "sort_winners", "forest",
+             "bitonic_sort", "linearize")
+    return [report[name] for name in order]
 
 
 def main() -> int:
@@ -254,9 +555,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     device = torch.device("cuda", 0)
 
-    from automerge_tpu_torch import kernels
     from automerge_tpu_torch.kernels import _build
-    from automerge_tpu_torch.ops.device_doc import DeviceDoc
 
     # 2. build
     t0 = time.perf_counter()
@@ -264,40 +563,21 @@ def main() -> int:
     print(f"build: {built:.2f} s compiling ({time.perf_counter() - t0:.2f} s "
           f"with cache check), {_build.library_path().name}", flush=True)
 
-    # 3. the main path
-    blobs, expect_len, text_obj, t_gen, t_enc = workload(
-        BASE_EDITS, REPLICAS, PER_REPLICA)
-    print(f"workload: {len(blobs)} changes, {sum(map(len, blobs))} bytes; "
-          f"generate {t_gen:.3f} s, encode {t_enc:.3f} s", flush=True)
-    kernels.reset_launches()
-    phases = {}
-    t0 = time.perf_counter()
-    doc = DeviceDoc.merge(blobs, device=device, phases=phases)
-    t1 = time.perf_counter()
-    text = doc.text(text_obj)
-    t_end = time.perf_counter()
-    phases["read"] = t_end - t1
-    counts = kernels.launch_counts()
-    log = doc.log
-    P = len(log.padded_columns()["action"])
-    Q = len(log.padded_columns()["pred_src"])
-    e2e = t_end - t0
-    print(f"main path: ops {log.n}, P {P}, Q {Q}, pred edges {len(log.pred_src)}, "
-          f"objects {log.n_objs}, keys {len(log.props)}", flush=True)
-    print("phases_s " + json.dumps({k: round(v, 6) for k, v in phases.items()}),
-          flush=True)
-    print(f"end to end (parse..read): {e2e:.3f} s, {log.n / e2e:.1f} ops/s on "
-          f"{card}", flush=True)
-    print(f"launches {json.dumps(counts)}", flush=True)
-    if len(text) != expect_len:
-        raise AssertionError(f"text length {len(text)} != expected {expect_len}")
-    idle = [k for k, v in counts.items() if v < 1]
-    if idle:
-        raise AssertionError(f"kernels not launched on the main path: {idle}")
-    print(f"text: {len(text)} characters, as the generator counted", flush=True)
+    # 3. the main paths
+    text_log, text_counts = text_path(card, device)
+    record_log, last, record_counts = record_paths(card, device)
 
-    # 4./5. every kernel against its plain version; the small cross-check
-    report = kernel_report(log, counts, device, REPS)
+    # 4./5. every kernel against its plain version at each path's shapes;
+    # the whole merge against the CPU on a small fan-in and a served subset
+    by_path = {"text": text_counts, **record_counts}
+    paths = {
+        "text": (text_log.padded_columns(), text_log.n_objs, len(text_log.props)),
+        "records": (record_log.padded_columns(), record_log.n_objs,
+                    len(record_log.props)),
+        "served": last,
+    }
+    report = kernel_report(paths, by_path, device, REPS)
+    check_served_subset(last, device)
     check_small_against_cpu(device)
     print("small fan-in: cuda == cpu on all outputs", flush=True)
     print(json.dumps({"kernels": report}), flush=True)

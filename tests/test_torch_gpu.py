@@ -17,10 +17,13 @@ from automerge_tpu_torch.kernels import forest as F
 from automerge_tpu_torch.kernels import launch_counts, reset_launches
 from automerge_tpu_torch.kernels import linearize as L
 from automerge_tpu_torch.kernels import scatter_winners as SW
+from automerge_tpu_torch.kernels import sort_winners as SO
 from automerge_tpu_torch.kernels import succ_vis as SV
-from automerge_tpu_torch.ops.merge import ALL_OUTPUTS, merge_columns, merge_kernel
+from automerge_tpu_torch.ops.device_doc import DeviceDoc
+from automerge_tpu_torch.ops.merge import ALL_OUTPUTS, merge_columns
 from automerge_tpu_torch.ops.merge import scatter_geom_key
 from automerge_tpu_torch.ops.oplog import OpLog
+from automerge_tpu_torch.storage.change import parse_change
 
 pytestmark = pytest.mark.gpu
 
@@ -87,6 +90,7 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
     assert launch_counts() == {
         "succ_vis": 3,  # fill, edges, visibility
         "scatter_winners": 5,  # three fills, scatter, gather
+        "sort_winners": 0,  # the text fan-in passes the scatter gate
         "forest": 4,  # two fills, links, next_sib
         "bitonic_sort": 1 + sort_stages * (sort_stages + 1) // 2,
         "linearize": 2 * L.rounds(P) + 3,
@@ -96,8 +100,60 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
 
 
-def test_sort_based_winners_are_not_ported_to_cuda(cuda):
-    log = _log(*SIZES[0])
-    c = columns_from_numpy(log.padded_columns(), cuda)
-    with pytest.raises(NotImplementedError, match="resolve_state"):
-        merge_kernel(c, log.n_objs, 1 << 20)
+# (P, max prop id): a small P whose prop ids exceed it, as a subset
+# re-resolve's do, and P above 2^20, where a key that also packed the row
+# would overflow int64
+WINNER_SIZES = [(1000, (1 << 31) - 1), (24576, 70_000), ((1 << 20) + 12_345, 70_000)]
+
+
+@pytest.mark.parametrize("size", WINNER_SIZES, ids=lambda s: f"P{s[0]}")
+def test_sort_winners_equals_plain_version(cuda, size):
+    import chip_smoke
+
+    args = chip_smoke.winner_columns(size[0], 7, cuda, max_prop=size[1])
+    reset_launches()
+    got = SO.sort_winners(*args)
+    M = 1 << (size[0] - 1).bit_length()
+    stages = (M - 1).bit_length()
+    assert launch_counts()["sort_winners"] == 3 + stages * (stages + 1) // 2
+    _same(got, SO.sort_winners_plain(*args))
+
+
+def _record_store():
+    base, reps, expect = W.record_store(1024, 64, 60)
+    return base.raw_bytes, [r.raw_bytes for r in reps], expect
+
+
+def test_record_store_merge_on_card_takes_sort_winners(cuda):
+    base, reps, expect = _record_store()
+    log = OpLog.from_changes([parse_change(b)[0] for b in [base] + reps])
+    kw = dict(n_objs=log.n_objs, n_props=len(log.props))
+    reset_launches()
+    gpu = merge_columns(log.columns(), device=cuda, **kw)
+    counts = launch_counts()
+    assert counts["sort_winners"] > 0 and counts["scatter_winners"] == 0
+    cpu = merge_columns(log.columns(), device="cpu", **kw)
+    for k in ALL_OUTPUTS:
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+
+
+def test_served_record_store_on_card_equals_cpu(cuda):
+    """The card's pipelined apply_batches ends where the CPU's sequential
+    one does, and where the one-shot merge does."""
+    base, reps, expect = _record_store()
+    batches = W.record_batches(reps, 8)
+    docs = {}
+    for dev in (cuda, "cpu"):
+        doc = DeviceDoc.merge([base], device=dev)
+        assert doc.apply_batches(batches) == len(reps)
+        docs[str(dev)] = doc
+    merged = DeviceDoc.merge([base] + reps, device=cuda)
+    gpu = docs[str(cuda)]
+    n = merged.log.n
+    for other in (docs["cpu"], merged):
+        for k in DeviceDoc.READ_FETCH:
+            cut = n if not k.startswith("obj_") else merged.log.n_objs + 2
+            np.testing.assert_array_equal(np.asarray(gpu.res[k])[:cut],
+                                          np.asarray(other.res[k])[:cut], err_msg=k)
+    np.testing.assert_array_equal(gpu.counter_val[:n], merged.counter_val[:n])
+    assert W.record_counts(gpu) == expect

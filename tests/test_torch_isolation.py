@@ -35,6 +35,11 @@ base = W.build_base(trace, 200)
 changes = base.changes + W.synth_fanin(base, trace, 3, 20, 200)
 doc = DeviceDoc.merge([c.raw_bytes for c in changes], device="cpu")
 assert len(doc.text(base.text_exid)) == W.expected_text_length(changes)
+rbase, reps, expect = W.record_store(64, 8, 20)
+served = DeviceDoc.merge([rbase.raw_bytes], device="cpu")
+served.apply_changes([r.raw_bytes for r in reps[:4]])
+served.apply_batches(W.record_batches([r.raw_bytes for r in reps[4:]], 2))
+assert W.record_counts(served) == expect
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "automerge_tpu") or m.startswith(("jax.", "automerge_tpu."))
@@ -87,6 +92,23 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
         DeviceDoc.merge([c.raw_bytes for c in base.changes])
     with pytest.raises(RuntimeError):
         merge_columns(cols, device="cuda")
+    rbase, reps, _ = W.record_store(16, 2, 20)
+    with pytest.raises(RuntimeError):
+        DeviceDoc.merge([rbase.raw_bytes])
+    with pytest.raises(RuntimeError):
+        DeviceDoc(OpLog.from_changes([rbase]), {})
+
+
+def test_served_document_stays_on_its_device(monkeypatch):
+    """A document resolved on the CPU applies and re-resolves there; it
+    never reaches for the card."""
+    rbase, reps, expect = W.record_store(64, 8, 20)
+    doc = DeviceDoc.merge([rbase.raw_bytes], device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert doc.apply_changes([r.raw_bytes for r in reps[:4]]) == 4
+    assert doc.apply_batches(
+        W.record_batches([r.raw_bytes for r in reps[4:]], 2)) == 4
+    assert W.record_counts(doc) == expect
 
 
 def test_cpu_is_taken_only_when_asked():

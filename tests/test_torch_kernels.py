@@ -26,6 +26,7 @@ from automerge_tpu_torch.kernels import forest as F
 from automerge_tpu_torch.kernels import launch_counts, reset_launches
 from automerge_tpu_torch.kernels import linearize as L
 from automerge_tpu_torch.kernels import scatter_winners as SW
+from automerge_tpu_torch.kernels import sort_winners as SO
 from automerge_tpu_torch.kernels import succ_vis as SV
 from automerge_tpu_torch.ops import merge as M
 
@@ -197,11 +198,12 @@ def test_resolve_state_scatter(case):
 
 
 def test_resolve_state_sorted(case):
-    """The plain sort-based winners (CPU beyond the scatter gate)."""
+    """The sort-based winners (the merge beyond the scatter gate)."""
     _, _, cols, c = case
     jc = _jax_cols(cols)
     ref = J.resolve_state(jc, *J.succ_resolution(jc))
-    got = M.resolve_state_sorted(c, _succ(c)[3])
+    got = SO.sort_winners(c["action"], c["insert"], c["elem_ref"],
+                          c["obj_dense"], c["prop"], c["width"], _succ(c)[3])
     names = ("winner", "conflicts", "obj_vis_len", "obj_text_width")
     for name, t in zip(names, got):
         _eq(ref[name], t)
@@ -288,6 +290,24 @@ def test_smoke_bound_counts_only_the_bytes_the_function_reads(case):
     n_roots = len(set(c["obj_dense"][is_elem].tolist()))
     moved, _ = chip_smoke.work("linearize", li_in, (L.linearize(*li_in),))
     assert moved == 17 * P + 4 * n_roots + 4 * P
+
+
+def test_smoke_bound_of_sort_winners_reads_width_only_at_winners(case):
+    """The winner kernels read their six per-row columns in full, width
+    only at the distinct winners of visible elements, and write winner,
+    conflicts and the two per-object stats once."""
+    import chip_smoke
+
+    _, _, _, c = case
+    P = c["action"].numel()
+    args = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
+            c["width"], _succ(c)[3])
+    out = SO.sort_winners(*args)
+    elem_vis = c["insert"] & (c["action"] != 15) & (out[0] >= 0)
+    n_winners = len(set(out[0][elem_vis].tolist()))
+    moved, ops = chip_smoke.work("sort_winners", args, out)
+    assert moved == 18 * P + 4 * n_winners + 8 * P + 8 * (P + 2)
+    assert ops == 10 * P
 
 
 def test_cpu_wrappers_take_plain_path_and_count_no_launch(case):
