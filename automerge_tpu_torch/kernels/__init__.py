@@ -8,6 +8,9 @@ PyTorch version.
 | ``sort_winners.sort_winners`` | ``resolve_state`` :110-213 (its winners) |
 | ``forest.forest`` (+ ``forest.bitonic_sort``) | ``forest`` :551-592 |
 | ``linearize.linearize`` | ``device_linearize`` :216-285 |
+| ``expand_runs.expand_runs`` | ``_expander`` :849, ``run_native_kernel``'s gather :1015-1034, ``_expand`` :1135 |
+| ``expand_runs.unpack_flags`` | ``_unpack_transport``'s flags split :1157-1162 |
+| ``emit_packed.emit_packed`` | ``_emit`` :1181 with ``_bitpack`` :1165 |
 
 A wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches its kernel (built on first use, see ``_build``) or raises.
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 def wrappers():
     """The kernel wrappers of the merge path, by name."""
+    from .emit_packed import emit_packed
+    from .expand_runs import expand_runs, unpack_flags
     from .forest import bitonic_sort, forest
     from .linearize import linearize
     from .scatter_winners import scatter_winners
@@ -33,6 +38,9 @@ def wrappers():
         "forest": forest,
         "bitonic_sort": bitonic_sort,
         "linearize": linearize,
+        "expand_runs": expand_runs,
+        "unpack_flags": unpack_flags,
+        "emit_packed": emit_packed,
     }
 
 

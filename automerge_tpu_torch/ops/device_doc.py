@@ -19,13 +19,12 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from ..convert import columns_from_numpy
 from ..device import resolve_device
 from ..storage.change import StoredChange, parse_change
 from ..types import (
     ACTOR_BITS, Action, ObjType, is_make_action, objtype_for_action,
 )
-from .merge import merge_columns, merge_kernel
+from .merge import merge_columns, prepare_resolution
 from .oplog import (
     ELEM_HEAD, ELEM_MISSING, MAKE_ACTIONS, OpLog, TAG_COUNTER, _capacity,
     pad_columns,
@@ -54,11 +53,13 @@ def order_elem_rows(log: OpLog, elem_index: np.ndarray,
     return erows[np.argsort(elem_index[erows], kind="stable")]
 
 
-def _resolve_log(log: OpLog, device, phases=None) -> Dict[str, np.ndarray]:
+def _resolve_log(log: OpLog, device, phases=None, staging="run_native",
+                 transport="dict") -> Dict[str, np.ndarray]:
     """The read outputs of one merge of the whole log on ``device``."""
     return merge_columns(
         log.columns(), fetch=DeviceDoc.READ_FETCH, n_objs=log.n_objs,
         n_props=len(log.props), device=device, phases=phases,
+        staging=staging, transport=transport,
     )
 
 
@@ -81,11 +82,14 @@ class DeviceDoc:
         "obj_vis_len", "obj_text_width",
     )
 
-    def __init__(self, log: OpLog, res: Dict[str, np.ndarray], device=None):
+    def __init__(self, log: OpLog, res: Dict[str, np.ndarray], device=None,
+                 staging: str = "run_native"):
         self.log = log
         self.res = res
-        # every re-resolve of this document runs where it was resolved
+        # every re-resolve of this document runs where it was resolved,
+        # its columns staged as they were (ops/merge.py prepare_resolution)
         self.device = resolve_device(device)
+        self.staging = staging
         n = log.n
         self.visible = res["visible"][:n]
         self.winner = res["winner"][:n]
@@ -134,29 +138,37 @@ class DeviceDoc:
     # -- construction -------------------------------------------------------
 
     @classmethod
-    def merge(cls, changes: Sequence, device=None, phases=None) -> "DeviceDoc":
+    def merge(cls, changes: Sequence, device=None, phases=None,
+              staging: str = "run_native", transport: str = "dict") -> "DeviceDoc":
         """N-way fan-in merge of replicas' changes: change chunks (bytes)
         or parsed ``StoredChange``s, in any order, duplicates allowed.
-        ``phases`` (a dict) collects the seconds of each phase."""
+        ``phases`` (a dict) collects the seconds of each phase.
+        ``staging`` (kept for every later re-resolve) and ``transport``
+        (this resolve only) are ``merge_columns``'."""
         t0 = time.perf_counter()
         parsed = _parsed(changes)
         if phases is not None:
             phases["parse"] = time.perf_counter() - t0
-        return cls.from_changes(parsed, device=device, phases=phases)
+        return cls.from_changes(parsed, device=device, phases=phases,
+                                staging=staging, transport=transport)
 
     @classmethod
     def from_changes(cls, changes: Sequence[StoredChange], device=None,
-                     phases=None) -> "DeviceDoc":
+                     phases=None, staging: str = "run_native",
+                     transport: str = "dict") -> "DeviceDoc":
         t0 = time.perf_counter()
         log = OpLog.from_changes(changes)
         if phases is not None:
             phases["oplog"] = time.perf_counter() - t0
-        return cls.resolve(log, device=device, phases=phases)
+        return cls.resolve(log, device=device, phases=phases, staging=staging,
+                           transport=transport)
 
     @classmethod
-    def resolve(cls, log: OpLog, device=None, phases=None) -> "DeviceDoc":
+    def resolve(cls, log: OpLog, device=None, phases=None,
+                staging: str = "run_native", transport: str = "dict") -> "DeviceDoc":
         dev = resolve_device(device)
-        return cls(log, _resolve_log(log, dev, phases), dev)
+        return cls(log, _resolve_log(log, dev, phases, staging, transport), dev,
+                   staging)
 
     # -- incremental updates ------------------------------------------------
     #
@@ -319,7 +331,8 @@ class DeviceDoc:
         """Full fallback: re-extract and re-resolve everything in place."""
         pend = self._pending
         log = OpLog.from_changes(changes)
-        self.__init__(log, _resolve_log(log, self.device), self.device)
+        self.__init__(log, _resolve_log(log, self.device, staging=self.staging),
+                      self.device, self.staging)
         self._pending = pend
 
     def _apply_append(self, info, ready: Sequence) -> None:
@@ -723,7 +736,7 @@ class DeviceDoc:
         rows = self._subset_rows(dirty)
         if len(rows) / m > DIRTY_FRACTION_LIMIT or len(dirty) >= log.n_objs:
             # re-resolving everything is cheaper than the bookkeeping
-            res = _resolve_log(log, self.device)
+            res = _resolve_log(log, self.device, staging=self.staging)
             for k in ("visible", "winner", "conflicts", "elem_index"):
                 self.res[k][:] = np.asarray(res[k])[:m]
             for k in ("obj_vis_len", "obj_text_width"):
@@ -734,6 +747,7 @@ class DeviceDoc:
         res_sub = merge_columns(
             self._subset_cols(rows, dirty), fetch=self.READ_FETCH,
             n_objs=len(dirty), n_props=len(log.props), device=self.device,
+            staging=self.staging,
         )
         self._scatter_subset(rows, dirty, res_sub)
 
@@ -741,6 +755,8 @@ class DeviceDoc:
 
     def _dispatch_async(self, dirty, phases=None):
         """Launch one dirty-set resolution on the card WITHOUT reading back:
+        the columns are staged as the document's ``staging`` says (by
+        default run tables, decoded by ``expand_runs`` on the card), and
         the h2d copies and the kernels (document order included: the
         ``linearize`` kernel) are queued on the current stream. Returns a
         handle for ``_collect_async``, None when there is nothing to
@@ -759,8 +775,8 @@ class DeviceDoc:
         with _stage(phases, "subset"):
             cols = pad_columns(self._subset_cols(rows, dirty), D)
         with _stage(phases, "launch"):
-            out = merge_kernel(columns_from_numpy(cols, self.device), D,
-                               len(log.props))
+            out = prepare_resolution(cols, D, len(log.props), self.device,
+                                     self.staging)()
         return {"rows": rows, "dirty": dirty,
                 "out": {k: out[k] for k in self.READ_FETCH}}
 

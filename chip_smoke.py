@@ -1,6 +1,8 @@
 """Chip smoke test of automerge_tpu_torch on one NVIDIA GPU: the fan-in
 merge of a text document, the fan-in of a record store and the record
-store served batch by batch, end to end through hand-written CUDA kernels.
+store served batch by batch, end to end through hand-written CUDA kernels,
+with the columns staged as run tables (run-native, the default), and the
+packed transport.
 
     python3 chip_smoke.py     # full width, as below
 
@@ -9,35 +11,60 @@ Phases, each raising on failure (nothing is caught):
  1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
     no CUDA device is an error;
  2. build the kernels from automerge_tpu_torch/csrc with nvcc (sm_90a);
- 3. three main paths, each with every kernel's launch count set to 0 just
+ 3. the main paths, each with every kernel's launch count set to 0 just
     before it and read just after:
     a. text fan-in (BASELINE width: a 260,000-edit base, 1024 x 250):
-       parse, OpLog, DeviceDoc.merge on the card and text(); the text
-       length must equal the generator's count; scatter_winners must run
-       (the group table passes the scatter gate), sort_winners must not;
+       parse, OpLog, DeviceDoc.merge on the card (run-native staging:
+       expand_runs decodes the run tables) and text(); the text length must
+       equal the generator's count; scatter_winners must run (the group
+       table passes the scatter gate), sort_winners must not; then, on the
+       same OpLog, merge_columns with staging="expand" and "dense": all 13
+       outputs equal across the three stagings (h2d bytes, host encode and
+       decode seconds, launches printed for each; the "expand" staging,
+       K9's path, is reported as a path); then DeviceDoc.resolve of the same
+       log with transport="packed" (its own launch counts: expand_runs,
+       unpack_flags, emit_packed), equal to the dict resolve on READ_FETCH
+       (conflicts as > 1), the same text, and its flat vector's bytes
+       printed against the dict readback's;
     b. record-store fan-in (65,536 records x 8 fields, 1024 x 250): the
        same phases, then keys of the records map and map_entries of every
        visible record; the generator's counts (visible records, the votes
        sum, keys with concurrent values) must hold; sort_winners must run,
-       scatter_winners must not;
+       scatter_winners must not; the three stagings and the packed
+       transport as in (a), the packed document's reads the generator's
+       counts;
     c. the record store served: the base merged on the card (its launches
        read on their own), then DeviceDoc.apply_batches of the replicas in
-       64 batches of 16, with the counts set to 0 just before; every
-       READ_FETCH array must equal (b)'s exactly;
+       64 batches of 16, with the counts set to 0 just before; every batch
+       must launch expand_runs (run-native staging, K1); every READ_FETCH
+       array must equal (b)'s exactly; then the same 64 batches from the
+       same base with staging="dense" (no expand_runs; its base merge's
+       launches again read on their own, the counts set to 0 just before
+       the batches), equal to (b) too, p50 and max per batch printed
+       beside the run-native drain's;
+    d. the input on which the JAX package's packed key merges two groups
+       (two map puts, props 64 and 0, P = 16): packed equals dict;
  4. every kernel against its plain PyTorch version on the same CUDA
     tensors (exact equality: all integer arithmetic) at the shapes of
     each path that runs it: the text fan-in, the record fan-in and the
     last served batch's subset columns (whose prop ids are the whole
-    log's); sort_winners also on synthetic columns with P > 2^20; the
-    whole merge on the card against the plain CPU path on all 13 outputs
-    for that served subset and for a small fan-in;
+    log's); expand_runs at every stack of run tables the run-native
+    staging makes on those three (row stacks, and the record fan-in's
+    pred-edge stack: the text's pred columns stay dense), at the stacks
+    of the eager-expansion staging on both fan-ins (the delta form, with
+    the bool columns) and at the packed transport's; unpack_flags and
+    emit_packed at the packed transport of both fan-ins; sort_winners
+    also on synthetic columns with P > 2^20; the whole merge on the card
+    against the plain CPU path on all 13 outputs for that served subset
+    and for a small fan-in;
  5. one {"kernels": [...]} line: kernel launches on the main paths (their
     sum, and by path), median CUDA-event times of the kernel, its plain
     version and (where one exists) a single PyTorch call computing the
-    same function, and the bound: the larger of the bytes the function
-    must move over 3.35 TB/s and its integer operations over the int32
-    rate (``work``); the top-level numbers are those of the first path
-    that runs the kernel, ``by_path`` has each path's;
+    same function (expand_runs: torch.searchsorted and a gather), and the
+    bound: the larger of the bytes the function must move over 3.35 TB/s
+    and its integer operations over the int32 rate (``work``); the
+    top-level numbers are those of the first path that runs the kernel,
+    ``by_path`` has each path's (and each stack's, for expand_runs);
  6. the last line: {"ok": true, "device": {...}}.
 """
 
@@ -134,6 +161,20 @@ def work(name: str, args, out):
         read = (nbytes(first_child[:P], next_sib[:P], is_elem, elem_ref, obj_dense)
                 + 4 * distinct(obj_dense[is_elem]))
         return read + nbytes(*out), 10 * P
+    if name == "expand_runs":
+        W, C, S, n, _bools = args
+        K, rcap = W.shape
+        read = nbytes(W, C) + (nbytes(S) if S is not None else 0)
+        # a binary search over rcap run ends per value, then the slope term
+        per_value = rcap.bit_length() + (2 if S is not None else 0)
+        return read + nbytes(*out), K * n * per_value
+    if name == "unpack_flags":
+        (flags,) = args
+        return nbytes(flags, *out), 6 * flags.numel()
+    if name == "emit_packed":
+        core, fetch, obj_cap = args
+        ins = [core[k][:obj_cap] if k.startswith("obj_") else core[k] for k in fetch]
+        return nbytes(*ins, *out), 2 * sum(t.numel() for t in ins)
     raise KeyError(name)
 
 
@@ -266,10 +307,83 @@ def check_launches(path: str, counts: dict, must: tuple, must_not: tuple) -> Non
 
 
 SHARED = ("succ_vis", "forest", "bitonic_sort", "linearize")
+RUN_NATIVE = SHARED + ("expand_runs",)
+PACKED = SHARED + ("expand_runs", "unpack_flags", "emit_packed")
+TRANSPORT_ONLY = ("unpack_flags", "emit_packed")
+
+
+def check_stagings(name: str, log, device) -> dict:
+    """The log merged under each staging: all 13 outputs equal; the bytes
+    each copies, its host encode, its decode on the card and its launches
+    printed. Returns the launch counts of the eager-expansion staging
+    (K9's path)."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.ops.merge import ALL_OUTPUTS, STAGINGS, merge_columns
+
+    kw = dict(n_objs=log.n_objs, n_props=len(log.props), device=device)
+    outs, counts = {}, {}
+    for staging in STAGINGS:
+        phases = {}
+        kernels.reset_launches()
+        outs[staging] = merge_columns(log.columns(), staging=staging,
+                                      phases=phases, **kw)
+        counts[staging] = kernels.launch_counts()
+        print(f"{name} staging {staging}: h2d_bytes {phases['h2d_bytes']} of "
+              f"dense {phases['h2d_dense_bytes']}; encode (_slope_rle) "
+              f"{phases.get('encode', 0.0):.6f} s, h2d {phases['h2d']:.6f} s, "
+              f"expand (expand_runs) {phases.get('expand', 0.0) * 1e3:.3f} ms; "
+              f"launches {json.dumps(counts[staging])}", flush=True)
+        decodes = ("expand_runs",) if staging != "dense" else ()
+        check_launches(f"{name} staging {staging}", counts[staging],
+                       SHARED + decodes,
+                       TRANSPORT_ONLY + (("expand_runs",) if not decodes else ()))
+    for staging in STAGINGS[1:]:
+        for k in ALL_OUTPUTS:
+            if not np.array_equal(outs[staging][k], outs[STAGINGS[0]][k]):
+                raise AssertionError(f"{name}: {k} differs between staging "
+                                     f"{staging} and {STAGINGS[0]}")
+    print(f"{name}: the three stagings agree on all 13 outputs", flush=True)
+    return counts["expand"]
+
+
+def check_packed(name: str, doc, dict_phases, device):
+    """DeviceDoc.resolve of ``doc``'s log with the packed transport: its
+    READ_FETCH arrays equal ``doc``'s (conflicts as > 1). Returns (packed
+    document, its launch counts)."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    kernels.reset_launches()
+    phases = {}
+    packed = DeviceDoc.resolve(doc.log, device=device, phases=phases,
+                               transport="packed")
+    counts = kernels.launch_counts()
+    n = doc.log.n
+    for k in DeviceDoc.READ_FETCH:
+        cut = doc.log.n_objs + 2 if k.startswith("obj_") else n
+        got, want = np.asarray(packed.res[k])[:cut], np.asarray(doc.res[k])[:cut]
+        if k == "conflicts":
+            got, want = got > 1, want > 1
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: packed {k} differs from the dict path's")
+    print(f"{name} packed: READ_FETCH equal to the dict path's (conflicts as "
+          f"> 1); read back {phases['d2h_bytes']} bytes in one flat vector "
+          f"against the dict path's {dict_phases['d2h_bytes']}; h2d_bytes "
+          f"{phases['h2d_bytes']} of dense {phases['h2d_dense_bytes']}", flush=True)
+    print(f"{name} packed phases_s " + json.dumps(
+        {k: round(v, 6) for k, v in phases.items()}), flush=True)
+    print(f"{name} packed launches {json.dumps(counts)}", flush=True)
+    check_launches(f"{name} packed", counts, PACKED, ())
+    return packed, counts
 
 
 def text_path(card: str, device):
-    """(a) the text fan-in: (log, launch counts)."""
+    """(a) the text fan-in: (log, launch counts by path: the fan-in, its
+    eager-expansion staging and its packed resolve)."""
     from automerge_tpu_torch import kernels
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
 
@@ -290,10 +404,16 @@ def text_path(card: str, device):
     report_path("text fan-in", log, phases, t_end - t0, counts, card)
     if len(text) != expect_len:
         raise AssertionError(f"text length {len(text)} != expected {expect_len}")
-    check_launches("text fan-in", counts, SHARED + ("scatter_winners",),
-                   ("sort_winners",))
+    check_launches("text fan-in", counts, RUN_NATIVE + ("scatter_winners",),
+                   ("sort_winners",) + TRANSPORT_ONLY)
     print(f"text: {len(text)} characters, as the generator counted", flush=True)
-    return log, counts
+    expand_counts = check_stagings("text fan-in", log, device)
+    packed, packed_counts = check_packed("text fan-in", doc, phases, device)
+    if packed.text(text_obj) != text:
+        raise AssertionError("text fan-in: the packed document's text differs")
+    print("text fan-in packed: the same text", flush=True)
+    return log, {"text": counts, "text expand": expand_counts,
+                 "text packed": packed_counts}
 
 
 def report_path(name, log, phases, e2e, counts, card) -> None:
@@ -336,9 +456,15 @@ def record_paths(card: str, device):
     report_path("record fan-in", doc.log, phases, t_end - t0, fanin_counts, card)
     if got != expect:
         raise AssertionError(f"record fan-in read {got}, generator counted {expect}")
-    check_launches("record fan-in", fanin_counts, SHARED + ("sort_winners",),
-                   ("scatter_winners",))
+    check_launches("record fan-in", fanin_counts, RUN_NATIVE + ("sort_winners",),
+                   ("scatter_winners",) + TRANSPORT_ONLY)
     print(f"record fan-in: {json.dumps(got)}, as the generator counted", flush=True)
+    expand_counts = check_stagings("record fan-in", doc.log, device)
+    packed, packed_counts = check_packed("record fan-in", doc, phases, device)
+    if W.record_counts(packed) != expect:
+        raise AssertionError("record fan-in: the packed document's reads differ "
+                             "from the generator's counts")
+    print("record fan-in packed: reads as the generator counted", flush=True)
 
     # (c) served: the base resident on the card, then 64 batches of 16
     batches = W.record_batches(reps, RECORD_BATCH)
@@ -348,12 +474,15 @@ def record_paths(card: str, device):
     t_base = time.perf_counter() - t0
     base_counts = kernels.launch_counts()
     print(f"record served base launches {json.dumps(base_counts)}", flush=True)
-    check_launches("record served base", base_counts, SHARED + ("sort_winners",),
-                   ("scatter_winners",))
+    check_launches("record served base", base_counts, RUN_NATIVE + ("sort_winners",),
+                   ("scatter_winners",) + TRANSPORT_ONLY)
     # note each batch's subset (its dirty objects) to check the kernels at
-    # a served batch's shapes afterwards
+    # a served batch's shapes afterwards, and each batch's expand_runs
+    # launches
     dirty_sets = []
+    batch_decodes = []
     dispatch = DeviceDoc._dispatch_async
+    step = DeviceDoc._pipeline_step
 
     def noting_dispatch(self, dirty, phases=None):
         handle = dispatch(self, dirty, phases)
@@ -361,8 +490,15 @@ def record_paths(card: str, device):
         dirty_sets.append(np.array(dirty, np.int64) if subset else None)
         return handle
 
+    def counting_step(self, chs, inflight, phases=None):
+        before = kernels.launch_counts()["expand_runs"]
+        out = step(self, chs, inflight, phases)
+        batch_decodes.append(kernels.launch_counts()["expand_runs"] - before)
+        return out
+
     phases = {}
     DeviceDoc._dispatch_async = noting_dispatch
+    DeviceDoc._pipeline_step = counting_step
     try:
         kernels.reset_launches()
         t1 = time.perf_counter()
@@ -371,6 +507,7 @@ def record_paths(card: str, device):
         served_counts = kernels.launch_counts()
     finally:
         DeviceDoc._dispatch_async = dispatch
+        DeviceDoc._pipeline_step = step
     seconds = phases.pop("batches")
     print(f"record served: base merge {t_base:.3f} s, {len(batches)} batches of "
           f"{RECORD_BATCH}: {t_end - t1:.3f} s, per batch p50 "
@@ -379,23 +516,42 @@ def record_paths(card: str, device):
     print("record served stages_s " + json.dumps(
         {k: round(v, 6) for k, v in phases.items()}), flush=True)
     print(f"record served launches {json.dumps(served_counts)}", flush=True)
+    print(f"record served expand_runs launches per batch {batch_decodes}", flush=True)
     if applied != len(reps):
         raise AssertionError(f"served {applied} of {len(reps)} changes")
-    check_launches("record served", served_counts, SHARED + ("sort_winners",),
-                   ("scatter_winners",))
-    n = doc.log.n
-    if served.log.n != n or served.log.n_objs != doc.log.n_objs:
-        raise AssertionError("served log differs in size from the fan-in's")
-    for k in DeviceDoc.READ_FETCH:
-        cut = doc.log.n_objs + 2 if k.startswith("obj_") else n
-        if not np.array_equal(np.asarray(served.res[k])[:cut],
-                              np.asarray(doc.res[k])[:cut]):
-            raise AssertionError(f"served {k} differs from the fan-in's")
-    if not np.array_equal(served.counter_val[:n], doc.counter_val[:n]):
-        raise AssertionError("served counter values differ from the fan-in's")
-    if W.record_counts(served) != expect:
-        raise AssertionError("served reads differ from the generator's counts")
-    print("record served == record fan-in on every READ_FETCH array", flush=True)
+    check_launches("record served", served_counts, RUN_NATIVE + ("sort_winners",),
+                   ("scatter_winners",) + TRANSPORT_ONLY)
+    if len(batch_decodes) != len(batches) or min(batch_decodes) < 1:
+        raise AssertionError(f"a served batch launched no expand_runs: {batch_decodes}")
+    check_served_equal("record served", served, doc, expect)
+
+    # the same batches from the same base, staged dense
+    kernels.reset_launches()
+    dense = DeviceDoc.merge([base], device=device, staging="dense")
+    dense_base_counts = kernels.launch_counts()
+    print(f"record served dense base launches {json.dumps(dense_base_counts)}",
+          flush=True)
+    check_launches("record served dense base", dense_base_counts,
+                   SHARED + ("sort_winners",),
+                   ("scatter_winners", "expand_runs") + TRANSPORT_ONLY)
+    dense_phases = {}
+    kernels.reset_launches()
+    t2 = time.perf_counter()
+    dense.apply_batches(batches, dense_phases)
+    t_dense = time.perf_counter() - t2
+    dense_counts = kernels.launch_counts()
+    dense_seconds = dense_phases.pop("batches")
+    print(f"record served, staging dense: {len(batches)} batches {t_dense:.3f} s, "
+          f"per batch p50 {statistics.median(dense_seconds):.6f} s max "
+          f"{max(dense_seconds):.6f} s; run-native p50 "
+          f"{statistics.median(seconds):.6f} s max {max(seconds):.6f} s "
+          f"(same run, {card})", flush=True)
+    print("record served dense stages_s " + json.dumps(
+        {k: round(v, 6) for k, v in dense_phases.items()}), flush=True)
+    print(f"record served dense launches {json.dumps(dense_counts)}", flush=True)
+    check_launches("record served dense", dense_counts, SHARED + ("sort_winners",),
+                   ("scatter_winners", "expand_runs") + TRANSPORT_ONLY)
+    check_served_equal("record served dense", dense, doc, expect)
     # the last batch's subset columns: they are those of the final log
     if len(dirty_sets) != len(batches) or dirty_sets[-1] is None:
         raise AssertionError("the last served batch did not take the subset "
@@ -403,9 +559,64 @@ def record_paths(card: str, device):
     dirty = dirty_sets[-1]
     last = (pad_columns(served._subset_cols(served._subset_rows(dirty), dirty),
                         len(dirty)), len(dirty), len(served.log.props))
-    counts = {"records": fanin_counts, "served base": base_counts,
-              "served": served_counts}
+    counts = {"records": fanin_counts, "records expand": expand_counts,
+              "records packed": packed_counts,
+              "served base": base_counts, "served": served_counts,
+              "served dense base": dense_base_counts, "served dense": dense_counts}
     return doc.log, last, counts
+
+
+def check_served_equal(name: str, served, doc, expect) -> None:
+    """A served document equals the one-shot fan-in ``doc`` on every
+    READ_FETCH array and the counters, and reads the generator's counts."""
+    import numpy as np
+
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    n = doc.log.n
+    if served.log.n != n or served.log.n_objs != doc.log.n_objs:
+        raise AssertionError(f"{name}: log differs in size from the fan-in's")
+    for k in DeviceDoc.READ_FETCH:
+        cut = doc.log.n_objs + 2 if k.startswith("obj_") else n
+        if not np.array_equal(np.asarray(served.res[k])[:cut],
+                              np.asarray(doc.res[k])[:cut]):
+            raise AssertionError(f"{name}: {k} differs from the fan-in's")
+    if not np.array_equal(served.counter_val[:n], doc.counter_val[:n]):
+        raise AssertionError(f"{name}: counter values differ from the fan-in's")
+    if W.record_counts(served) != expect:
+        raise AssertionError(f"{name}: reads differ from the generator's counts")
+    print(f"{name} == record fan-in on every READ_FETCH array", flush=True)
+
+
+def check_reference_fault(device) -> None:
+    """(d) Two map puts whose prop ids the JAX package's packed key merges
+    (prop 64 + 4 needs more than ceil_log2(16 + 5) bits): the packed
+    transport gives the dict path's winners and conflicts."""
+    import numpy as np
+
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.merge import merge_columns
+
+    cols = {
+        "action": np.array([1, 1], np.int32), "insert": np.zeros(2, bool),
+        "prop": np.array([64, 0], np.int32), "elem_ref": np.array([-2, -2], np.int32),
+        "obj_dense": np.array([0, 1], np.int32), "value_tag": np.array([4, 4], np.int32),
+        "value_i32": np.zeros(2, np.int32), "width": np.ones(2, np.int32),
+        "covered": np.ones(2, bool), "pred_src": np.zeros(0, np.int32),
+        "pred_tgt": np.zeros(0, np.int32),
+    }
+    kw = dict(fetch=DeviceDoc.READ_FETCH, n_objs=2, n_props=None, device=device)
+    d = merge_columns(dict(cols), **kw)
+    p = merge_columns(dict(cols), transport="packed", **kw)
+    if (list(d["winner"][:2]) != [0, 1] or list(p["winner"][:2]) != [0, 1]
+            or list(d["conflicts"][:2]) != [1, 1]
+            or list(p["conflicts"][:2]) != [1, 1]):
+        raise AssertionError(f"reference-fault input: dict {d['winner'][:2]} "
+                             f"{d['conflicts'][:2]}, packed {p['winner'][:2]} "
+                             f"{p['conflicts'][:2]}")
+    print("reference-fault input (props 64 and 0, P = 16): packed == dict, "
+          "winners [0, 1], conflicts [1, 1]", flush=True)
 
 
 def check_served_subset(last, device) -> None:
@@ -426,42 +637,125 @@ def check_served_subset(last, device) -> None:
           f"to {int(cols['prop'].max())}): cuda == cpu on all outputs", flush=True)
 
 
+def expand_library(W, C, n: int):
+    """torch.searchsorted and a gather: the decode of one stack in
+    PyTorch calls (the yardstick of expand_runs)."""
+    K, rcap = W.shape
+    i = torch.arange(n, dtype=torch.int32, device=W.device).expand(K, n).contiguous()
+    return lambda: torch.gather(W, 1, torch.searchsorted(C, i, right=True)
+                                .clamp_(max=rcap - 1))
+
+
+def expand_rows(stacks):
+    """expand_runs rows for stacks of run tables: [(W, C, S or None, n,
+    bools, tag)]."""
+    from automerge_tpu_torch.kernels import expand_runs as E
+
+    rows = []
+    for W, C, S, n, bools, tag in stacks:
+        args = (W, C, S, n, bools)
+        rows.append(("expand_runs", E.expand_runs, E.expand_runs_plain, args,
+                     E.expand_runs(*args), expand_library(W, C, n), tag))
+    return rows
+
+
 def path_kernels(cols, n_objs: int, n_props: int, device):
-    """The kernels of ``merge_kernel`` run on one path's padded columns as
-    the merge runs them: [(name, kernel, plain, args, out, library)]."""
+    """The kernels of one path's run-native merge run on its padded
+    columns as the merge runs them: [(name, kernel, plain, args, out,
+    library, tag)], expand_runs once for each stack of run tables (its
+    tag: the stack's length and form)."""
     from automerge_tpu_torch.convert import columns_from_numpy
     from automerge_tpu_torch.kernels import forest as F
     from automerge_tpu_torch.kernels import linearize as L
     from automerge_tpu_torch.kernels import scatter_winners as SW
     from automerge_tpu_torch.kernels import sort_winners as SO
     from automerge_tpu_torch.kernels import succ_vis as SV
-    from automerge_tpu_torch.ops.merge import scatter_geom_key, scatter_geometry_ok
+    from automerge_tpu_torch.ops.merge import (
+        scatter_geom_key, scatter_geometry_ok, stage_cols_run_native,
+    )
 
+    _, stacks, plan = stage_cols_run_native(cols, device)
+    rows = expand_rows([
+        (arrs[0], arrs[1], arrs[2] if cls == "delta" else None, n, bools,
+         f"n={n} {cls} K={len(names)} rcap={rcap}")
+        for (n, rcap, cls, names, bools), arrs in zip(plan, stacks)])
     c = columns_from_numpy(cols, device)
     sv_in = (c["action"], c["value_tag"], c["value_i32"], c["covered"],
              c["pred_src"], c["pred_tgt"])
     sv = SV.succ_vis(*sv_in)
-    rows = [("succ_vis", SV.succ_vis, SV.succ_vis_plain, sv_in, sv, None)]
+    rows.append(("succ_vis", SV.succ_vis, SV.succ_vis_plain, sv_in, sv, None, ""))
     win_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
               c["width"], sv[3])
     if scatter_geometry_ok(c["action"].numel(), n_objs, n_props):
         sw_in = win_in + scatter_geom_key(n_objs, n_props)
         rows.append(("scatter_winners", SW.scatter_winners,
                      SW.scatter_winners_plain, sw_in, SW.scatter_winners(*sw_in),
-                     None))
+                     None, ""))
     else:
         keys = group_keys(*win_in[:5])
         rows.append(("sort_winners", SO.sort_winners, SO.sort_winners_plain,
-                     win_in, SO.sort_winners(*win_in), lambda: torch.sort(keys)))
+                     win_in, SO.sort_winners(*win_in), lambda: torch.sort(keys), ""))
     fo_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
     fo = F.forest(*fo_in)
     sib = F.sibling_keys(fo[0], fo[1])
-    rows.append(("forest", F.forest, F.forest_plain, fo_in, fo, None))
+    rows.append(("forest", F.forest, F.forest_plain, fo_in, fo, None, ""))
     rows.append(("bitonic_sort", F.bitonic_sort, F.bitonic_sort_plain, (sib,),
-                 (F.bitonic_sort(sib),), lambda: torch.sort(sib)))
+                 (F.bitonic_sort(sib),), lambda: torch.sort(sib), ""))
     li_in = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"])
     rows.append(("linearize", L.linearize, L.linearize_plain, li_in,
-                 (L.linearize(*li_in),), None))
+                 (L.linearize(*li_in),), None, ""))
+    return rows
+
+
+def eager_kernels(cols, n_objs: int, n_props: int, device):
+    """expand_runs at each stack of run tables the eager-expansion staging
+    (``staging="expand"``, K9) makes of one path's padded columns, as
+    ``stage_cols_device`` runs it: one stack per column length, always
+    the delta form, bool columns among the int32 ones."""
+    import numpy as np
+
+    from automerge_tpu_torch.ops.merge import _encode_columns, _stack
+
+    _, groups = _encode_columns({k: np.asarray(v) for k, v in cols.items()},
+                                run_native=False)
+    stacks = []
+    for n, group in groups.items():
+        rcap, *arrs = _stack(n, group)
+        W, C, S = (torch.from_numpy(a).to(device) for a in arrs)
+        bools = tuple(b for _, _, b in group)
+        stacks.append((W, C, S, n, bools, f"n={n} delta K={len(group)} "
+                       f"rcap={rcap} bool columns {sum(bools)}"))
+    return expand_rows(stacks)
+
+
+def packed_kernels(cols, n_objs: int, n_props: int, device):
+    """The packed transport's own kernels on one path's padded columns, as
+    ``DeviceDoc.resolve(..., transport="packed")`` runs them: expand_runs
+    at its row and edge stacks, unpack_flags, emit_packed of READ_FETCH."""
+    from automerge_tpu_torch.kernels import emit_packed as EP
+    from automerge_tpu_torch.kernels import expand_runs as E
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.merge import (
+        _capacity, _unpack_transport, encode_transport, merge_kernel,
+    )
+
+    key, arrays = encode_transport(cols)
+    a = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    P, Q = len(cols["action"]), len(cols["pred_src"])
+    stacks = [(a[f"w{g}"], a[f"c{g}"], a[f"s{g}"], n, (False,) * len(names),
+               f"packed {g} n={n} K={len(names)} rcap={a[f'w{g}'].shape[1]}")
+              for g, names, n in (("P", key[0], P), ("Q", key[2], Q)) if names]
+    rows = expand_rows(stacks)
+    if "flags" in key[0]:
+        flags = rows[0][4][key[0].index("flags")]
+    else:
+        flags = a["plainP"][key[1].index("flags")]
+    rows.append(("unpack_flags", E.unpack_flags, E.unpack_flags_plain, (flags,),
+                 E.unpack_flags(flags), None, ""))
+    core = merge_kernel(_unpack_transport(key, a, P, Q), n_objs, n_props)
+    em_in = (core, DeviceDoc.READ_FETCH, min(_capacity(n_objs + 2, 16), P + 2))
+    rows.append(("emit_packed", EP.emit_packed, EP.emit_packed_plain, em_in,
+                 (EP.emit_packed(*em_in),), None, ""))
     return rows
 
 
@@ -472,6 +766,9 @@ REPLACES = {
     "forest": ("automerge_tpu/ops/merge.py:551", "forest.cu"),
     "bitonic_sort": ("automerge_tpu/ops/merge.py:582", "forest.cu"),
     "linearize": ("automerge_tpu/ops/merge.py:216", "linearize.cu"),
+    "expand_runs": ("automerge_tpu/ops/merge.py:993", "expand_runs.cu"),
+    "unpack_flags": ("automerge_tpu/ops/merge.py:1143", "expand_runs.cu"),
+    "emit_packed": ("automerge_tpu/ops/merge.py:1181", "emit_packed.cu"),
 }
 
 
@@ -497,19 +794,24 @@ def measure(name, kern, plain, args, out, library, reps: int) -> dict:
 
 def kernel_report(paths, by_path, device, reps: int):
     """Each kernel against its plain version at the shapes of every path
-    that runs it (``paths``: name -> (padded columns, n_objs, n_props)),
-    and sort_winners past 2^20 rows. A kernel's top-level numbers are
-    those of the first path that runs it; ``by_path`` has them all."""
+    that runs it (``paths``: name -> (padded columns, n_objs, n_props); a
+    name ending in "packed" is the packed transport's, one ending in
+    "expand" the eager-expansion staging's), and sort_winners
+    past 2^20 rows. A kernel's top-level numbers are those of the first
+    path that runs it; ``by_path`` has them all (expand_runs: by stack)."""
     from automerge_tpu_torch.kernels import sort_winners as SO
 
     report = {}
     for path, (cols, n_objs, n_props) in paths.items():
-        for name, kern, plain, args, out, library in path_kernels(
+        rows_of = (packed_kernels if path.endswith("packed") else
+                   eager_kernels if path.endswith("expand") else path_kernels)
+        for name, kern, plain, args, out, library, tag in rows_of(
                 cols, n_objs, n_props, device):
             m = {"P": len(cols["action"]),
                  **measure(name, kern, plain, args, out, library, reps)}
             m["launches"] = by_path[path][name]
-            print(f"{path}: {name} equal to its plain version, "
+            where = f"{path} {tag}".strip()
+            print(f"{where}: {name} equal to its plain version, "
                   f"{json.dumps(m)}", flush=True)
             if name not in report:
                 replaces, source = REPLACES[name]
@@ -518,7 +820,7 @@ def kernel_report(paths, by_path, device, reps: int):
                                 "replaces": replaces, **m, "by_path": {}}
             entry = report[name]
             entry["max_abs_err"] = max(entry["max_abs_err"], m["max_abs_err"])
-            entry["by_path"][path] = m
+            entry["by_path"][where] = m
     for name, entry in report.items():
         launches = {path: counts[name] for path, counts in by_path.items()}
         entry["launches"] = sum(launches.values())
@@ -540,7 +842,8 @@ def kernel_report(paths, by_path, device, reps: int):
     print(f"sort_winners at P = {WIDE_P}: equal to its plain version in "
           f"{wide_launches} launches", flush=True)
     order = ("succ_vis", "scatter_winners", "sort_winners", "forest",
-             "bitonic_sort", "linearize")
+             "bitonic_sort", "linearize", "expand_runs", "unpack_flags",
+             "emit_packed")
     return [report[name] for name in order]
 
 
@@ -566,16 +869,18 @@ def main() -> int:
     # 3. the main paths
     text_log, text_counts = text_path(card, device)
     record_log, last, record_counts = record_paths(card, device)
+    check_reference_fault(device)
 
     # 4./5. every kernel against its plain version at each path's shapes;
     # the whole merge against the CPU on a small fan-in and a served subset
-    by_path = {"text": text_counts, **record_counts}
-    paths = {
-        "text": (text_log.padded_columns(), text_log.n_objs, len(text_log.props)),
-        "records": (record_log.padded_columns(), record_log.n_objs,
-                    len(record_log.props)),
-        "served": last,
-    }
+    by_path = {**text_counts, **record_counts}
+    text_cols = (text_log.padded_columns(), text_log.n_objs, len(text_log.props))
+    record_cols = (record_log.padded_columns(), record_log.n_objs,
+                   len(record_log.props))
+    paths = {"text": text_cols, "text expand": text_cols,
+             "text packed": text_cols, "records": record_cols,
+             "records expand": record_cols, "records packed": record_cols,
+             "served": last}
     report = kernel_report(paths, by_path, device, REPS)
     check_served_subset(last, device)
     check_small_against_cpu(device)

@@ -21,7 +21,7 @@ from automerge_tpu_torch.kernels import sort_winners as SO
 from automerge_tpu_torch.kernels import succ_vis as SV
 from automerge_tpu_torch.ops.device_doc import DeviceDoc
 from automerge_tpu_torch.ops.merge import ALL_OUTPUTS, merge_columns
-from automerge_tpu_torch.ops.merge import scatter_geom_key
+from automerge_tpu_torch.ops.merge import scatter_geom_key, stage_cols_run_native
 from automerge_tpu_torch.ops.oplog import OpLog
 from automerge_tpu_torch.storage.change import parse_change
 
@@ -94,6 +94,10 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
         "forest": 4,  # two fills, links, next_sib
         "bitonic_sort": 1 + sort_stages * (sort_stages + 1) // 2,
         "linearize": 2 * L.rounds(P) + 3,
+        # run-native staging: one decode per stack of run tables
+        "expand_runs": len(stage_cols_run_native(log.padded_columns(), "cpu")[2]),
+        "unpack_flags": 0,  # the packed transport's
+        "emit_packed": 0,
     }
     cpu = merge_columns(log.columns(), device="cpu", **kw)
     for k in ALL_OUTPUTS:
@@ -157,3 +161,96 @@ def test_served_record_store_on_card_equals_cpu(cuda):
                                           np.asarray(other.res[k])[:cut], err_msg=k)
     np.testing.assert_array_equal(gpu.counter_val[:n], merged.counter_val[:n])
     assert W.record_counts(gpu) == expect
+
+
+# -- run-coded staging and the packed transport (kernels A, B, C) -----------
+
+
+def _run_stack(rng, K, n, rcap, delta):
+    """A random (K, rcap) stack: run ends ascending, the last real run
+    ending at n and the padding at n; values and slopes over the whole
+    int32 range, so the slope term wraps."""
+    W = rng.integers(-(1 << 31), 1 << 31, (K, rcap), dtype=np.int64).astype(np.int32)
+    C = np.full((K, rcap), n, np.int32)
+    for k in range(K):
+        runs = int(rng.integers(1, rcap + 1))
+        C[k, : runs - 1] = np.sort(rng.choice(np.arange(1, max(n, 2)), runs - 1))
+    S = (rng.integers(-(1 << 31), 1 << 31, K, dtype=np.int64).astype(np.int32)
+         if delta else None)
+    return W, C, S
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 24_577])
+@pytest.mark.parametrize("rcap", [16, 256])
+@pytest.mark.parametrize("delta", [False, True], ids=["rle", "delta"])
+def test_expand_runs_equals_plain_version(cuda, n, rcap, delta):
+    from automerge_tpu_torch.kernels import expand_runs as E
+
+    rng = np.random.default_rng(n + rcap)
+    K = 7
+    W, C, S = _run_stack(rng, K, n, rcap, delta)
+    bools = (False, True, False, False, True, False, True)
+    args = [torch.from_numpy(a).to(cuda) if a is not None else None
+            for a in (W, C, S)]
+    reset_launches()
+    got = E.expand_runs(*args, n, bools)
+    assert launch_counts()["expand_runs"] == 1
+    _same(got, E.expand_runs_plain(*args, n, bools))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 24_577])
+def test_unpack_flags_equals_plain_version(cuda, n):
+    from automerge_tpu_torch.kernels import expand_runs as E
+
+    rng = np.random.default_rng(n)
+    flags = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32)).to(cuda)
+    reset_launches()
+    got = E.unpack_flags(flags)
+    assert launch_counts()["unpack_flags"] == 1
+    _same(got, E.unpack_flags_plain(flags))
+
+
+@pytest.mark.parametrize("P", [16, 48, 4096, 24_592])
+def test_emit_packed_equals_plain_version(cuda, P):
+    from automerge_tpu_torch.kernels import emit_packed as EP
+
+    rng = np.random.default_rng(P)
+    core = {
+        "visible": torch.from_numpy(rng.random(P) < 0.5).to(cuda),
+        "conflicts": torch.from_numpy(rng.integers(0, 4, P).astype(np.int32)).to(cuda),
+        "winner": torch.from_numpy(rng.integers(-1, P, P).astype(np.int32)).to(cuda),
+        "is_elem": torch.from_numpy(rng.random(P) < 0.3).to(cuda),
+        "next_sib": torch.from_numpy(rng.integers(-1, P, 2 * P + 3).astype(np.int32)).to(cuda),
+        "obj_vis_len": torch.from_numpy(rng.integers(0, 9, P + 2).astype(np.int32)).to(cuda),
+    }
+    fetch = ("visible", "winner", "conflicts", "is_elem", "next_sib", "obj_vis_len")
+    reset_launches()
+    got = EP.emit_packed(core, fetch, 18)
+    assert launch_counts()["emit_packed"] == 1
+    _same(got, EP.emit_packed_plain(core, fetch, 18))
+
+
+@pytest.mark.parametrize("staging", ["run_native", "expand", "dense"])
+def test_stagings_and_packed_transport_on_card_equal_cpu(cuda, staging):
+    """Every staging on the card equals the CPU on all 13 outputs; the
+    packed transport on the card equals the dict path on READ_FETCH
+    (conflicts as a flag) and launches kernels A, B and C."""
+    log = _log(*SIZES[1])
+    kw = dict(n_objs=log.n_objs, n_props=len(log.props))
+    reset_launches()
+    gpu = merge_columns(log.columns(), device=cuda, staging=staging, **kw)
+    assert (launch_counts()["expand_runs"] > 0) == (staging != "dense")
+    cpu = merge_columns(log.columns(), device="cpu", staging="dense", **kw)
+    for k in ALL_OUTPUTS:
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+    reset_launches()
+    packed = merge_columns(log.columns(), fetch=DeviceDoc.READ_FETCH, device=cuda,
+                           transport="packed", **kw)
+    counts = launch_counts()
+    assert counts["expand_runs"] and counts["unpack_flags"] and counts["emit_packed"]
+    for k in DeviceDoc.READ_FETCH:
+        want = cpu[k] > 1 if k == "conflicts" else cpu[k]
+        got = packed[k] > 1 if k == "conflicts" else packed[k]
+        cut = min(len(got), len(want))  # the stats: obj_cap vs n_objs + 2
+        np.testing.assert_array_equal(got[:cut], want[:cut], err_msg=k)

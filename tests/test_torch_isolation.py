@@ -35,6 +35,12 @@ base = W.build_base(trace, 200)
 changes = base.changes + W.synth_fanin(base, trace, 3, 20, 200)
 doc = DeviceDoc.merge([c.raw_bytes for c in changes], device="cpu")
 assert len(doc.text(base.text_exid)) == W.expected_text_length(changes)
+packed = DeviceDoc.merge([c.raw_bytes for c in changes], device="cpu",
+                         transport="packed")
+assert packed.text(base.text_exid) == doc.text(base.text_exid)
+expand = DeviceDoc.merge([c.raw_bytes for c in changes], device="cpu",
+                         staging="expand")
+assert expand.text(base.text_exid) == doc.text(base.text_exid)
 rbase, reps, expect = W.record_store(64, 8, 20)
 served = DeviceDoc.merge([rbase.raw_bytes], device="cpu")
 served.apply_changes([r.raw_bytes for r in reps[:4]])
@@ -92,6 +98,8 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
         DeviceDoc.merge([c.raw_bytes for c in base.changes])
     with pytest.raises(RuntimeError):
         merge_columns(cols, device="cuda")
+    with pytest.raises(RuntimeError):
+        merge_columns(cols, transport="packed", staging="expand")
     rbase, reps, _ = W.record_store(16, 2, 20)
     with pytest.raises(RuntimeError):
         DeviceDoc.merge([rbase.raw_bytes])

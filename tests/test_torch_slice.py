@@ -156,10 +156,13 @@ def test_merge_phases_are_recorded():
     phases = {}
     DeviceDoc.merge(blobs, device="cpu", phases=phases)
     assert set(phases) == {
-        "parse", "oplog", "pad", "h2d", "succ_vis", "scatter_winners",
-        "forest", "linearize", "readback",
+        "parse", "oplog", "pad", "encode", "h2d", "expand", "succ_vis",
+        "scatter_winners", "forest", "linearize", "readback",
+        "h2d_bytes", "h2d_dense_bytes", "d2h_bytes",
     }
     assert all(v >= 0 for v in phases.values())
+    # run-native staging copies run tables, not the dense columns
+    assert 0 < phases["h2d_bytes"] < phases["h2d_dense_bytes"]
 
 
 @pytest.mark.parametrize("encoding", ["unicode", "utf8", "utf16"])

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from automerge_tpu.ops import extract as JX
 from automerge_tpu.ops import merge as J
 from automerge_tpu.ops.device_doc import DeviceDoc as JDeviceDoc
 from automerge_tpu.ops.oplog import OpLog as JOpLog
@@ -37,6 +38,16 @@ from automerge_tpu_torch.types import Key, ScalarValue
 # (records, replicas, ops per replica)
 SIZES = [(256, 16, 20), (1024, 24, 60)]
 NAMES = ("winner", "conflicts", "obj_vis_len", "obj_text_width")
+
+
+@pytest.fixture(autouse=True)
+def cold_jax_change_cache(monkeypatch):
+    """The JAX package's per-change-hash extraction cache keeps, for each
+    change it decoded, the key table of the whole batch the change came
+    in; a log assembled later from those entries (after another test
+    applied these changes with others) numbers its map keys differently,
+    unused names included. Each test starts it empty."""
+    monkeypatch.setattr(JX, "_CHANGE_COLS_CACHE", None)
 
 
 @functools.lru_cache(maxsize=None)
