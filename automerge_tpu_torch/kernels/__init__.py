@@ -8,6 +8,7 @@ PyTorch version.
 | ``sort_winners.sort_winners`` | ``resolve_state`` :110-213 (its winners) |
 | ``forest.forest`` (+ ``forest.bitonic_sort``) | ``forest`` :551-592 |
 | ``linearize.linearize`` | ``device_linearize`` :216-285 |
+| ``linearize_condensed.linearize_condensed`` | ``device_linearize_condensed`` :303-494 |
 | ``expand_runs.expand_runs`` | ``_expander`` :849, ``run_native_kernel``'s gather :1015-1034, ``_expand`` :1135 |
 | ``expand_runs.unpack_flags`` | ``_unpack_transport``'s flags split :1157-1162 |
 | ``emit_packed.emit_packed`` | ``_emit`` :1181 with ``_bitpack`` :1165 |
@@ -27,6 +28,7 @@ def wrappers():
     from .expand_runs import expand_runs, unpack_flags
     from .forest import bitonic_sort, forest
     from .linearize import linearize
+    from .linearize_condensed import linearize_condensed
     from .scatter_winners import scatter_winners
     from .sort_winners import sort_winners
     from .succ_vis import succ_vis
@@ -38,6 +40,7 @@ def wrappers():
         "forest": forest,
         "bitonic_sort": bitonic_sort,
         "linearize": linearize,
+        "linearize_condensed": linearize_condensed,
         "expand_runs": expand_runs,
         "unpack_flags": unpack_flags,
         "emit_packed": emit_packed,

@@ -19,6 +19,13 @@ part of ``automerge_tpu/ops/merge.py``'s all-device ``merge_kernel`` (:288):
   4. ``linearize``       — document order by pointer-doubling successor
                            threading + Wyllie list ranking.
 
+``merge_kernel_condensed`` (K8, :508) is the same merge with the sort-based
+winners and document order by ``linearize_condensed``: typing chains found
+as contiguous stretches of the actor order (``OpLog.actor_order``, the
+``aorder`` column) and both doubling loops over at most ``rcap`` runs
+(``condensed_caps``). As in the JAX package it is called directly on
+padded column tensors; ``merge_columns`` does not route to it.
+
 The columns reach the card as the JAX package stages them (``staging``):
 by default run-native (:908-1038), each run-coded column a slope-RLE run
 table that the ``expand_runs`` kernel decodes on the card just before the
@@ -48,6 +55,7 @@ from ..kernels.emit_packed import BIT_OUTPUTS, OBJ_STATS, emit_packed
 from ..kernels.expand_runs import F_TAG_SHIFT, expand_runs, unpack_flags
 from ..kernels.forest import forest
 from ..kernels.linearize import linearize
+from ..kernels.linearize_condensed import linearize_condensed
 from ..kernels.scatter_winners import scatter_winners
 from ..kernels.sort_winners import sort_winners
 from ..kernels.succ_vis import succ_vis
@@ -107,18 +115,12 @@ def _count(phases, name: str, n: int) -> None:
         phases[name] = phases.get(name, 0) + n
 
 
-def merge_kernel(c, n_objs, n_props, phases=None):
-    """All-device merge of padded column tensors ``c`` (one device, int32/
-    bool as ``convert.columns_from_numpy`` makes them): the dict of the 13
-    ``ALL_OUTPUTS`` tensors. ``n_objs``/``n_props`` bound the object and
-    map-key ids of the columns and size the winner group table; the
-    scatter winners run when both are given and the table passes
-    ``scatter_geometry_ok``, the sort-based winners otherwise."""
+def _resolve(c, geom, phases):
+    """succ_vis, the winners (the scatter kernel over the group table
+    ``geom`` = (n_objs2, n_props), the sort-based kernel for ``None``) and
+    the forest: ALL_OUTPUTS but ``elem_index``, in their order."""
     action = c["action"]
     dev = action.device
-    P = action.shape[0]
-    scatter = (n_objs is not None and n_props is not None
-               and scatter_geometry_ok(P, n_objs, n_props))
     with _phase(phases, "succ_vis", dev):
         succ, inc, counter_inc, visible = succ_vis(
             action, c["value_tag"], c["value_i32"], c["covered"],
@@ -126,20 +128,16 @@ def merge_kernel(c, n_objs, n_props, phases=None):
         )
     winner_args = (action, c["insert"], c["elem_ref"], c["obj_dense"],
                    c["prop"], c["width"], visible)
-    with _phase(phases, "scatter_winners" if scatter else "sort_winners", dev):
-        if scatter:
-            winner, conflicts, obj_vis_len, obj_text_width = scatter_winners(
-                *winner_args, *scatter_geom_key(n_objs, n_props))
-        else:
+    with _phase(phases, "sort_winners" if geom is None else "scatter_winners", dev):
+        if geom is None:
             winner, conflicts, obj_vis_len, obj_text_width = sort_winners(
                 *winner_args)
+        else:
+            winner, conflicts, obj_vis_len, obj_text_width = scatter_winners(
+                *winner_args, *geom)
     with _phase(phases, "forest", dev):
         is_elem, parent_row, first_child, next_sib = forest(
             action, c["insert"], c["elem_ref"], c["obj_dense"]
-        )
-    with _phase(phases, "linearize", dev):
-        elem_index = linearize(
-            first_child, next_sib, is_elem, c["elem_ref"], c["obj_dense"]
         )
     return {
         "visible": visible,
@@ -154,8 +152,57 @@ def merge_kernel(c, n_objs, n_props, phases=None):
         "is_elem": is_elem,
         "obj_vis_len": obj_vis_len,
         "obj_text_width": obj_text_width,
-        "elem_index": elem_index,
     }
+
+
+def merge_kernel(c, n_objs, n_props, phases=None):
+    """All-device merge of padded column tensors ``c`` (one device, int32/
+    bool as ``convert.columns_from_numpy`` makes them): the dict of the 13
+    ``ALL_OUTPUTS`` tensors. ``n_objs``/``n_props`` bound the object and
+    map-key ids of the columns and size the winner group table; the
+    scatter winners run when both are given and the table passes
+    ``scatter_geometry_ok``, the sort-based winners otherwise."""
+    P = c["action"].shape[0]
+    scatter = (n_objs is not None and n_props is not None
+               and scatter_geometry_ok(P, n_objs, n_props))
+    out = _resolve(c, scatter_geom_key(n_objs, n_props) if scatter else None,
+                   phases)
+    with _phase(phases, "linearize", c["action"].device):
+        out["elem_index"] = linearize(
+            out["first_child"], out["next_sib"], out["is_elem"], c["elem_ref"],
+            c["obj_dense"])
+    return out
+
+
+def condensed_caps(log) -> int:
+    """The run bucket ``rcap`` of ``merge_kernel_condensed`` for ``log``
+    (``automerge_tpu/ops/merge.py`` ``condensed_caps``, :497): its exact
+    run count through ``_capacity``. The reference's second bucket,
+    ``obj_cap``, sizes a packed winner key the port does not use."""
+    return _capacity(max(log.condensed_run_count(), 1), 32)
+
+
+def merge_kernel_condensed(rcap: int):
+    """The all-device merge whose document order condenses typing chains
+    into at most ``rcap`` runs (``merge_kernel_condensed``, :508): a
+    callable of ``(c, phases=None)``, ``c`` padded column tensors with
+    ``aorder`` (``padded_columns(include_aorder=True)``), returning the 13
+    ``ALL_OUTPUTS``. The winners are the sort-based kernel's, as the
+    reference's ``resolve_state``. The reference's ``obj_cap`` argument
+    packs that kernel's group key into one int32 and can merge groups
+    (ROADMAP §3); here the key is injective and there is no such argument.
+    Raises ``ValueError`` when the log has more runs than ``rcap``
+    (``condensed_caps`` gives one that fits)."""
+
+    def fn(c, phases=None):
+        out = _resolve(c, None, phases)
+        with _phase(phases, "linearize_condensed", c["action"].device):
+            out["elem_index"] = linearize_condensed(
+                out["first_child"], out["next_sib"], out["is_elem"],
+                c["elem_ref"], c["obj_dense"], c["aorder"], rcap)
+        return out
+
+    return fn
 
 
 # -- host encoders ------------------------------------------------------------

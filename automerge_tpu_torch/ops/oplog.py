@@ -128,6 +128,7 @@ class OpLog:
         "pred_key",
         "_hash_set",
         "_bufs",
+        "_actor_order",
     )
 
     def __init__(self):
@@ -144,6 +145,7 @@ class OpLog:
         self.pred_key = None
         self._hash_set = None
         self._bufs = None  # capacity-bucketed backing buffers of the splice
+        self._actor_order = None
 
     # -- construction --------------------------------------------------
 
@@ -269,8 +271,11 @@ class OpLog:
 
     # -- device prep -----------------------------------------------------
 
-    def columns(self, covered: np.ndarray = None):
-        """The device-facing column dict WITHOUT capacity padding."""
+    def columns(self, covered: np.ndarray = None, include_aorder: bool = False):
+        """The device-facing column dict WITHOUT capacity padding.
+
+        ``include_aorder`` attaches the actor-order layout (``actor_order``)
+        that the condensed linearization reads."""
         if covered is None:
             covered = np.ones(self.n, np.bool_)
         return {
@@ -285,16 +290,59 @@ class OpLog:
             "covered": np.asarray(covered, np.bool_),
             "pred_src": self.pred_src,
             "pred_tgt": self.pred_tgt,
+            **({"aorder": self.actor_order()} if include_aorder else {}),
         }
 
-    def padded_columns(self, min_capacity: int = 16, covered: np.ndarray = None):
+    def padded_columns(self, min_capacity: int = 16, covered: np.ndarray = None,
+                       include_aorder: bool = False):
         """Pad to bucketed capacities (see ``_capacity``).
 
         Everything is int32/bool. Counter payloads are truncated to int32
         on device (exact int64 totals are recovered host-side from
         ``value_int``, see DeviceDoc._recompute_counters).
         """
-        return pad_columns(self.columns(covered=covered), self.n_objs, min_capacity)
+        return pad_columns(
+            self.columns(covered=covered, include_aorder=include_aorder),
+            self.n_objs, min_capacity,
+        )
+
+    def actor_order(self) -> np.ndarray:
+        """The INSERT rows in ACTOR-CONCATENATED order: each actor's element
+        ops consecutive, counters ascending. In this order a typing chain
+        is a contiguous stretch (each op's RGA reference is the author's
+        previous op), which lets the condensed linearization find chains
+        with scans instead of pointer chasing
+        (kernels/linearize_condensed.py). Cached until the log changes."""
+        ao = self._actor_order
+        if ao is None:
+            rank = (self.id_key & ACTOR_MASK).astype(np.int64)
+            perm = np.argsort(rank, kind="stable").astype(np.int32)
+            ao = perm[np.asarray(self.insert, bool)[perm]]
+            self._actor_order = ao
+        return ao
+
+    def condensed_run_count(self) -> int:
+        """The exact number of chain runs the condensed linearization
+        finds in ``actor_order`` (at least 1), by vector passes: a slot
+        continues its run when its row is its parent's first child and
+        its parent is the previous slot's row."""
+        n = self.n
+        if n == 0:
+            return 1
+        ins = np.asarray(self.insert, bool)
+        er = self.elem_ref
+        rows = np.arange(n, dtype=np.int64)
+        # first_child[p] = the LAST insert row referencing p (later rows
+        # shadow earlier ones: fancy assignment keeps the last write)
+        fc = np.full(n, -1, np.int64)
+        em = ins & (er >= 0)
+        fc[er[em]] = rows[em]
+        erc = np.clip(er, 0, n - 1)
+        is_cont = em & (fc[erc] == rows)
+        vs = self.actor_order()
+        prev = np.concatenate([[-9], vs[:-1]])
+        cont = is_cont[vs] & (er[vs] == prev)
+        return max(int((~cont).sum()), 1)
 
     # -- host-side id helpers ---------------------------------------------
 
@@ -585,6 +633,7 @@ class OpLog:
         self.n = m
         self.n_objs = len(new_table)
         self.actors = [ActorId(b) for b in all_bytes]
+        self._actor_order = None
         self.changes.extend(fresh)
         known.update(batch_seen)
         return AppendInfo(n, k, new_rows, row_map, tail, dirty, obj_remap,
@@ -600,6 +649,7 @@ class OpLog:
         self.pred_key = remap_packed(self.pred_key)
         self.obj_table = remap_packed(self.obj_table)
         self.actors = [ActorId(b) for b in all_bytes]
+        self._actor_order = None  # every actor rank was remapped
         # remapped arrays no longer alias the backing buffers
         self._bufs = {}
 
@@ -789,6 +839,9 @@ def pad_columns(cols, n_objs: int, min_capacity: int = 16):
         "covered": False,
         "pred_src": 0,
         "pred_tgt": -1,
+        # actor-order slots: pad slots carry the out-of-range sentinel p
+        # (the condensed linearization tests "slot < P" for validity)
+        "aorder": p,
     }
     return {
         k: _pad(

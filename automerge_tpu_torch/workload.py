@@ -13,7 +13,8 @@ ids and bytes), keeping the visible-element list as it goes; each replica
 positions and payload from its own trace slice, with deps = the base heads.
 
 The trace is the reference's edit trace when a path to it is given, else
-a deterministic synthetic one (``numpy.random.default_rng(0)``).
+a deterministic synthetic one (``numpy.random.default_rng(0)``);
+``typing_trace`` is a seeded trace shaped like typing, whose inserts chain.
 """
 
 from __future__ import annotations
@@ -53,6 +54,54 @@ def load_trace(limit: Optional[int] = None, path: Optional[str] = None) -> list:
             length += 1
         else:
             edits.append([int(rng.integers(0, length)), 1])
+            length -= 1
+    return edits
+
+
+# The automerge-perf editing trace (the 259,778 edits that automerge's
+# rust/edit-trace replays) publishes its counts as 182,315 single-character
+# inserts and 77,463 single-character deletes.
+TYPING_INSERT_SHARE = 182_315 / 259_778
+# Edits in one typing stretch plus the delete stretch after it, fitted so
+# that typing_trace's BASELINE fan-in (260,000-edit base, 1024 replicas x
+# 250 edits) has the condensed run count that the JAX package's bench
+# counted on the real trace at that fan-in: 20,205 runs
+# (BENCH_builder_r05.json, "condensed_runs").
+TYPING_CYCLE = 46
+
+
+def typing_trace(n: int, seed: int = 0) -> list:
+    """A seeded trace of ``n`` edits in ``load_trace``'s [pos, ndel,
+    *chars] form, shaped like typing: the writer types a stretch of
+    characters (a-z) at the cursor, then moves the cursor to a uniformly
+    random position and deletes a stretch backwards from there, then
+    types there again, and so on. Stretch lengths are geometric, with the
+    inserts' share of the edits ``TYPING_INSERT_SHARE`` and a mean cycle
+    of ``TYPING_CYCLE`` edits (at position 0 a delete types instead).
+    Consecutive typing chains each character off the one before, which is
+    what the condensed linearization condenses; ``load_trace``'s
+    synthetic fallback edits at a random position every time, so almost
+    nothing chains there."""
+    rng = np.random.default_rng(seed)
+    end_typing = 1 / (TYPING_CYCLE * TYPING_INSERT_SHARE)
+    end_deleting = 1 / (TYPING_CYCLE * (1 - TYPING_INSERT_SHARE))
+    u = rng.random(n)
+    where = rng.random(n)
+    chars = rng.integers(0, 26, n)
+    edits, length, cursor, typing = [], 0, 0, True
+    for i in range(n):
+        if typing and u[i] < end_typing:
+            typing = False
+            cursor = int(where[i] * (length + 1))
+        elif not typing and u[i] < end_deleting:
+            typing = True
+        if typing or cursor == 0:
+            edits.append([cursor, 0, chr(ord("a") + int(chars[i]))])
+            cursor += 1
+            length += 1
+        else:
+            edits.append([cursor - 1, 1])
+            cursor -= 1
             length -= 1
     return edits
 

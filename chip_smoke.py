@@ -1,8 +1,8 @@
 """Chip smoke test of automerge_tpu_torch on one NVIDIA GPU: the fan-in
 merge of a text document, the fan-in of a record store and the record
 store served batch by batch, end to end through hand-written CUDA kernels,
-with the columns staged as run tables (run-native, the default), and the
-packed transport.
+with the columns staged as run tables (run-native, the default), the
+packed transport, and the chain-condensed document order.
 
     python3 chip_smoke.py     # full width, as below
 
@@ -43,7 +43,17 @@ Phases, each raising on failure (nothing is caught):
        the batches), equal to (b) too, p50 and max per batch printed
        beside the run-native drain's;
     d. the input on which the JAX package's packed key merges two groups
-       (two map puts, props 64 and 0, P = 16): packed equals dict;
+       (two map puts, props 64 and 0, P = 16): packed equals dict, and so
+       does merge_kernel_condensed(32) (the JAX package's
+       merge_kernel_condensed(32, 16) merges them);
+    e. condensed document order: merge_kernel_condensed at condensed_caps
+       on the padded columns with the actor order, for (a)'s text log, a typing fan-in of the
+       same shape (workload.typing_trace; its dict merge by DeviceDoc.merge
+       first, the path "typing") and (b)'s record log (no sequence: one
+       run); run count and rcap printed; all 13 outputs equal the dict
+       merge's; the DeviceDoc built from them reads the same text (the
+       generator's counts); linearize_condensed launches, linearize does
+       not;
  4. every kernel against its plain PyTorch version on the same CUDA
     tensors (exact equality: all integer arithmetic) at the shapes of
     each path that runs it: the text fan-in, the record fan-in and the
@@ -53,8 +63,11 @@ Phases, each raising on failure (nothing is caught):
     pred-edge stack: the text's pred columns stay dense), at the stacks
     of the eager-expansion staging on both fan-ins (the delta form, with
     the bool columns) and at the packed transport's; unpack_flags and
-    emit_packed at the packed transport of both fan-ins; sort_winners
-    also on synthetic columns with P > 2^20; the whole merge on the card
+    emit_packed at the packed transport of both fan-ins; the condensed
+    merge's kernels at the three condensed paths' shapes and the dict
+    merge's at the typing fan-in's (linearize
+    beside linearize_condensed on one log); sort_winners also on synthetic
+    columns with P > 2^20; the whole merge on the card
     against the plain CPU path on all 13 outputs for that served subset
     and for a small fan-in;
  5. one {"kernels": [...]} line: kernel launches on the main paths (their
@@ -161,6 +174,18 @@ def work(name: str, args, out):
         read = (nbytes(first_child[:P], next_sib[:P], is_elem, elem_ref, obj_dense)
                 + 4 * distinct(obj_dense[is_elem]))
         return read + nbytes(*out), 10 * P
+    if name == "linearize_condensed":
+        _first_child, _next_sib, is_elem, elem_ref, obj_dense, aorder = args[:6]
+        P = is_elem.numel()
+        n_elem = int(is_elem.sum())
+        parents = elem_ref[is_elem]
+        # is_elem and the actor-order slots in full; elem_ref, next_sib and
+        # obj_dense at the element rows; first_child at the element parents
+        # (the chain test) and at the object roots the elements reach
+        read = (nbytes(is_elem, aorder) + 3 * 4 * n_elem
+                + 4 * distinct(parents[(parents >= 0) & (parents < P)])
+                + 4 * distinct(obj_dense[is_elem]))
+        return read + nbytes(*out), 2 * P + 12 * n_elem
     if name == "expand_runs":
         W, C, S, n, _bools = args
         K, rcap = W.shape
@@ -229,14 +254,15 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def workload(base_edits: int, replicas: int, per_replica: int):
+def workload(base_edits: int, replicas: int, per_replica: int, make_trace=None):
     """(change chunks, expected text length, text object id, seconds of
-    generation and of encoding)."""
+    generation and of encoding). ``make_trace(n)`` makes the edit trace
+    (default: ``workload.load_trace``)."""
     from automerge_tpu_torch import workload as W
     from automerge_tpu_torch.storage.change import build_change
 
     t0 = time.perf_counter()
-    trace = W.load_trace(base_edits)
+    trace = (make_trace or W.load_trace)(base_edits)
     base_ch, elems = W.base_change(trace, base_edits)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -310,13 +336,17 @@ SHARED = ("succ_vis", "forest", "bitonic_sort", "linearize")
 RUN_NATIVE = SHARED + ("expand_runs",)
 PACKED = SHARED + ("expand_runs", "unpack_flags", "emit_packed")
 TRANSPORT_ONLY = ("unpack_flags", "emit_packed")
+# merge_kernel_condensed's kernels, and those it must not launch
+CONDENSED = ("succ_vis", "sort_winners", "forest", "bitonic_sort",
+             "linearize_condensed")
+NOT_CONDENSED = ("linearize", "scatter_winners", "expand_runs") + TRANSPORT_ONLY
 
 
 def check_stagings(name: str, log, device) -> dict:
     """The log merged under each staging: all 13 outputs equal; the bytes
     each copies, its host encode, its decode on the card and its launches
     printed. Returns the launch counts of the eager-expansion staging
-    (K9's path)."""
+    (K9's path) and the run-native staging's 13 outputs."""
     import numpy as np
 
     from automerge_tpu_torch import kernels
@@ -345,7 +375,7 @@ def check_stagings(name: str, log, device) -> dict:
                 raise AssertionError(f"{name}: {k} differs between staging "
                                      f"{staging} and {STAGINGS[0]}")
     print(f"{name}: the three stagings agree on all 13 outputs", flush=True)
-    return counts["expand"]
+    return counts["expand"], outs[STAGINGS[0]]
 
 
 def check_packed(name: str, doc, dict_phases, device):
@@ -381,15 +411,19 @@ def check_packed(name: str, doc, dict_phases, device):
     return packed, counts
 
 
-def text_path(card: str, device):
-    """(a) the text fan-in: (log, launch counts by path: the fan-in, its
-    eager-expansion staging and its packed resolve)."""
+def text_fanin(name: str, card: str, device, make_trace=None):
+    """A text fan-in of BASELINE width (a 260,000-edit base, 1024 x 250)
+    from the trace ``make_trace`` makes: parse..read through
+    DeviceDoc.merge on the card, its launches read around it (the scatter
+    winners must run, the sort-based must not), its text length the
+    generator's count. Returns (document, phases, text, text object,
+    launch counts)."""
     from automerge_tpu_torch import kernels
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
 
     blobs, expect_len, text_obj, t_gen, t_enc = workload(
-        BASE_EDITS, REPLICAS, PER_REPLICA)
-    print(f"text workload: {len(blobs)} changes, {sum(map(len, blobs))} bytes; "
+        BASE_EDITS, REPLICAS, PER_REPLICA, make_trace)
+    print(f"{name} workload: {len(blobs)} changes, {sum(map(len, blobs))} bytes; "
           f"generate {t_gen:.3f} s, encode {t_enc:.3f} s", flush=True)
     kernels.reset_launches()
     phases = {}
@@ -400,20 +434,28 @@ def text_path(card: str, device):
     t_end = time.perf_counter()
     phases["read"] = t_end - t1
     counts = kernels.launch_counts()
-    log = doc.log
-    report_path("text fan-in", log, phases, t_end - t0, counts, card)
+    report_path(f"{name} fan-in", doc.log, phases, t_end - t0, counts, card)
     if len(text) != expect_len:
-        raise AssertionError(f"text length {len(text)} != expected {expect_len}")
-    check_launches("text fan-in", counts, RUN_NATIVE + ("scatter_winners",),
+        raise AssertionError(f"{name} length {len(text)} != expected {expect_len}")
+    check_launches(f"{name} fan-in", counts, RUN_NATIVE + ("scatter_winners",),
                    ("sort_winners",) + TRANSPORT_ONLY)
-    print(f"text: {len(text)} characters, as the generator counted", flush=True)
-    expand_counts = check_stagings("text fan-in", log, device)
+    print(f"{name}: {len(text)} characters, as the generator counted", flush=True)
+    return doc, phases, text, text_obj, counts
+
+
+def text_path(card: str, device):
+    """(a) the text fan-in: (log, launch counts by path: the fan-in, its
+    eager-expansion staging and its packed resolve; the dict merge's 13
+    outputs, the text, the text object)."""
+    doc, phases, text, text_obj, counts = text_fanin("text", card, device)
+    log = doc.log
+    expand_counts, out = check_stagings("text fan-in", log, device)
     packed, packed_counts = check_packed("text fan-in", doc, phases, device)
     if packed.text(text_obj) != text:
         raise AssertionError("text fan-in: the packed document's text differs")
     print("text fan-in packed: the same text", flush=True)
     return log, {"text": counts, "text expand": expand_counts,
-                 "text packed": packed_counts}
+                 "text packed": packed_counts}, out, text, text_obj
 
 
 def report_path(name, log, phases, e2e, counts, card) -> None:
@@ -430,7 +472,8 @@ def report_path(name, log, phases, e2e, counts, card) -> None:
 
 def record_paths(card: str, device):
     """(b) the record-store fan-in and (c) the record store served:
-    (fan-in log, launch counts of each)."""
+    (fan-in log, the last served batch's subset, launch counts of each,
+    the fan-in's dict merge outputs, the generator's counts)."""
     import numpy as np
 
     from automerge_tpu_torch import kernels
@@ -459,7 +502,7 @@ def record_paths(card: str, device):
     check_launches("record fan-in", fanin_counts, RUN_NATIVE + ("sort_winners",),
                    ("scatter_winners",) + TRANSPORT_ONLY)
     print(f"record fan-in: {json.dumps(got)}, as the generator counted", flush=True)
-    expand_counts = check_stagings("record fan-in", doc.log, device)
+    expand_counts, fanin_out = check_stagings("record fan-in", doc.log, device)
     packed, packed_counts = check_packed("record fan-in", doc, phases, device)
     if W.record_counts(packed) != expect:
         raise AssertionError("record fan-in: the packed document's reads differ "
@@ -563,7 +606,7 @@ def record_paths(card: str, device):
               "records packed": packed_counts,
               "served base": base_counts, "served": served_counts,
               "served dense base": dense_base_counts, "served dense": dense_counts}
-    return doc.log, last, counts
+    return doc.log, last, counts, fanin_out, expect
 
 
 def check_served_equal(name: str, served, doc, expect) -> None:
@@ -589,14 +632,101 @@ def check_served_equal(name: str, served, doc, expect) -> None:
     print(f"{name} == record fan-in on every READ_FETCH array", flush=True)
 
 
+def condensed_merge(name: str, log, want: dict, device):
+    """(e) One condensed all-device merge of ``log``:
+    ``merge_kernel_condensed(condensed_caps(log))`` on its padded columns
+    with the actor order, the launch counts set to 0 just before and read
+    just after; the run count and rcap printed; all 13 outputs equal to
+    ``want``, the dict merge's (its per-object stats cut to n_objs + 2).
+    Returns (the DeviceDoc built from the outputs, the launch counts)."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.merge import (
+        ALL_OUTPUTS, condensed_caps, merge_kernel_condensed,
+    )
+
+    runs = log.condensed_run_count()
+    rcap = condensed_caps(log)
+    t0 = time.perf_counter()
+    cols = log.padded_columns(include_aorder=True)
+    P = len(cols["action"])
+    print(f"{name}: {runs} chain runs of {int(np.count_nonzero(log.insert))} "
+          f"elements ({log.n} ops, P {P}); rcap {rcap}; "
+          f"actor order and padding {time.perf_counter() - t0:.6f} s", flush=True)
+    c = columns_from_numpy(cols, device)
+    phases = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = merge_kernel_condensed(rcap)(c, phases)
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(f"{name}: merge and readback {seconds:.6f} s; phases_s " + json.dumps(
+        {k: round(v, 6) for k, v in phases.items()}), flush=True)
+    print(f"{name} launches {json.dumps(counts)}", flush=True)
+    check_launches(name, counts, CONDENSED, NOT_CONDENSED)
+    for k in ALL_OUTPUTS:
+        got = res[k][: len(want[k])] if k.startswith("obj_") else res[k]
+        if not np.array_equal(got, want[k]):
+            raise AssertionError(f"{name}: {k} differs from the dict merge's")
+    print(f"{name}: all 13 outputs equal to the dict merge's", flush=True)
+    return DeviceDoc(log, res, device=device), counts
+
+
+def condensed_paths(card, device, text, records):
+    """(e) condensed document order: ``text`` = (log, dict outputs, text,
+    text object) of (a), ``records`` = (log, dict outputs, the generator's
+    counts) of (b); the typing fan-in is made here. Each path's condensed
+    merge equals its dict merge on all 13 outputs, and the DeviceDoc built
+    from it reads the same text (the generator's counts for the records).
+    Returns (the typing log, launch counts by path)."""
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.ops.merge import merge_columns
+
+    counts = {}
+    log, out, txt, text_obj = text
+    doc, counts["text condensed"] = condensed_merge("text condensed", log, out, device)
+    if doc.text(text_obj) != txt:
+        raise AssertionError("text condensed: the text differs from (a)'s")
+    print("text condensed: the same text as (a)", flush=True)
+
+    # the typing fan-in, a stand-in for a real editing trace: the dict
+    # merge by DeviceDoc.merge (the path "typing"), then all 13 of its
+    # outputs from merge_columns for the condensed merge to meet
+    doc, _, txt, text_obj, counts["typing"] = text_fanin(
+        "typing", card, device, W.typing_trace)
+    typing_log = doc.log
+    out = merge_columns(typing_log.columns(), n_objs=typing_log.n_objs,
+                        n_props=len(typing_log.props), device=device)
+    doc, counts["typing condensed"] = condensed_merge(
+        "typing condensed", typing_log, out, device)
+    if doc.text(text_obj) != txt:
+        raise AssertionError("typing condensed: the text differs from the dict merge's")
+    print("typing condensed: the same text as the dict merge", flush=True)
+
+    log, out, expect = records
+    doc, counts["records condensed"] = condensed_merge(
+        "records condensed", log, out, device)
+    if W.record_counts(doc) != expect:
+        raise AssertionError("records condensed: reads differ from the generator's counts")
+    print("records condensed: reads as the generator counted", flush=True)
+    return typing_log, counts
+
+
 def check_reference_fault(device) -> None:
     """(d) Two map puts whose prop ids the JAX package's packed key merges
     (prop 64 + 4 needs more than ceil_log2(16 + 5) bits): the packed
-    transport gives the dict path's winners and conflicts."""
+    transport and the condensed merge give the dict path's winners and
+    conflicts (the JAX package's merge_kernel_condensed(32, 16) does not)."""
     import numpy as np
 
+    from automerge_tpu_torch.convert import columns_from_numpy
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
-    from automerge_tpu_torch.ops.merge import merge_columns
+    from automerge_tpu_torch.ops.merge import merge_columns, merge_kernel_condensed
+    from automerge_tpu_torch.ops.oplog import pad_columns
 
     cols = {
         "action": np.array([1, 1], np.int32), "insert": np.zeros(2, bool),
@@ -609,14 +739,16 @@ def check_reference_fault(device) -> None:
     kw = dict(fetch=DeviceDoc.READ_FETCH, n_objs=2, n_props=None, device=device)
     d = merge_columns(dict(cols), **kw)
     p = merge_columns(dict(cols), transport="packed", **kw)
-    if (list(d["winner"][:2]) != [0, 1] or list(p["winner"][:2]) != [0, 1]
-            or list(d["conflicts"][:2]) != [1, 1]
-            or list(p["conflicts"][:2]) != [1, 1]):
-        raise AssertionError(f"reference-fault input: dict {d['winner'][:2]} "
-                             f"{d['conflicts'][:2]}, packed {p['winner'][:2]} "
-                             f"{p['conflicts'][:2]}")
-    print("reference-fault input (props 64 and 0, P = 16): packed == dict, "
-          "winners [0, 1], conflicts [1, 1]", flush=True)
+    c = columns_from_numpy(pad_columns(dict(cols, aorder=np.zeros(0, np.int32)), 2),
+                           device)
+    k = {name: v.cpu().numpy() for name, v in merge_kernel_condensed(32)(c).items()}
+    got = {name: (list(r["winner"][:2]), list(r["conflicts"][:2]))
+           for name, r in (("dict", d), ("packed", p), ("condensed", k))}
+    if any(v != ([0, 1], [1, 1]) for v in got.values()):
+        raise AssertionError(f"reference-fault input: winners, conflicts {got}")
+    print("reference-fault input (props 64 and 0, P = 16): packed == condensed "
+          "(rcap 32) == dict, winners [0, 1], conflicts [1, 1]",
+          flush=True)
 
 
 def check_served_subset(last, device) -> None:
@@ -659,35 +791,24 @@ def expand_rows(stacks):
     return rows
 
 
-def path_kernels(cols, n_objs: int, n_props: int, device):
-    """The kernels of one path's run-native merge run on its padded
-    columns as the merge runs them: [(name, kernel, plain, args, out,
-    library, tag)], expand_runs once for each stack of run tables (its
-    tag: the stack's length and form)."""
-    from automerge_tpu_torch.convert import columns_from_numpy
+def resolve_rows(c, scatter_geom):
+    """succ_vis, the winners (scatter_winners over ``scatter_geom`` =
+    (n_objs2, n_props), sort_winners for None), forest and its
+    bitonic_sort on column tensors ``c``, as a merge runs them: (rows,
+    forest outputs)."""
     from automerge_tpu_torch.kernels import forest as F
-    from automerge_tpu_torch.kernels import linearize as L
     from automerge_tpu_torch.kernels import scatter_winners as SW
     from automerge_tpu_torch.kernels import sort_winners as SO
     from automerge_tpu_torch.kernels import succ_vis as SV
-    from automerge_tpu_torch.ops.merge import (
-        scatter_geom_key, scatter_geometry_ok, stage_cols_run_native,
-    )
 
-    _, stacks, plan = stage_cols_run_native(cols, device)
-    rows = expand_rows([
-        (arrs[0], arrs[1], arrs[2] if cls == "delta" else None, n, bools,
-         f"n={n} {cls} K={len(names)} rcap={rcap}")
-        for (n, rcap, cls, names, bools), arrs in zip(plan, stacks)])
-    c = columns_from_numpy(cols, device)
     sv_in = (c["action"], c["value_tag"], c["value_i32"], c["covered"],
              c["pred_src"], c["pred_tgt"])
     sv = SV.succ_vis(*sv_in)
-    rows.append(("succ_vis", SV.succ_vis, SV.succ_vis_plain, sv_in, sv, None, ""))
+    rows = [("succ_vis", SV.succ_vis, SV.succ_vis_plain, sv_in, sv, None, "")]
     win_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
               c["width"], sv[3])
-    if scatter_geometry_ok(c["action"].numel(), n_objs, n_props):
-        sw_in = win_in + scatter_geom_key(n_objs, n_props)
+    if scatter_geom is not None:
+        sw_in = win_in + scatter_geom
         rows.append(("scatter_winners", SW.scatter_winners,
                      SW.scatter_winners_plain, sw_in, SW.scatter_winners(*sw_in),
                      None, ""))
@@ -701,6 +822,30 @@ def path_kernels(cols, n_objs: int, n_props: int, device):
     rows.append(("forest", F.forest, F.forest_plain, fo_in, fo, None, ""))
     rows.append(("bitonic_sort", F.bitonic_sort, F.bitonic_sort_plain, (sib,),
                  (F.bitonic_sort(sib),), lambda: torch.sort(sib), ""))
+    return rows, fo
+
+
+def path_kernels(cols, n_objs: int, n_props: int, device):
+    """The kernels of one path's run-native merge run on its padded
+    columns as the merge runs them: [(name, kernel, plain, args, out,
+    library, tag)], expand_runs once for each stack of run tables (its
+    tag: the stack's length and form)."""
+    from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.kernels import linearize as L
+    from automerge_tpu_torch.ops.merge import (
+        scatter_geom_key, scatter_geometry_ok, stage_cols_run_native,
+    )
+
+    _, stacks, plan = stage_cols_run_native(cols, device)
+    rows = expand_rows([
+        (arrs[0], arrs[1], arrs[2] if cls == "delta" else None, n, bools,
+         f"n={n} {cls} K={len(names)} rcap={rcap}")
+        for (n, rcap, cls, names, bools), arrs in zip(plan, stacks)])
+    c = columns_from_numpy(cols, device)
+    geom = (scatter_geom_key(n_objs, n_props)
+            if scatter_geometry_ok(c["action"].numel(), n_objs, n_props) else None)
+    core, fo = resolve_rows(c, geom)
+    rows += core
     li_in = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"])
     rows.append(("linearize", L.linearize, L.linearize_plain, li_in,
                  (L.linearize(*li_in),), None, ""))
@@ -759,6 +904,23 @@ def packed_kernels(cols, n_objs: int, n_props: int, device):
     return rows
 
 
+def condensed_kernels(cols, n_objs: int, n_props: int, device, rcap: int):
+    """merge_kernel_condensed's kernels on one path's padded columns (with
+    the actor order), as it runs them: succ_vis, sort_winners, forest,
+    bitonic_sort, then linearize_condensed at ``rcap``."""
+    from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.kernels import linearize_condensed as LC
+
+    c = columns_from_numpy(cols, device)
+    rows, fo = resolve_rows(c, None)
+    lc_in = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"], c["aorder"],
+             rcap)
+    rows.append(("linearize_condensed", LC.linearize_condensed,
+                 LC.linearize_condensed_plain, lc_in,
+                 (LC.linearize_condensed(*lc_in),), None, f"rcap={rcap}"))
+    return rows
+
+
 REPLACES = {
     "succ_vis": ("automerge_tpu/ops/merge.py:59", "succ_vis.cu"),
     "scatter_winners": ("automerge_tpu/ops/merge.py:595", "scatter_winners.cu"),
@@ -766,6 +928,8 @@ REPLACES = {
     "forest": ("automerge_tpu/ops/merge.py:551", "forest.cu"),
     "bitonic_sort": ("automerge_tpu/ops/merge.py:582", "forest.cu"),
     "linearize": ("automerge_tpu/ops/merge.py:216", "linearize.cu"),
+    "linearize_condensed": ("automerge_tpu/ops/merge.py:303",
+                            "linearize_condensed.cu"),
     "expand_runs": ("automerge_tpu/ops/merge.py:993", "expand_runs.cu"),
     "unpack_flags": ("automerge_tpu/ops/merge.py:1143", "expand_runs.cu"),
     "emit_packed": ("automerge_tpu/ops/merge.py:1181", "emit_packed.cu"),
@@ -794,19 +958,21 @@ def measure(name, kern, plain, args, out, library, reps: int) -> dict:
 
 def kernel_report(paths, by_path, device, reps: int):
     """Each kernel against its plain version at the shapes of every path
-    that runs it (``paths``: name -> (padded columns, n_objs, n_props); a
-    name ending in "packed" is the packed transport's, one ending in
-    "expand" the eager-expansion staging's), and sort_winners
-    past 2^20 rows. A kernel's top-level numbers are those of the first
+    that runs it (``paths``: name -> (padded columns, n_objs, n_props), and
+    for a name ending in "condensed", the condensed merge's, its columns
+    with the actor order and rcap after; a name ending in
+    "packed" is the packed transport's, one ending in "expand" the
+    eager-expansion staging's), and sort_winners past 2^20 rows. A kernel's top-level numbers are those of the first
     path that runs it; ``by_path`` has them all (expand_runs: by stack)."""
     from automerge_tpu_torch.kernels import sort_winners as SO
 
     report = {}
-    for path, (cols, n_objs, n_props) in paths.items():
+    for path, (cols, n_objs, n_props, *caps) in paths.items():
         rows_of = (packed_kernels if path.endswith("packed") else
-                   eager_kernels if path.endswith("expand") else path_kernels)
+                   eager_kernels if path.endswith("expand") else
+                   condensed_kernels if path.endswith("condensed") else path_kernels)
         for name, kern, plain, args, out, library, tag in rows_of(
-                cols, n_objs, n_props, device):
+                cols, n_objs, n_props, device, *caps):
             m = {"P": len(cols["action"]),
                  **measure(name, kern, plain, args, out, library, reps)}
             m["launches"] = by_path[path][name]
@@ -842,8 +1008,8 @@ def kernel_report(paths, by_path, device, reps: int):
     print(f"sort_winners at P = {WIDE_P}: equal to its plain version in "
           f"{wide_launches} launches", flush=True)
     order = ("succ_vis", "scatter_winners", "sort_winners", "forest",
-             "bitonic_sort", "linearize", "expand_runs", "unpack_flags",
-             "emit_packed")
+             "bitonic_sort", "linearize", "linearize_condensed", "expand_runs",
+             "unpack_flags", "emit_packed")
     return [report[name] for name in order]
 
 
@@ -867,20 +1033,32 @@ def main() -> int:
           f"with cache check), {_build.library_path().name}", flush=True)
 
     # 3. the main paths
-    text_log, text_counts = text_path(card, device)
-    record_log, last, record_counts = record_paths(card, device)
+    text_log, text_counts, text_out, text, text_obj = text_path(card, device)
+    record_log, last, record_counts, record_out, expect = record_paths(card, device)
     check_reference_fault(device)
+    typing_log, condensed_counts = condensed_paths(
+        card, device, (text_log, text_out, text, text_obj),
+        (record_log, record_out, expect))
+    del text_out, record_out
 
     # 4./5. every kernel against its plain version at each path's shapes;
     # the whole merge against the CPU on a small fan-in and a served subset
-    by_path = {**text_counts, **record_counts}
-    text_cols = (text_log.padded_columns(), text_log.n_objs, len(text_log.props))
-    record_cols = (record_log.padded_columns(), record_log.n_objs,
-                   len(record_log.props))
+    from automerge_tpu_torch.ops.merge import condensed_caps
+
+    by_path = {**text_counts, **record_counts, **condensed_counts}
+
+    def spec(log, condensed=False):
+        return (log.padded_columns(include_aorder=condensed), log.n_objs,
+                len(log.props), *((condensed_caps(log),) if condensed else ()))
+
+    text_cols, record_cols = spec(text_log), spec(record_log)
     paths = {"text": text_cols, "text expand": text_cols,
              "text packed": text_cols, "records": record_cols,
              "records expand": record_cols, "records packed": record_cols,
-             "served": last}
+             "served": last, "text condensed": spec(text_log, True),
+             "typing": spec(typing_log),
+             "typing condensed": spec(typing_log, True),
+             "records condensed": spec(record_log, True)}
     report = kernel_report(paths, by_path, device, REPS)
     check_served_subset(last, device)
     check_small_against_cpu(device)

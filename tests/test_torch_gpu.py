@@ -16,11 +16,13 @@ from automerge_tpu_torch.convert import columns_from_numpy
 from automerge_tpu_torch.kernels import forest as F
 from automerge_tpu_torch.kernels import launch_counts, reset_launches
 from automerge_tpu_torch.kernels import linearize as L
+from automerge_tpu_torch.kernels import linearize_condensed as LC
 from automerge_tpu_torch.kernels import scatter_winners as SW
 from automerge_tpu_torch.kernels import sort_winners as SO
 from automerge_tpu_torch.kernels import succ_vis as SV
 from automerge_tpu_torch.ops.device_doc import DeviceDoc
 from automerge_tpu_torch.ops.merge import ALL_OUTPUTS, merge_columns
+from automerge_tpu_torch.ops.merge import condensed_caps, merge_kernel_condensed
 from automerge_tpu_torch.ops.merge import scatter_geom_key, stage_cols_run_native
 from automerge_tpu_torch.ops.oplog import OpLog
 from automerge_tpu_torch.storage.change import parse_change
@@ -94,6 +96,7 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
         "forest": 4,  # two fills, links, next_sib
         "bitonic_sort": 1 + sort_stages * (sort_stages + 1) // 2,
         "linearize": 2 * L.rounds(P) + 3,
+        "linearize_condensed": 0,  # merge_kernel_condensed's
         # run-native staging: one decode per stack of run tables
         "expand_runs": len(stage_cols_run_native(log.padded_columns(), "cpu")[2]),
         "unpack_flags": 0,  # the packed transport's
@@ -254,3 +257,88 @@ def test_stagings_and_packed_transport_on_card_equal_cpu(cuda, staging):
         got = packed[k] > 1 if k == "conflicts" else packed[k]
         cut = min(len(got), len(want))  # the stats: obj_cap vs n_objs + 2
         np.testing.assert_array_equal(got[:cut], want[:cut], err_msg=k)
+
+
+# -- chain-condensed document order (K8) ------------------------------------
+
+
+def _typing_log(base_edits, replicas, per):
+    trace = W.typing_trace(base_edits + 1000, seed=3)
+    base = W.build_base(trace, base_edits)
+    return OpLog.from_changes(
+        base.changes + W.synth_fanin(base, trace, replicas, per, base_edits))
+
+
+def _condensed_logs():
+    """(name, log): a typing log (rcap well under P), the synthetic trace's
+    (rcap near P: it barely chains), one whose P (24,576) is no power of
+    two, a prepend-only document (every element its own run) and a record
+    store (no sequence: an empty actor order, one run)."""
+    from automerge_tpu_torch.storage.change import (
+        HEAD_STORED, ChangeOp, StoredChange, build_change,
+    )
+    from automerge_tpu_torch.types import Key, ScalarValue
+
+    ops = [ChangeOp(obj=(0, -1), key=Key.map("t"), insert=False, action=4,
+                    value=ScalarValue("null"))]
+    for i in range(300):  # each insert at HEAD
+        ops.append(ChangeOp(obj=(1, 0), key=Key.seq(HEAD_STORED), insert=True, action=1,
+                            value=ScalarValue("str", "p")))
+    prepend = build_change(StoredChange(
+        dependencies=[], actor=bytes([9]) * 16, other_actors=[], seq=1, start_op=1,
+        timestamp=0, message=None, ops=ops))
+    base, reps, _ = _record_store()
+    return [
+        ("typing", _typing_log(2000, 16, 100)),
+        ("synthetic", _log(2000, 16, 100)),
+        ("P24576", _typing_log(20000, 8, 100)),
+        ("prepend", OpLog.from_changes([prepend])),
+        ("records", OpLog.from_changes([parse_change(b)[0] for b in [base] + reps])),
+    ]
+
+
+def test_linearize_condensed_equals_plain_version(cuda):
+    for name, log in _condensed_logs():
+        rcap = condensed_caps(log)
+        c = columns_from_numpy(log.padded_columns(include_aorder=True), cuda)
+        fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
+        args = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"], c["aorder"],
+                rcap)
+        reset_launches()
+        got = LC.linearize_condensed(*args)
+        assert launch_counts()["linearize_condensed"] == 8 + 2 * LC.rounds(rcap), name
+        _same(got, LC.linearize_condensed_plain(*args))
+        li = L.linearize(fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"])
+        _same(got, li)
+        if name == "records":
+            assert log.condensed_run_count() == 1
+            assert int((c["aorder"] < c["aorder"].numel()).sum()) == 0
+
+
+def test_linearize_condensed_raises_when_the_runs_exceed_rcap(cuda):
+    log = _log(2000, 16, 100)
+    runs = log.condensed_run_count()
+    c = columns_from_numpy(log.padded_columns(include_aorder=True), cuda)
+    fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
+    args = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"], c["aorder"])
+    with pytest.raises(ValueError, match=f"{runs} chain runs exceed rcap = {runs - 1}"):
+        LC.linearize_condensed(*args, runs - 1)
+    _same(LC.linearize_condensed(*args, runs), LC.linearize_condensed_plain(*args, runs))
+
+
+def test_condensed_merge_on_card_equals_cpu_and_counts_launches(cuda):
+    log = _typing_log(2000, 16, 100)
+    rcap = condensed_caps(log)
+    cols = log.padded_columns(include_aorder=True)
+    cpu = merge_kernel_condensed(rcap)(columns_from_numpy(cols, "cpu"))
+    reset_launches()
+    gpu = merge_kernel_condensed(rcap)(columns_from_numpy(cols, cuda))
+    counts = launch_counts()
+    assert counts["linearize_condensed"] == 8 + 2 * LC.rounds(rcap)
+    assert counts["succ_vis"] and counts["sort_winners"] and counts["forest"]
+    assert counts["linearize"] == counts["scatter_winners"] == 0
+    for k in ALL_OUTPUTS:
+        np.testing.assert_array_equal(gpu[k].cpu().numpy(), cpu[k].numpy(), err_msg=k)
+    doc = DeviceDoc(log, {k: v.cpu().numpy() for k, v in gpu.items()}, device=cuda)
+    ref = DeviceDoc.resolve(log, device="cpu")
+    assert doc.text(f"1@{W.BASE_ACTOR.hex()}") == ref.text(f"1@{W.BASE_ACTOR.hex()}")

@@ -46,6 +46,16 @@ served = DeviceDoc.merge([rbase.raw_bytes], device="cpu")
 served.apply_changes([r.raw_bytes for r in reps[:4]])
 served.apply_batches(W.record_batches([r.raw_bytes for r in reps[4:]], 2))
 assert W.record_counts(served) == expect
+from automerge_tpu_torch.convert import columns_from_numpy
+from automerge_tpu_torch.kernels import linearize_condensed
+from automerge_tpu_torch.ops.merge import condensed_caps, merge_kernel_condensed
+from automerge_tpu_torch.ops.oplog import OpLog
+tbase = W.build_base(W.typing_trace(300, 1), 200)
+tlog = OpLog.from_changes(tbase.changes)
+cond = merge_kernel_condensed(condensed_caps(tlog))(
+    columns_from_numpy(tlog.padded_columns(include_aorder=True), "cpu"))
+assert int((cond["elem_index"] >= 0).sum()) == int(tlog.insert.sum())
+assert linearize_condensed.linearize_condensed.launches == 0
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "automerge_tpu") or m.startswith(("jax.", "automerge_tpu."))
