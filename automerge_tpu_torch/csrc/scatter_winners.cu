@@ -37,11 +37,13 @@ __global__ void sw_scatter(const int* __restrict__ action,
                            const int* __restrict__ elem_ref,
                            const int* __restrict__ obj_dense,
                            const int* __restrict__ prop,
-                           const bool* __restrict__ visible, int P, int G,
-                           int n_objs2, int n_props, int* __restrict__ win,
-                           int* __restrict__ cnt) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= P || !visible[r]) return;  // invisible rows add max(-1) / +0
+                           const bool* __restrict__ visible, int P, int r0,
+                           int count, int G, int n_objs2, int n_props,
+                           int* __restrict__ win, int* __restrict__ cnt) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= count) return;
+  int r = r0 + k;
+  if (!visible[r]) return;  // invisible rows add max(-1) / +0
   int g = sw_gid(r, action[r], insert[r], elem_ref[r], obj_dense[r], prop[r],
                  P, G, n_objs2, n_props);
   if (g < 0 || g >= G) return;
@@ -54,15 +56,16 @@ __global__ void sw_gather(const int* __restrict__ action,
                           const int* __restrict__ elem_ref,
                           const int* __restrict__ obj_dense,
                           const int* __restrict__ prop,
-                          const int* __restrict__ width, int P, int G,
-                          int n_objs2, int n_props,
+                          const int* __restrict__ width, int P, int r0,
+                          int count, int G, int n_objs2, int n_props,
                           const int* __restrict__ win,
                           const int* __restrict__ cnt,
                           int* __restrict__ winner, int* __restrict__ conflicts,
                           int* __restrict__ obj_vis_len,
                           int* __restrict__ obj_text_width) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= P) return;
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= count) return;
+  int r = r0 + k;
   int a = action[r];
   bool valid = a != AMT_PAD_ACTION;
   bool ins = insert[r];
@@ -70,8 +73,8 @@ __global__ void sw_gather(const int* __restrict__ action,
   int g = amt_clamp(
       sw_gid(r, a, ins, elem_ref[r], od, prop[r], P, G, n_objs2, n_props), G);
   int w = valid ? win[g] : -1;
-  winner[r] = w;
-  conflicts[r] = valid ? cnt[g] : 0;
+  winner[k] = w;
+  conflicts[k] = valid ? cnt[g] : 0;
   if (valid && ins && w >= 0) {  // a visible element of object od
     if (od >= 0 && od < P + 2) {
       atomicAdd(&obj_vis_len[od], 1);
@@ -98,12 +101,58 @@ AMT_API int amt_scatter_winners(const int* action, const bool* insert,
   amt_fill_i32<<<amt_blocks(ns), AMT_THREADS, 0, stream>>>(stats, 0, ns);
   AMT_LAUNCHED;
   sw_scatter<<<amt_blocks(P), AMT_THREADS, 0, stream>>>(
-      action, insert, elem_ref, obj_dense, prop, visible, P, G, n_objs2,
+      action, insert, elem_ref, obj_dense, prop, visible, P, 0, P, G, n_objs2,
       n_props, win, cnt);
   AMT_LAUNCHED;
   sw_gather<<<amt_blocks(P), AMT_THREADS, 0, stream>>>(
-      action, insert, elem_ref, obj_dense, prop, width, P, G, n_objs2,
+      action, insert, elem_ref, obj_dense, prop, width, P, 0, P, G, n_objs2,
       n_props, win, cnt, winner, conflicts, stats, stats + (P + 2));
   AMT_LAUNCHED;
+  return (int)cudaGetLastError();
+}
+
+// The sharded merge's row-range halves (automerge_tpu/parallel/sharding.py
+// _sharded_winners, :99-163): each shard scatters the rows [r0, r0+count)
+// of the full columns into its own win/cnt tables (G slots, group ids and
+// rows global), the collectives max the shards' win tables and sum their
+// cnt tables, then each shard gathers winner/conflicts for its rows
+// (written from index 0) and its partial per-object stats [2, P+2].
+AMT_API int amt_winners_partial(const int* action, const bool* insert,
+                                const int* elem_ref, const int* obj_dense,
+                                const int* prop, const bool* visible, int P,
+                                int r0, int count, int n_objs2, int n_props,
+                                int G, int* win, int* cnt,
+                                cudaStream_t stream, int* launched) {
+  if (G <= 0) return (int)cudaGetLastError();
+  amt_fill_i32<<<amt_blocks(G), AMT_THREADS, 0, stream>>>(win, -1, G);
+  AMT_LAUNCHED;
+  amt_fill_i32<<<amt_blocks(G), AMT_THREADS, 0, stream>>>(cnt, 0, G);
+  AMT_LAUNCHED;
+  if (count > 0) {
+    sw_scatter<<<amt_blocks(count), AMT_THREADS, 0, stream>>>(
+        action, insert, elem_ref, obj_dense, prop, visible, P, r0, count, G,
+        n_objs2, n_props, win, cnt);
+    AMT_LAUNCHED;
+  }
+  return (int)cudaGetLastError();
+}
+
+// winner/conflicts: int32 [count]; stats: int32 [2, P+2]
+AMT_API int amt_winners_gather(const int* action, const bool* insert,
+                               const int* elem_ref, const int* obj_dense,
+                               const int* prop, const int* width, int P,
+                               int r0, int count, int n_objs2, int n_props,
+                               int G, const int* win, const int* cnt,
+                               int* winner, int* conflicts, int* stats,
+                               cudaStream_t stream, int* launched) {
+  long long ns = 2LL * (P + 2);
+  amt_fill_i32<<<amt_blocks(ns), AMT_THREADS, 0, stream>>>(stats, 0, ns);
+  AMT_LAUNCHED;
+  if (count > 0) {
+    sw_gather<<<amt_blocks(count), AMT_THREADS, 0, stream>>>(
+        action, insert, elem_ref, obj_dense, prop, width, P, r0, count, G,
+        n_objs2, n_props, win, cnt, winner, conflicts, stats, stats + (P + 2));
+    AMT_LAUNCHED;
+  }
   return (int)cudaGetLastError();
 }

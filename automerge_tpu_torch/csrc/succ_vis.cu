@@ -79,3 +79,37 @@ AMT_API int amt_succ_vis(const int* action, const int* value_tag,
   AMT_LAUNCHED;
   return (int)cudaGetLastError();
 }
+
+// The sharded merge's two halves of amt_succ_vis
+// (automerge_tpu/parallel/sharding.py _sharded_merge, :340-345): each
+// shard counts its slice of the pred edges into a [3, P] accumulator of
+// its own (succ_edges over Q edges, pad edges with tgt -1 dropped), the
+// collectives sum the shards' accumulators, and amt_visibility applies
+// the rule to the sums on each device.
+AMT_API int amt_succ_partial(const int* action, const int* value_i32,
+                             const bool* covered, const int* pred_src,
+                             const int* pred_tgt, int P, int Q, int* acc,
+                             cudaStream_t stream, int* launched) {
+  if (P <= 0) return (int)cudaGetLastError();
+  amt_fill_i32<<<amt_blocks(3LL * P), AMT_THREADS, 0, stream>>>(acc, 0, 3LL * P);
+  AMT_LAUNCHED;
+  if (Q > 0) {
+    succ_edges<<<amt_blocks(Q), AMT_THREADS, 0, stream>>>(
+        action, value_i32, covered, pred_src, pred_tgt, P, Q, acc, acc + P,
+        acc + 2 * (long long)P);
+    AMT_LAUNCHED;
+  }
+  return (int)cudaGetLastError();
+}
+
+// succ, inc: int32 [P] (the summed accumulator's first two rows)
+AMT_API int amt_visibility(const int* action, const int* value_tag,
+                           const bool* covered, const int* succ,
+                           const int* inc, int P, bool* visible,
+                           cudaStream_t stream, int* launched) {
+  if (P <= 0) return (int)cudaGetLastError();
+  vis_rows<<<amt_blocks(P), AMT_THREADS, 0, stream>>>(
+      action, value_tag, covered, succ, inc, P, visible);
+  AMT_LAUNCHED;
+  return (int)cudaGetLastError();
+}

@@ -13,6 +13,16 @@ PyTorch version.
 | ``expand_runs.unpack_flags`` | ``_unpack_transport``'s flags split :1157-1162 |
 | ``emit_packed.emit_packed`` | ``_emit`` :1181 with ``_bitpack`` :1165 |
 
+The sharded merge's kernels (``automerge_tpu/parallel/sharding.py``, K11):
+
+| wrapper | replaces (automerge_tpu/parallel/sharding.py) |
+| --- | --- |
+| ``succ_vis.succ_partial``, ``succ_vis.visibility`` | ``succ_resolution`` on a pred slice :340, ``visibility`` :345 |
+| ``scatter_winners.winners_partial``, ``winners_gather`` | ``_sharded_winners`` :99-163 |
+| ``linearize.linearize_init``, ``linearize_thread``, ``linearize_rank_init``, ``linearize_rank``, ``linearize_final`` | ``_sharded_linearize`` :166-252 (and the condensed arm's loops :287-317) |
+| ``sharded.cond_init``, ``cond_succ``, ``cond_expand`` | ``_sharded_linearize_condensed`` :283-285, :300-306, :320-334 |
+| ``collectives.mesh_reduce`` | ``jax.lax.psum`` / ``pmax`` :138-139, :154-162, :341-342 |
+
 A wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches its kernel (built on first use, see ``_build``) or raises.
 Each wrapper adds the kernels its C entry points launched to its
@@ -24,14 +34,19 @@ from __future__ import annotations
 
 def wrappers():
     """The kernel wrappers of the merge path, by name."""
+    from .collectives import mesh_reduce
     from .emit_packed import emit_packed
     from .expand_runs import expand_runs, unpack_flags
     from .forest import bitonic_sort, forest
-    from .linearize import linearize
+    from .linearize import (
+        linearize, linearize_final, linearize_init, linearize_rank,
+        linearize_rank_init, linearize_thread,
+    )
     from .linearize_condensed import linearize_condensed
-    from .scatter_winners import scatter_winners
+    from .scatter_winners import scatter_winners, winners_gather, winners_partial
+    from .sharded import cond_expand, cond_init, cond_succ
     from .sort_winners import sort_winners
-    from .succ_vis import succ_vis
+    from .succ_vis import succ_partial, succ_vis, visibility
 
     return {
         "succ_vis": succ_vis,
@@ -44,6 +59,19 @@ def wrappers():
         "expand_runs": expand_runs,
         "unpack_flags": unpack_flags,
         "emit_packed": emit_packed,
+        "succ_partial": succ_partial,
+        "visibility": visibility,
+        "winners_partial": winners_partial,
+        "winners_gather": winners_gather,
+        "linearize_init": linearize_init,
+        "linearize_thread": linearize_thread,
+        "linearize_rank_init": linearize_rank_init,
+        "linearize_rank": linearize_rank,
+        "linearize_final": linearize_final,
+        "cond_init": cond_init,
+        "cond_succ": cond_succ,
+        "cond_expand": cond_expand,
+        "mesh_reduce": mesh_reduce,
     }
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 
@@ -36,5 +38,13 @@ def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+class Stream(NamedTuple):
+    """A CUDA stream handle and its card, as ``launch`` takes them."""
+    handle: int
+    device: torch.device
+
+
+def stream(t: torch.Tensor) -> Stream:
+    """The current stream of ``t``'s card: ``launch`` makes that card the
+    current device while the entry point runs."""
+    return Stream(torch.cuda.current_stream(t.device).cuda_stream, t.device)

@@ -11,6 +11,7 @@ a source changes. Nothing is built at import time; the first kernel launch
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +20,10 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
+
+from ._args import Stream
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -108,19 +113,27 @@ def library() -> ctypes.CDLL:
 
 P_ = ctypes.c_void_p
 I_ = ctypes.c_int
+LL_ = ctypes.c_longlong
 
 
 def launch(name: str, argtypes, *args) -> int:
     """Call the C entry point ``name`` with ``args`` (declared as
     ``argtypes``) and return the number of kernels it launched; raise on
     the cudaError_t it returns. Every entry point takes, after ``args``, a
-    host int that it raises by one per kernel launch."""
+    host int that it raises by one per kernel launch. A ``Stream`` among
+    ``args`` passes its handle, and its card is the current device for the
+    call: a kernel launches on the current device, so a stream of another
+    card would be refused."""
     fn = getattr(library(), name)
     if fn.argtypes is None:
         fn.argtypes = [*argtypes, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
+    streams = [a for a in args if isinstance(a, Stream)]
+    raw = [a.handle if isinstance(a, Stream) else a for a in args]
+    card = torch.cuda.device(streams[0].device) if streams else contextlib.nullcontext()
     launched = ctypes.c_int(0)
-    rc = fn(*args, ctypes.byref(launched))
+    with card:
+        rc = fn(*raw, ctypes.byref(launched))
     if rc != 0:
         msg = library().amt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

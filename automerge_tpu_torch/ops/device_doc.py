@@ -7,8 +7,10 @@ the reference ReadDoc surface (reference: rust/automerge/src/read.rs:32-236)
 as ``automerge_tpu.ops.device_doc.DeviceDoc`` serves it, and its serving
 path: ``apply_changes`` / ``apply_batches`` splice new changes into the
 resident log and re-resolve only what they touch, on the device the
-document was resolved on. Historical views, mesh residency and patches
-are not part of this package.
+document was resolved on; with ``enable_mesh``, a re-resolve of the whole
+log runs as the sharded merge over a mesh of shards instead
+(``parallel/sharding.py``). Historical views and patches are not part of
+this package.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ _OBJ_REPLACEMENT = "￼"
 # runs over the whole log instead of the subset (the bookkeeping no longer
 # pays).
 DIRTY_FRACTION_LIMIT = 0.5
+# Below this many rows a full re-resolve stays on the document's device
+# even with a mesh enabled.
+MESH_MIN_ROWS = 4096
 
 
 def _parsed(changes) -> List[StoredChange]:
@@ -90,6 +95,9 @@ class DeviceDoc:
         # its columns staged as they were (ops/merge.py prepare_resolution)
         self.device = resolve_device(device)
         self.staging = staging
+        # mesh residency (enable_mesh): off until asked for
+        self._mesh = None
+        self._mesh_min_rows = MESH_MIN_ROWS
         n = log.n
         self.visible = res["visible"][:n]
         self.winner = res["winner"][:n]
@@ -330,10 +338,12 @@ class DeviceDoc:
     def _rebuild(self, changes: list) -> None:
         """Full fallback: re-extract and re-resolve everything in place."""
         pend = self._pending
+        mesh = self._mesh, self._mesh_min_rows
         log = OpLog.from_changes(changes)
         self.__init__(log, _resolve_log(log, self.device, staging=self.staging),
                       self.device, self.staging)
         self._pending = pend
+        self._mesh, self._mesh_min_rows = mesh
 
     def _apply_append(self, info, ready: Sequence) -> None:
         """Splice the resolution arrays and host caches through an
@@ -736,7 +746,9 @@ class DeviceDoc:
         rows = self._subset_rows(dirty)
         if len(rows) / m > DIRTY_FRACTION_LIMIT or len(dirty) >= log.n_objs:
             # re-resolving everything is cheaper than the bookkeeping
-            res = _resolve_log(log, self.device, staging=self.staging)
+            res = self._mesh_resolve()
+            if res is None:
+                res = _resolve_log(log, self.device, staging=self.staging)
             for k in ("visible", "winner", "conflicts", "elem_index"):
                 self.res[k][:] = np.asarray(res[k])[:m]
             for k in ("obj_vis_len", "obj_text_width"):
@@ -750,6 +762,51 @@ class DeviceDoc:
             staging=self.staging,
         )
         self._scatter_subset(rows, dirty, res_sub)
+
+    # -- mesh residency -------------------------------------------------------
+    #
+    # A document too large for one device's re-resolve can route its full
+    # re-resolutions through the sharded merge
+    # (``automerge_tpu/ops/device_doc.py:1039-1179``). The columns go over
+    # in row order, unpermuted: the sharded merge's group tables span the
+    # whole log and are combined by pmax/psum, so a shard's row slice need
+    # not hold whole objects (ROADMAP §3 says why the reference's
+    # object-contiguous permutation has no counterpart here).
+
+    def enable_mesh(self, n_devices=None, devices=None,
+                    min_rows: int = MESH_MIN_ROWS):
+        """Route this document's full re-resolutions through the sharded
+        merge over ``default_mesh(n_devices, devices)`` (the CUDA cards
+        unless ``devices`` names others, e.g. ``["cuda:0"] * 4``).
+        Logs under ``min_rows`` rows stay on the document's device.
+        Raises when the cards are fewer than asked for or the mesh has one
+        shard. Returns the mesh."""
+        from ..parallel import default_mesh
+
+        mesh = default_mesh(n_devices, devices)
+        if mesh.size < 2:
+            raise ValueError(f"enable_mesh needs two shards or more, got {mesh.size}")
+        self._mesh = mesh
+        self._mesh_min_rows = int(min_rows)
+        return mesh
+
+    def disable_mesh(self) -> None:
+        self._mesh = None
+
+    def _mesh_resolve(self):
+        """One sharded resolution of the whole log over the mesh, or None
+        when mesh residency is off or the log is under ``min_rows``."""
+        if self._mesh is None or self.log.n < self._mesh_min_rows:
+            return None
+        return self._mesh_resolve_inner()
+
+    def _mesh_resolve_inner(self) -> Dict[str, np.ndarray]:
+        from ..parallel import sharded_merge_columns
+
+        log = self.log
+        return sharded_merge_columns(
+            pad_columns(log.columns(), log.n_objs), mesh=self._mesh,
+            n_objs=log.n_objs, n_props=len(log.props))
 
     # staged async subset resolution (apply_batches) --------------------------
 

@@ -851,3 +851,40 @@ def pad_columns(cols, n_objs: int, min_capacity: int = 16):
         )
         for k, v in cols.items()
     }
+
+
+def host_forest(cols_np):
+    """Sibling forest (is_elem, parent_row, first_child, next_sib) from
+    numpy columns, on the host (``automerge_tpu/ops/oplog.py``
+    ``host_forest``, :1217): the host mirror of the ``forest`` kernel.
+    Children order is descending row (= descending Lamport,
+    query/insert.rs), built with one lexsort."""
+    action = np.asarray(cols_np["action"])
+    P = len(action)
+    insert = np.asarray(cols_np["insert"]).astype(bool) & (action != PAD_ACTION)
+    elem_ref = np.asarray(cols_np["elem_ref"])
+    obj_dense = np.asarray(cols_np["obj_dense"])
+    N = 2 * P + 3
+    S = N - 1
+    parent_row = np.where(
+        insert,
+        np.where(
+            elem_ref == ELEM_HEAD,
+            P + obj_dense,
+            np.where(elem_ref >= 0, elem_ref, S),
+        ),
+        S,
+    ).astype(np.int32)
+    er = np.flatnonzero(insert).astype(np.int32)
+    order = np.lexsort((-er, parent_row[er]))
+    sp = parent_row[er][order]
+    sr = er[order]
+    first_child = np.full(N, -1, np.int32)
+    next_sib = np.full(N, -1, np.int32)
+    if len(sr):
+        first = np.concatenate([[True], sp[1:] != sp[:-1]])
+        first_child[sp[first]] = sr[first]
+        same = np.concatenate([sp[1:] == sp[:-1], [False]])
+        nxt = np.concatenate([sr[1:], np.array([-1], np.int32)])
+        next_sib[sr] = np.where(same, nxt, -1)
+    return insert, parent_row, first_child, next_sib

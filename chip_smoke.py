@@ -2,9 +2,11 @@
 merge of a text document, the fan-in of a record store and the record
 store served batch by batch, end to end through hand-written CUDA kernels,
 with the columns staged as run tables (run-native, the default), the
-packed transport, and the chain-condensed document order.
+packed transport, the chain-condensed document order, and the sharded
+merge over a mesh of four shards on the card.
 
-    python3 chip_smoke.py     # full width, as below
+    python3 chip_smoke.py            # full width, as below
+    python3 chip_smoke.py --cards    # on four cards: phases 1, 2 and (g) only
 
 Phases, each raising on failure (nothing is caught):
 
@@ -54,6 +56,26 @@ Phases, each raising on failure (nothing is caught):
        merge's; the DeviceDoc built from them reads the same text (the
        generator's counts); linearize_condensed launches, linearize does
        not;
+    f. the sharded merge (parallel.sharded_merge_columns) over a mesh of
+       4 shards on the card (Mesh(["cuda:0"] * 4)), each path against
+       the single-device merge_kernel on the same padded columns (all 13
+       outputs, exact), wall seconds of both printed, the collectives'
+       calls and bytes, and the launches (the sharded kernels must run,
+       no single-device merge kernel): "text sharded" (the row-range
+       winners, the condensed arm: R and R2 printed), "text sharded
+       rows" (the row arm), "typing sharded" and "typing sharded rows"
+       (the all_gather bytes per doubling round of both arms and their
+       ratio), "records sharded" (the sort-based winners, R = 0) and
+       "records sharded packed"; then "text mesh doc": (a)'s log less its
+       last replica change as two DeviceDocs, one with enable_mesh on the
+       card, both applying that change (its full re-resolve: over the
+       mesh in one), equal on READ_FETCH and the text; "text sharded 4
+       cards" where the machine has four cards, else a line saying why
+       not;
+    g. with --cards, in place of (a)-(f) and 4-6 but the last line: the
+       text fan-in's merge (a), then its sharded merge over four distinct
+       cards and over four shards on one card, both linearize arms, each
+       twice, each against the single-device merge as in (f);
  4. every kernel against its plain PyTorch version on the same CUDA
     tensors (exact equality: all integer arithmetic) at the shapes of
     each path that runs it: the text fan-in, the record fan-in and the
@@ -66,7 +88,11 @@ Phases, each raising on failure (nothing is caught):
     emit_packed at the packed transport of both fan-ins; the condensed
     merge's kernels at the three condensed paths' shapes and the dict
     merge's at the typing fan-in's (linearize
-    beside linearize_condensed on one log); sort_winners also on synthetic
+    beside linearize_condensed on one log); the sharded merge's at one
+    shard's shapes of "text sharded", "text sharded rows" and "records
+    sharded" (mesh_reduce at the psum of the counts and the pmax of the
+    winners, its library time torch.stack(...).sum(0) / .amax(0); the
+    doubling kernels at one round of one shard's slice); sort_winners also on synthetic
     columns with P > 2^20; the whole merge on the card
     against the plain CPU path on all 13 outputs for that served subset
     and for a small fan-in;
@@ -200,6 +226,89 @@ def work(name: str, args, out):
         core, fetch, obj_cap = args
         ins = [core[k][:obj_cap] if k.startswith("obj_") else core[k] for k in fetch]
         return nbytes(*ins, *out), 2 * sum(t.numel() for t in ins)
+    return sharded_work(name, args, out, distinct)
+
+
+def sharded_work(name: str, args, out, distinct):
+    """``work`` of the sharded merge's kernels: a slice's rows or nodes
+    read in full, the state they gather only at the distinct slots this
+    data reaches."""
+    from automerge_tpu_torch.kernels.scatter_winners import group_ids
+    from automerge_tpu_torch.ops.oplog import PAD_ACTION
+    from automerge_tpu_torch.types import Action
+
+    if name == "mesh_reduce":
+        stack, _op = args
+        return nbytes(stack, *out), stack.numel()
+    if name == "succ_partial":
+        action, _value_i32, _covered, pred_src, pred_tgt = args
+        P = action.numel()
+        src = pred_src.long().clamp(0, P - 1)
+        hit = (pred_tgt >= 0) & (pred_tgt < P)
+        inc = hit & (action[src] == Action.INCREMENT)
+        # action and covered at the edges' sources, value_i32 at the
+        # increments'
+        read = (nbytes(pred_src, pred_tgt) + 5 * distinct(src[hit])
+                + 4 * distinct(src[inc]))
+        return read + nbytes(*out), 3 * pred_src.numel()
+    if name == "visibility":
+        return nbytes(*args, *out), 6 * args[0].numel()
+    if name == "winners_partial":
+        action, insert, elem_ref, obj_dense, prop, visible, r0, count = args[:8]
+        sl = slice(r0, r0 + count)
+        read = nbytes(action[sl], insert[sl], elem_ref[sl], obj_dense[sl], prop[sl],
+                      visible[sl])
+        return read + nbytes(*out), 10 * count
+    if name == "winners_gather":
+        (action, insert, elem_ref, obj_dense, prop, _width, _win, _cnt, r0, count,
+         n_objs2, n_props) = args
+        sl = slice(r0, r0 + count)
+        gid = group_ids(action, insert, elem_ref, obj_dense, prop, n_objs2, n_props)[sl]
+        winner = out[0]
+        elem_vis = insert[sl] & (action[sl] != PAD_ACTION) & (winner >= 0)
+        # win and cnt at the slice's groups, width at its visible winners
+        read = (nbytes(action[sl], insert[sl], elem_ref[sl], obj_dense[sl], prop[sl])
+                + 8 * distinct(gid) + 4 * distinct(winner[elem_vis]))
+        return read + nbytes(*out), 10 * count
+    if name == "linearize_init":
+        first_child, next_sib, is_elem, elem_ref, Epad = args
+        P = is_elem.numel()
+        read = nbytes(first_child[:P], next_sib[:P], is_elem, elem_ref)
+        return read + nbytes(*out), 5 * Epad
+    if name in ("linearize_thread", "linearize_rank"):
+        *state, i0, count = args
+        link = state[-1]
+        j = link[i0:i0 + count].long().clamp(0, link.numel() - 1)
+        per_node = sum(t.element_size() for t in state)
+        # the slice's state, and the state at the distinct nodes it jumps to
+        read = per_node * (count + distinct(j))
+        return read + nbytes(*out), (4 if len(state) == 3 else 3) * count
+    if name == "linearize_rank_init":
+        fc_e, ans, _P = args
+        return nbytes(fc_e, ans, *out), 3 * ans.numel()
+    if name == "linearize_final":
+        _first_child, is_elem, obj_dense, dist, r0, count = args
+        sl = slice(r0, r0 + count)
+        # first_child at the objects' roots and dist at their starts
+        roots = distinct(obj_dense[sl][is_elem[sl]])
+        return (nbytes(is_elem[sl], obj_dense[sl], dist[sl]) + 8 * roots
+                + nbytes(*out), 6 * count)
+    if name == "cond_init":
+        return nbytes(*args, *out), 4 * args[0].numel()
+    if name == "cond_succ":
+        tail_ans, ans, _chain_id, clen = args
+        a = torch.where(tail_ans != -1, tail_ans, ans)
+        # chain_id at the distinct rows the chains' successors start at
+        return (nbytes(tail_ans, ans, clen) + 4 * distinct(a[a >= 0]) + nbytes(*out),
+                4 * ans.numel())
+    if name == "cond_expand":
+        chain_id, offset, obj_dense, insert, action, _start_chain, cdist, r0, count = args
+        sl = slice(r0, r0 + count)
+        cid = chain_id[sl]
+        # start_chain at the slice's objects, cdist at its chains
+        read = (nbytes(chain_id[sl], offset[sl], obj_dense[sl], insert[sl], action[sl])
+                + 4 * distinct(obj_dense[sl]) + 4 * distinct(cid[cid >= 0]))
+        return read + nbytes(*out), 8 * count
     raise KeyError(name)
 
 
@@ -340,6 +449,17 @@ TRANSPORT_ONLY = ("unpack_flags", "emit_packed")
 CONDENSED = ("succ_vis", "sort_winners", "forest", "bitonic_sort",
              "linearize_condensed")
 NOT_CONDENSED = ("linearize", "scatter_winners", "expand_runs") + TRANSPORT_ONLY
+# the sharded merge's (K11): every path, each linearize arm, each winner
+# arm, and the single-device kernels it must not launch
+MESH_SHARDS = 4
+SHARDED_ALL = ("succ_partial", "visibility", "mesh_reduce", "forest", "bitonic_sort")
+SHARDED_CONDENSED = ("cond_init", "linearize_thread", "cond_succ", "linearize_rank",
+                     "cond_expand")
+SHARDED_ROWS = ("linearize_init", "linearize_thread", "linearize_rank_init",
+                "linearize_rank", "linearize_final")
+SHARDED_SCATTER = ("winners_partial", "winners_gather")
+NOT_SHARDED = ("succ_vis", "scatter_winners", "linearize", "linearize_condensed",
+               "emit_packed")
 
 
 def check_stagings(name: str, log, device) -> dict:
@@ -716,6 +836,216 @@ def condensed_paths(card, device, text, records):
     return typing_log, counts
 
 
+def single_merge(cols, n_objs: int, n_props: int, device):
+    """The single-device merge_kernel of padded columns, dense: (its 13
+    outputs, wall seconds from the copy to the card to the readback)."""
+    from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.ops.merge import merge_kernel
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = merge_kernel(columns_from_numpy(cols, device), n_objs, n_props)
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    return res, time.perf_counter() - t0
+
+
+def sharded_path(name, card, cols, n_objs: int, n_props: int, mesh, single,
+                 linearize: str = "condensed", transport: str = "dict"):
+    """(f) One sharded merge of padded columns over ``mesh``, the launch
+    counts and the collectives' counts set to 0 just before and read just
+    after: its kernels must run (the row-range winners where the sharded
+    gate passes, the sort-based ones where it fails; the ``linearize``
+    arm's loops) and no single-device merge kernel; all 13 outputs equal
+    ``single`` = (outputs, seconds) of ``single_merge``. Returns (launch
+    counts, the all_gathers as (per-shard length, bytes), R2)."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.ops.merge import ALL_OUTPUTS
+    from automerge_tpu_torch.parallel import collectives as C
+    from automerge_tpu_torch.parallel import sharding as PS
+
+    n = mesh.size
+    P, Q = len(cols["action"]), len(cols["pred_src"])
+    scatter = PS.sharded_gate(P, n_objs + 2, n_props)
+    detail = ""
+    R2 = 0
+    if linearize == "condensed":
+        t0 = time.perf_counter()
+        R2, cond = PS.condense_host(cols, n_objs + 2, n)
+        detail = (f", R {int(np.count_nonzero(cond['clen']))} chains, R2 {R2} "
+                  f"(condense_host on the host {time.perf_counter() - t0:.6f} s)")
+    print(f"{name}: {n} shards on {[str(d) for d in mesh.devices]}; P {P}, "
+          f"Pl {P // n}, Q {Q}; winners "
+          f"{'row-range scatter' if scatter else 'sort-based, replicated'}; "
+          f"linearize {linearize}{detail}; transport {transport}", flush=True)
+    for d in mesh.distinct:
+        torch.cuda.synchronize(d)
+    C.reset_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = PS.sharded_merge_columns(cols, mesh, n_objs=n_objs, n_props=n_props,
+                                   transport=transport, linearize=linearize)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    stats, gathers = json.loads(json.dumps(C.stats)), list(C.gathers)
+    want, single_s = single
+    print(f"{name}: {seconds:.6f} s wall (synchronised: condense, h2d, merge, "
+          f"readback) against the single-device merge's {single_s:.6f} s "
+          f"(h2d, merge, readback) on {card}", flush=True)
+    print(f"{name} collectives {json.dumps(stats)}", flush=True)
+    print(f"{name} launches {json.dumps(counts)}", flush=True)
+    arm = SHARDED_CONDENSED if linearize == "condensed" else SHARDED_ROWS
+    other = tuple(k for k in SHARDED_CONDENSED + SHARDED_ROWS if k not in arm)
+    winners = SHARDED_SCATTER if scatter else ("sort_winners",)
+    not_winners = ("sort_winners",) if scatter else SHARDED_SCATTER
+    decode = ("expand_runs", "unpack_flags")
+    check_launches(name, counts,
+                   SHARDED_ALL + arm + winners + (decode if transport == "packed" else ()),
+                   NOT_SHARDED + other + not_winners
+                   + (decode if transport == "dict" else ()))
+    for k in ALL_OUTPUTS:
+        if out[k].shape != want[k].shape or not np.array_equal(out[k], want[k]):
+            raise AssertionError(f"{name}: {k} differs from the single-device merge's")
+    print(f"{name}: all 13 outputs equal to the single-device merge's", flush=True)
+    return counts, gathers, R2
+
+
+def doubling_bytes(gathers, length: int, rounds: int) -> float:
+    """all_gather bytes per doubling round (the climb's and the rank's
+    averaged): the gathers of ``length`` values per shard."""
+    return sum(b for n, b in gathers if n == length) / (2 * rounds)
+
+
+def mesh_doc_path(card, device, log, text_obj):
+    """(f) The text fan-in's log less its last replica change, as two
+    documents on the card, one with a mesh of ``MESH_SHARDS`` shards on
+    the card (``enable_mesh``, min_rows 0); both apply that change, whose
+    ops interleave with the others' (not a tail append), so its
+    re-resolve is the full one: over the mesh in the first (its kernels
+    must run, no single-device merge's), on the card alone in the other.
+    The two equal on every READ_FETCH array and the text. Returns the
+    launch counts of both applies."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    changes = list(log.changes)
+    docs, counts = {}, {}
+    for mode in ("mesh", "single"):
+        t0 = time.perf_counter()
+        doc = DeviceDoc.from_changes(changes[:-1], device=device)
+        t_build = time.perf_counter() - t0
+        if mode == "mesh":
+            doc.enable_mesh(devices=[device] * MESH_SHARDS, min_rows=0)
+        torch.cuda.synchronize(device)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        doc.apply_changes(changes[-1:])
+        t_apply = time.perf_counter() - t0
+        counts[mode] = kernels.launch_counts()
+        print(f"text mesh doc {mode}: OpLog and resolve of {len(changes) - 1} "
+              f"changes {t_build:.3f} s; apply of the last change (its full "
+              f"re-resolve) {t_apply:.6f} s on {card}; launches "
+              f"{json.dumps(counts[mode])}", flush=True)
+        docs[mode] = doc
+    check_launches("text mesh doc", counts["mesh"],
+                   SHARDED_ALL + SHARDED_CONDENSED + SHARDED_SCATTER,
+                   NOT_SHARDED + ("sort_winners",))
+    check_launches("text mesh doc single", counts["single"],
+                   RUN_NATIVE + ("scatter_winners",),
+                   SHARDED_ALL[:3] + SHARDED_CONDENSED + SHARDED_SCATTER)
+    mesh, single = docs["mesh"], docs["single"]
+    n = mesh.log.n
+    for k in DeviceDoc.READ_FETCH:
+        cut = mesh.log.n_objs + 2 if k.startswith("obj_") else n
+        if not np.array_equal(np.asarray(mesh.res[k])[:cut],
+                              np.asarray(single.res[k])[:cut]):
+            raise AssertionError(f"text mesh doc: {k} differs from the "
+                                 "single-device document's")
+    if mesh.text(text_obj) != single.text(text_obj):
+        raise AssertionError("text mesh doc: the text differs")
+    print("text mesh doc: READ_FETCH and the text equal to the single-device "
+          "document's", flush=True)
+    return {"text mesh doc": counts["mesh"], "text mesh doc single": counts["single"]}
+
+
+def sharded_paths(card, device, text, typing_log, record_log):
+    """(f) The sharded merge (K11) over a mesh of ``MESH_SHARDS`` shards on
+    the one card: the text fan-in (both linearize arms), the typing
+    fan-in (both arms: the collectives' bytes per doubling round), the
+    record fan-in (dict and packed), the mesh document, and the text
+    fan-in over four cards where the machine has them. Returns the
+    launch counts by path."""
+    from automerge_tpu_torch.kernels import linearize as L
+    from automerge_tpu_torch.parallel import default_mesh
+
+    mesh = default_mesh(devices=[device] * MESH_SHARDS)
+    text_log, text_obj = text
+    counts = {}
+    for name, log, arms in (
+            ("text", text_log, (("condensed", "dict"), ("rows", "dict"))),
+            ("typing", typing_log, (("condensed", "dict"), ("rows", "dict"))),
+            ("records", record_log, (("condensed", "dict"), ("condensed", "packed")))):
+        cols = log.padded_columns()
+        geom = (log.n_objs, len(log.props))
+        single = single_merge(cols, *geom, device)
+        per_round = {}
+        for linearize, transport in arms:
+            path = f"{name} sharded" + ("" if linearize == "condensed" else " rows") + (
+                " packed" if transport == "packed" else "")
+            counts[path], gathers, R2 = sharded_path(
+                path, card, cols, *geom, mesh, single, linearize, transport)
+            P = len(cols["action"])
+            per_round[linearize] = (
+                doubling_bytes(gathers, R2 // MESH_SHARDS, L.ceil_log2(R2) + 1)
+                if linearize == "condensed" else
+                doubling_bytes(gathers, P // MESH_SHARDS + 1, L.rounds(P)))
+        if name == "typing":
+            print(f"typing sharded: all_gather bytes per doubling round, condensed "
+                  f"arm {per_round['condensed']:.1f}, row arm {per_round['rows']:.1f}, "
+                  f"ratio {per_round['rows'] / per_round['condensed']:.2f}", flush=True)
+    counts.update(mesh_doc_path(card, device, text_log, text_obj))
+    n_cards = torch.cuda.device_count()
+    if n_cards >= MESH_SHARDS:
+        cols = text_log.padded_columns()
+        geom = (text_log.n_objs, len(text_log.props))
+        counts["text sharded 4 cards"] = sharded_path(
+            "text sharded 4 cards", card, cols, *geom, default_mesh(MESH_SHARDS),
+            single_merge(cols, *geom, device))[0]
+    else:
+        print(f"text sharded 4 cards: not run, this machine has {n_cards} CUDA "
+              f"device(s); the mesh of {MESH_SHARDS} shards ran on one card",
+              flush=True)
+    return counts
+
+
+def cards_paths(card, device) -> None:
+    """``--cards``: the text fan-in's sharded merge over four distinct
+    cards (the default mesh), both linearize arms, beside the same four
+    shards on one card and the single-device merge, each run twice (the
+    first call on a card pays its context and allocations). Every run is
+    held to the single-device merge's 13 outputs as in (f)."""
+    from automerge_tpu_torch.parallel import default_mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < MESH_SHARDS:
+        raise SystemExit(f"chip_smoke --cards: needs {MESH_SHARDS} CUDA devices, "
+                         f"found {n_cards}")
+    doc, _, _, _, _ = text_fanin("text", card, device)
+    cols = doc.log.padded_columns()
+    geom = (doc.log.n_objs, len(doc.log.props))
+    single = single_merge(cols, *geom, device)
+    for where, mesh in (("4 cards", default_mesh(MESH_SHARDS)),
+                        ("1 card", default_mesh(devices=[device] * MESH_SHARDS))):
+        for linearize in ("condensed", "rows"):
+            for rep in (1, 2):
+                arm = "" if linearize == "condensed" else " rows"
+                sharded_path(f"text sharded {where}{arm}, run {rep}", card, cols,
+                             *geom, mesh, single, linearize)
+
+
 def check_reference_fault(device) -> None:
     """(d) Two map puts whose prop ids the JAX package's packed key merges
     (prop 64 + 4 needs more than ceil_log2(16 + 5) bits): the packed
@@ -921,6 +1251,120 @@ def condensed_kernels(cols, n_objs: int, n_props: int, device, rcap: int):
     return rows
 
 
+def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
+    """The sharded merge's kernels on one path's padded columns at one
+    shard's shapes (the mesh of ``MESH_SHARDS``), as it runs them:
+    succ_partial on shard 0's pred slice, mesh_reduce on the four shards'
+    stacked accumulators (and, past the scatter gate, on their win
+    tables), visibility, the row-range winners at shard 0, then the
+    ``linearize`` arm's kernels: a doubling round at one shard's slice of
+    the state (the loops run to their end in between)."""
+    from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.kernels import collectives as CK
+    from automerge_tpu_torch.kernels import forest as F
+    from automerge_tpu_torch.kernels import linearize as L
+    from automerge_tpu_torch.kernels import scatter_winners as SW
+    from automerge_tpu_torch.kernels import sharded as SH
+    from automerge_tpu_torch.kernels import succ_vis as SV
+    from automerge_tpu_torch.parallel import sharding as PS
+
+    n = MESH_SHARDS
+    c = columns_from_numpy({k: cols[k] for k in PS.COLUMN_SPECS}, device)
+    P, Q = c["action"].numel(), c["pred_src"].numel()
+    Pl, Ql = P // n, Q // n
+    assert P % n == 0 and Q % n == 0, (P, Q)
+
+    def succ_in(i):
+        return (c["action"], c["value_i32"], c["covered"],
+                c["pred_src"][i * Ql:(i + 1) * Ql].contiguous(),
+                c["pred_tgt"][i * Ql:(i + 1) * Ql].contiguous())
+
+    accs = [SV.succ_partial(*succ_in(i)) for i in range(n)]
+    rows = [("succ_partial", SV.succ_partial, SV.succ_partial_plain, succ_in(0),
+             (accs[0],), None, "shard 0")]
+    stack = torch.stack([a.reshape(-1) for a in accs])
+    acc = CK.mesh_reduce(stack, "sum")
+    rows.append(("mesh_reduce", CK.mesh_reduce, CK.mesh_reduce_plain, (stack, "sum"),
+                 (acc,), lambda: torch.stack(accs).sum(0), f"psum [{n}, 3P]"))
+    acc = acc.reshape(3, P)
+    vis_in = (c["action"], c["value_tag"], c["covered"], acc[0], acc[1])
+    visible = SV.visibility(*vis_in)
+    rows.append(("visibility", SV.visibility, SV.visibility_plain, vis_in,
+                 (visible,), None, ""))
+    if PS.sharded_gate(P, n_objs + 2, n_props):
+        geom = (n_objs + 2, max(n_props, 1))
+
+        def part_in(i):
+            return (c["action"], c["insert"], c["elem_ref"], c["obj_dense"],
+                    c["prop"], visible, i * Pl, Pl, *geom)
+
+        tables = [SW.winners_partial(*part_in(i)) for i in range(n)]
+        rows.append(("winners_partial", SW.winners_partial,
+                     SW.winners_partial_plain, part_in(0), (tables[0],), None,
+                     "shard 0"))
+        wins = [t[0] for t in tables]
+        win_stack = torch.stack(wins)
+        win = CK.mesh_reduce(win_stack, "max")
+        rows.append(("mesh_reduce", CK.mesh_reduce, CK.mesh_reduce_plain,
+                     (win_stack, "max"), (win,), lambda: torch.stack(wins).amax(0),
+                     f"pmax [{n}, G]"))
+        cnt = CK.mesh_reduce(torch.stack([t[1] for t in tables]), "sum")
+        wg_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
+                 c["width"], win, cnt, 0, Pl, *geom)
+        rows.append(("winners_gather", SW.winners_gather, SW.winners_gather_plain,
+                     wg_in, SW.winners_gather(*wg_in), None, "shard 0"))
+    fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
+
+    def doubling(step, plain, state, length, rounds, tag):
+        """A round at shard 1's slice measured, then the loop over all
+        nodes to its end."""
+        args = (*state, length, length)
+        rows.append((step.__name__, step, plain, args, step(*args), None, tag))
+        for _ in range(rounds):
+            state = step(*state, 0, state[0].numel())
+        return state
+
+    if linearize == "rows":
+        El = Pl + 1
+        li_in = (fo[2], fo[3], fo[0], c["elem_ref"], n * El)
+        st = L.linearize_init(*li_in)
+        rows.append(("linearize_init", L.linearize_init, L.linearize_init_plain,
+                     li_in, st, None, f"Epad={n * El}"))
+        ans = doubling(L.linearize_thread, L.linearize_thread_plain, st[:3], El,
+                       L.rounds(P), f"El={El} shard 1")[0]
+        rk_in = (st[3], ans, P)
+        rk = L.linearize_rank_init(*rk_in)
+        rows.append(("linearize_rank_init", L.linearize_rank_init,
+                     L.linearize_rank_init_plain, rk_in, rk, None, ""))
+        dist = doubling(L.linearize_rank, L.linearize_rank_plain, rk, El,
+                        L.rounds(P), f"El={El} shard 1")[0]
+        fi_in = (fo[2], fo[0], c["obj_dense"], dist, 0, P)
+        rows.append(("linearize_final", L.linearize_final, L.linearize_final_plain,
+                     fi_in, (L.linearize_final(*fi_in),), None, ""))
+        return rows
+    R2, cond_np = PS.condense_host(cols, n_objs + 2, n)
+    Rl = R2 // n
+    cond = {k: torch.from_numpy(v).to(device) for k, v in cond_np.items()}
+    ci_in = (cond["centry"], cond["cpar"])
+    ci = SH.cond_init(*ci_in)
+    rows.append(("cond_init", SH.cond_init, SH.cond_init_plain, ci_in, ci, None,
+                 f"R2={R2}"))
+    rounds = L.ceil_log2(R2) + 1
+    ans = doubling(L.linearize_thread, L.linearize_thread_plain, ci, Rl, rounds,
+                   f"R2={R2} shard 1")[0]
+    cs_in = (cond["tail_ans"], ans, cond["chain_id"], cond["clen"])
+    cs = SH.cond_succ(*cs_in)
+    rows.append(("cond_succ", SH.cond_succ, SH.cond_succ_plain, cs_in, cs, None,
+                 f"R2={R2}"))
+    cdist = doubling(L.linearize_rank, L.linearize_rank_plain, cs, Rl, rounds,
+                     f"R2={R2} shard 1")[0]
+    ce_in = (cond["chain_id"], cond["offset"], c["obj_dense"], c["insert"],
+             c["action"], cond["start_chain"], cdist, 0, Pl)
+    rows.append(("cond_expand", SH.cond_expand, SH.cond_expand_plain, ce_in,
+                 (SH.cond_expand(*ce_in),), None, "shard 0"))
+    return rows
+
+
 REPLACES = {
     "succ_vis": ("automerge_tpu/ops/merge.py:59", "succ_vis.cu"),
     "scatter_winners": ("automerge_tpu/ops/merge.py:595", "scatter_winners.cu"),
@@ -933,6 +1377,22 @@ REPLACES = {
     "expand_runs": ("automerge_tpu/ops/merge.py:993", "expand_runs.cu"),
     "unpack_flags": ("automerge_tpu/ops/merge.py:1143", "expand_runs.cu"),
     "emit_packed": ("automerge_tpu/ops/merge.py:1181", "emit_packed.cu"),
+    "succ_partial": ("automerge_tpu/parallel/sharding.py:340", "succ_vis.cu"),
+    "visibility": ("automerge_tpu/parallel/sharding.py:345", "succ_vis.cu"),
+    "winners_partial": ("automerge_tpu/parallel/sharding.py:132",
+                        "scatter_winners.cu"),
+    "winners_gather": ("automerge_tpu/parallel/sharding.py:141",
+                       "scatter_winners.cu"),
+    "linearize_init": ("automerge_tpu/parallel/sharding.py:216", "linearize.cu"),
+    "linearize_thread": ("automerge_tpu/parallel/sharding.py:218", "linearize.cu"),
+    "linearize_rank_init": ("automerge_tpu/parallel/sharding.py:232",
+                            "linearize.cu"),
+    "linearize_rank": ("automerge_tpu/parallel/sharding.py:238", "linearize.cu"),
+    "linearize_final": ("automerge_tpu/parallel/sharding.py:247", "linearize.cu"),
+    "cond_init": ("automerge_tpu/parallel/sharding.py:283", "sharded.cu"),
+    "cond_succ": ("automerge_tpu/parallel/sharding.py:300", "sharded.cu"),
+    "cond_expand": ("automerge_tpu/parallel/sharding.py:320", "sharded.cu"),
+    "mesh_reduce": ("automerge_tpu/parallel/sharding.py:139", "collectives.cu"),
 }
 
 
@@ -968,7 +1428,8 @@ def kernel_report(paths, by_path, device, reps: int):
 
     report = {}
     for path, (cols, n_objs, n_props, *caps) in paths.items():
-        rows_of = (packed_kernels if path.endswith("packed") else
+        rows_of = (sharded_kernels if "sharded" in path else
+                   packed_kernels if path.endswith("packed") else
                    eager_kernels if path.endswith("expand") else
                    condensed_kernels if path.endswith("condensed") else path_kernels)
         for name, kern, plain, args, out, library, tag in rows_of(
@@ -1007,10 +1468,7 @@ def kernel_report(paths, by_path, device, reps: int):
         report["sort_winners"]["max_abs_err"], m["max_abs_err"])
     print(f"sort_winners at P = {WIDE_P}: equal to its plain version in "
           f"{wide_launches} launches", flush=True)
-    order = ("succ_vis", "scatter_winners", "sort_winners", "forest",
-             "bitonic_sort", "linearize", "linearize_condensed", "expand_runs",
-             "unpack_flags", "emit_packed")
-    return [report[name] for name in order]
+    return [report[name] for name in REPLACES]
 
 
 def main() -> int:
@@ -1032,6 +1490,14 @@ def main() -> int:
     print(f"build: {built:.2f} s compiling ({time.perf_counter() - t0:.2f} s "
           f"with cache check), {_build.library_path().name}", flush=True)
 
+    if sys.argv[1:] == ["--cards"]:
+        cards_paths(card, device)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return 0
+
     # 3. the main paths
     text_log, text_counts, text_out, text, text_obj = text_path(card, device)
     record_log, last, record_counts, record_out, expect = record_paths(card, device)
@@ -1040,12 +1506,15 @@ def main() -> int:
         card, device, (text_log, text_out, text, text_obj),
         (record_log, record_out, expect))
     del text_out, record_out
+    sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
+                                   record_log)
 
     # 4./5. every kernel against its plain version at each path's shapes;
     # the whole merge against the CPU on a small fan-in and a served subset
     from automerge_tpu_torch.ops.merge import condensed_caps
 
-    by_path = {**text_counts, **record_counts, **condensed_counts}
+    by_path = {**text_counts, **record_counts, **condensed_counts,
+               **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,
@@ -1058,7 +1527,10 @@ def main() -> int:
              "served": last, "text condensed": spec(text_log, True),
              "typing": spec(typing_log),
              "typing condensed": spec(typing_log, True),
-             "records condensed": spec(record_log, True)}
+             "records condensed": spec(record_log, True),
+             "text sharded": (*text_cols, "condensed"),
+             "text sharded rows": (*text_cols, "rows"),
+             "records sharded": (*record_cols, "condensed")}
     report = kernel_report(paths, by_path, device, REPS)
     check_served_subset(last, device)
     check_small_against_cpu(device)

@@ -101,6 +101,11 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
         "expand_runs": len(stage_cols_run_native(log.padded_columns(), "cpu")[2]),
         "unpack_flags": 0,  # the packed transport's
         "emit_packed": 0,
+        # the sharded merge's (parallel/sharding.py)
+        "succ_partial": 0, "visibility": 0, "winners_partial": 0,
+        "winners_gather": 0, "linearize_init": 0, "linearize_thread": 0,
+        "linearize_rank_init": 0, "linearize_rank": 0, "linearize_final": 0,
+        "cond_init": 0, "cond_succ": 0, "cond_expand": 0, "mesh_reduce": 0,
     }
     cpu = merge_columns(log.columns(), device="cpu", **kw)
     for k in ALL_OUTPUTS:
@@ -342,3 +347,197 @@ def test_condensed_merge_on_card_equals_cpu_and_counts_launches(cuda):
     doc = DeviceDoc(log, {k: v.cpu().numpy() for k, v in gpu.items()}, device=cuda)
     ref = DeviceDoc.resolve(log, device="cpu")
     assert doc.text(f"1@{W.BASE_ACTOR.hex()}") == ref.text(f"1@{W.BASE_ACTOR.hex()}")
+
+
+# -- the sharded merge (K11) -------------------------------------------------
+
+
+SHARDED = ("succ_partial", "visibility", "mesh_reduce", "forest", "bitonic_sort")
+CONDENSED_ARM = ("cond_init", "linearize_thread", "cond_succ", "linearize_rank",
+                 "cond_expand")
+ROWS_ARM = ("linearize_init", "linearize_thread", "linearize_rank_init",
+            "linearize_rank", "linearize_final")
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1000), (4, 24_577), (8, 129_031)])
+def test_mesh_reduce_equals_plain_version(cuda, op, shape):
+    from automerge_tpu_torch.kernels import collectives as CK
+
+    rng = np.random.default_rng(shape[1])
+    stack = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, shape, dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+    reset_launches()
+    got = CK.mesh_reduce(stack, op)
+    assert launch_counts()["mesh_reduce"] == 1
+    _same(got, CK.mesh_reduce_plain(stack, op))
+
+
+def test_kernels_launch_on_their_tensors_card_whatever_is_current(cuda):
+    """A wrapper given tensors on one card launches there while another
+    card is the current device, as a mesh's shards on distinct cards do."""
+    from automerge_tpu_torch.kernels import collectives as CK
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 CUDA devices, found {n}")
+    rng = np.random.default_rng(5)
+    for d in range(n):
+        stack = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (4, 24_577),
+                                              dtype=np.int64).astype(np.int32))
+        stack = stack.to(f"cuda:{d}")
+        with torch.cuda.device((d + 1) % n):
+            got = CK.mesh_reduce(stack, "sum")
+        assert got.device == stack.device
+        _same(got, CK.mesh_reduce_plain(stack, "sum"))
+
+
+def test_range_kernels_equal_plain_versions(cuda):
+    """Each kernel of the sharded merge against its plain version on one
+    log, at slices of odd length and offset."""
+    from automerge_tpu_torch.kernels import sharded as SH
+    from automerge_tpu_torch.parallel import sharding as PS
+
+    log = _log(*SIZES[1])
+    cols = log.padded_columns()
+    c = columns_from_numpy(cols, cuda)
+    P = c["action"].numel()
+    Q = c["pred_src"].numel()
+    q0, ql = 5, Q - 11
+    sp_in = (c["action"], c["value_i32"], c["covered"],
+             c["pred_src"][q0:q0 + ql].contiguous(),
+             c["pred_tgt"][q0:q0 + ql].contiguous())
+    acc = SV.succ_partial(*sp_in)
+    _same(acc, SV.succ_partial_plain(*sp_in))
+    acc = SV.succ_partial(c["action"], c["value_i32"], c["covered"], c["pred_src"],
+                          c["pred_tgt"])
+    vis_in = (c["action"], c["value_tag"], c["covered"], acc[0], acc[1])
+    visible = SV.visibility(*vis_in)
+    _same(visible, SV.visibility_plain(*vis_in))
+    n_objs2, n_props = log.n_objs + 2, max(len(log.props), 1)
+    for r0, count in ((0, P), (7, P - 13), (P // 3, 1)):
+        wp_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
+                 visible, r0, count, n_objs2, n_props)
+        table = SW.winners_partial(*wp_in)
+        _same(table, SW.winners_partial_plain(*wp_in))
+        wg_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
+                 c["width"], table[0], table[1], r0, count, n_objs2, n_props)
+        _same(SW.winners_gather(*wg_in), SW.winners_gather_plain(*wg_in))
+
+    fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
+    # the node space padded past the sentinel, with more padding than the
+    # sharded merge makes, and slices that do not tile it
+    El = P // 3 + 1
+    Epad = 3 * El + 5
+    li_in = (fo[2], fo[3], fo[0], c["elem_ref"], Epad)
+    st = L.linearize_init(*li_in)
+    _same(st, L.linearize_init_plain(*li_in))
+    for i0, count in ((0, Epad), (El, El), (Epad - 9, 9)):
+        _same(L.linearize_thread(*st[:3], i0, count),
+              L.linearize_thread_plain(*st[:3], i0, count))
+    rk = L.linearize_rank_init(st[3], st[0], P)
+    _same(rk, L.linearize_rank_init_plain(st[3], st[0], P))
+    for i0, count in ((0, Epad), (El, El), (Epad - 9, 9)):
+        _same(L.linearize_rank(*rk, i0, count), L.linearize_rank_plain(*rk, i0, count))
+    for r0, count in ((0, P), (11, P - 20)):
+        fi_in = (fo[2], fo[0], c["obj_dense"], rk[0], r0, count)
+        _same(L.linearize_final(*fi_in), L.linearize_final_plain(*fi_in))
+
+    R2, cond_np = PS.condense_host(cols, n_objs2, 4)
+    cond = {k: torch.from_numpy(v).to(cuda) for k, v in cond_np.items()}
+    ci = SH.cond_init(cond["centry"], cond["cpar"])
+    _same(ci, SH.cond_init_plain(cond["centry"], cond["cpar"]))
+    cs_in = (cond["tail_ans"], ci[0], cond["chain_id"], cond["clen"])
+    cs = SH.cond_succ(*cs_in)
+    _same(cs, SH.cond_succ_plain(*cs_in))
+    for r0, count in ((0, P), (3, P - 7)):
+        ce_in = (cond["chain_id"], cond["offset"], c["obj_dense"], c["insert"],
+                 c["action"], cond["start_chain"], cs[0], r0, count)
+        _same(SH.cond_expand(*ce_in), SH.cond_expand_plain(*ce_in))
+
+
+def _sharded_logs():
+    base, reps, _ = _record_store()
+    return [("text", _log(*SIZES[1])), ("typing", _typing_log(20000, 8, 100)),
+            ("records", OpLog.from_changes([parse_change(b)[0] for b in [base] + reps]))]
+
+
+@pytest.mark.parametrize("transport", ["dict", "packed"])
+@pytest.mark.parametrize("linearize", ["condensed", "rows"])
+def test_sharded_merge_on_card_equals_single_device(cuda, linearize, transport):
+    """The sharded merge over four shards on the card equals the
+    single-device merge on all 13 outputs, and launches the kernels of
+    its arm: the row-range winners where the gate passes (text, typing),
+    the sort-based ones where it fails (records)."""
+    from automerge_tpu_torch.parallel import default_mesh, sharded_merge_columns
+
+    mesh = default_mesh(devices=[cuda] * 4)
+    for name, log in _sharded_logs():
+        cols = log.padded_columns()
+        kw = dict(n_objs=log.n_objs, n_props=len(log.props))
+        single = merge_columns(cols, device=cuda, **kw)
+        reset_launches()
+        got = sharded_merge_columns(cols, mesh, transport=transport,
+                                    linearize=linearize, **kw)
+        counts = launch_counts()
+        arm = CONDENSED_ARM if linearize == "condensed" else ROWS_ARM
+        scatter = name != "records"
+        winners = ("winners_partial", "winners_gather") if scatter else ("sort_winners",)
+        idle = [k for k in SHARDED + arm + winners if counts[k] < 1]
+        assert not idle, (name, idle)
+        assert counts["succ_vis"] == counts["linearize"] == 0
+        assert counts["scatter_winners"] == 0
+        assert (counts["sort_winners"] > 0) == (not scatter)
+        assert (counts["expand_runs"] > 0) == (transport == "packed")
+        for k in ALL_OUTPUTS:
+            m = len(single[k])
+            np.testing.assert_array_equal(got[k][:m], single[k], err_msg=f"{name} {k}")
+
+
+def test_sharded_merge_over_distinct_cards(cuda):
+    """Four shards on four cards: the collectives copy between them."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA devices, found {torch.cuda.device_count()}")
+    from automerge_tpu_torch.parallel import default_mesh, sharded_merge_columns
+
+    mesh = default_mesh(4)
+    assert len(mesh.distinct) == 4
+    log = _log(*SIZES[1])
+    cols = log.padded_columns()
+    kw = dict(n_objs=log.n_objs, n_props=len(log.props))
+    got = sharded_merge_columns(cols, mesh, **kw)
+    single = merge_columns(cols, device=cuda, **kw)
+    for k in ALL_OUTPUTS:
+        m = len(single[k])
+        np.testing.assert_array_equal(got[k][:m], single[k], err_msg=k)
+
+
+@pytest.mark.parametrize("cards", ["repeated", "distinct"])
+def test_mesh_document_on_card_equals_single_device(cuda, cards):
+    """A card document whose full re-resolve runs over a mesh of two
+    shards on the card (or over every card, the default mesh, where the
+    machine has two or more) equals one re-resolved on the card alone."""
+    if cards == "distinct" and torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 CUDA devices, found {torch.cuda.device_count()}")
+    trace = W.load_trace(3000)
+    base = W.build_base(trace, 2000)
+    reps = W.synth_fanin(base, trace, 9, 40, 2000)
+    start = [ch.raw_bytes for ch in base.changes + reps[:-1]]
+    doc = DeviceDoc.merge(start, device=cuda)
+    single = DeviceDoc.merge(start, device=cuda)
+    if cards == "distinct":
+        mesh = doc.enable_mesh(min_rows=0)
+        assert len(mesh.distinct) == torch.cuda.device_count()
+    else:
+        doc.enable_mesh(devices=[cuda] * 2, min_rows=0)
+    reset_launches()
+    doc.apply_changes([reps[-1].raw_bytes])
+    counts = launch_counts()
+    assert counts["winners_partial"] and counts["cond_expand"] and counts["mesh_reduce"]
+    single.apply_changes([reps[-1].raw_bytes])
+    n = doc.log.n
+    for k in DeviceDoc.READ_FETCH:
+        cut = n if not k.startswith("obj_") else doc.log.n_objs + 2
+        np.testing.assert_array_equal(np.asarray(doc.res[k])[:cut],
+                                      np.asarray(single.res[k])[:cut], err_msg=k)
+    assert doc.text(base.text_exid) == single.text(base.text_exid)

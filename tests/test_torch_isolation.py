@@ -1,5 +1,6 @@
 """automerge_tpu_torch stands alone: it imports neither JAX nor anything
-of automerge_tpu, and its entry points refuse to fall back to the CPU."""
+of automerge_tpu (its sharded merge, ``parallel/``, included), and its
+entry points refuse to fall back to the CPU."""
 
 import ast
 import os
@@ -56,6 +57,23 @@ cond = merge_kernel_condensed(condensed_caps(tlog))(
     columns_from_numpy(tlog.padded_columns(include_aorder=True), "cpu"))
 assert int((cond["elem_index"] >= 0).sum()) == int(tlog.insert.sum())
 assert linearize_condensed.linearize_condensed.launches == 0
+from automerge_tpu_torch.ops.merge import merge_columns
+from automerge_tpu_torch.parallel import default_mesh, sharded_merge_columns
+log = OpLog.from_changes(changes)
+kw = dict(n_objs=log.n_objs, n_props=len(log.props))
+single = merge_columns(log.padded_columns(), device="cpu", **kw)
+for arm in ("condensed", "rows"):
+    out = sharded_merge_columns(log.padded_columns(),
+                                default_mesh(devices=["cpu"] * 2),
+                                linearize=arm, **kw)
+    assert all((out[k][:len(v)] == v).all() for k, v in single.items())
+mesh_runs = []
+inner = DeviceDoc._mesh_resolve_inner
+DeviceDoc._mesh_resolve_inner = lambda self: mesh_runs.append(1) or inner(self)
+mdoc = DeviceDoc.merge([c.raw_bytes for c in changes[:-1]], device="cpu")
+mdoc.enable_mesh(devices=["cpu"] * 2, min_rows=0)
+mdoc.apply_changes([changes[-1].raw_bytes])
+assert mesh_runs == [1] and mdoc.text(base.text_exid) == doc.text(base.text_exid)
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "automerge_tpu") or m.startswith(("jax.", "automerge_tpu."))
