@@ -5,7 +5,7 @@ A port of ``automerge_tpu``'s device merge path: change chunks are parsed,
 flattened into Lamport-ordered int32 op columns (``ops.oplog.OpLog``) and
 resolved on the card in one pass of four kernels (``kernels``): pred-edge
 successor counting and visibility, scatter-max winners, the sibling forest
-(with a bitonic sort) and pointer-doubling linearization. ``ops.device_doc.
+(with a radix sort) and pointer-doubling linearization. ``ops.device_doc.
 DeviceDoc`` answers reads from the resolved columns.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,

@@ -1,5 +1,6 @@
 // forest: the RGA sibling forest (is_elem, parent_row, first_child,
-// next_sib) over node space N = 2P+3, and the bitonic sort it uses.
+// next_sib) over node space N = 2P+3, around the radix sort of
+// radix_sort.cu.
 //
 // Replaces automerge_tpu/ops/merge.py forest (:551-592). Node space:
 // [0, P) element rows, [P, 2P+2) object roots (P + obj_dense), N-1 the
@@ -8,16 +9,16 @@
 // needs the siblings in (parent ascending, row descending) order: the
 // links pass writes one packed int64 key per row,
 // (sib_parent << 32) | (P-1-row), non-elements taking sib_parent = N so
-// they sort last; a bitonic sort orders the keys (padded inside to the
-// next power of two with INT64_MAX, since P is in general not one); one
+// they sort last; the radix sort orders the keys (stably, over the
+// digits the layout lets vary: kernels/forest.py sibling_digits); one
 // pass over adjacent sorted keys then links each row to the next row
 // with the same parent.
 //
 // Bound: bytes. Inputs action, elem_ref, obj_dense (4P each), insert
 // (1P) read once; is_elem (1P), parent_row (4P), first_child and
-// next_sib (4N each) written once. The sort's log2(M)(log2(M)+1)/2
-// passes over 8M bytes are what the simple design pays beyond that.
-#include "bitonic.cuh"
+// next_sib (4N each) written once. The keys (8P written, sorted, read
+// back) and the sort's passes are what the design pays beyond that.
+#include "common.cuh"
 
 __global__ void fo_links(const int* __restrict__ action,
                          const bool* __restrict__ insert,
@@ -55,24 +56,6 @@ __global__ void fo_next_sib(const long long* __restrict__ sorted, int P, int N,
     if ((k2 >> 32) == sp) nxt = P - 1 - (int)(k2 & 0xffffffffLL);
   }
   next_sib[row] = nxt;
-}
-
-__global__ void bs_pad(const long long* __restrict__ in, long long* __restrict__ buf,
-                       int n, int M) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < M) buf[i] = i < n ? in[i] : AMT_KEY_MAX;
-}
-
-// Sorts n int64 keys ascending into buf[0:n]; buf holds M >= n slots, M a
-// power of two. in and buf may not alias.
-AMT_API int amt_bitonic_sort(const long long* in, long long* buf, int n, int M,
-                             cudaStream_t stream, int* launched) {
-  if (n <= 0) return (int)cudaGetLastError();
-  if (M < n || (M & (M - 1)) != 0) return (int)cudaErrorInvalidValue;
-  bs_pad<<<amt_blocks(M), AMT_THREADS, 0, stream>>>(in, buf, n, M);
-  AMT_LAUNCHED;
-  amt_bitonic_steps(buf, M, stream, launched);
-  return (int)cudaGetLastError();
 }
 
 // Links pass: is_elem [P] bool, parent_row [P], first_child [N] and the

@@ -6,7 +6,7 @@ PyTorch version.
 | ``succ_vis.succ_vis`` | ``succ_resolution`` :59 + ``visibility`` :91 |
 | ``scatter_winners.scatter_winners`` | ``resolve_state_scatter`` :595-648 |
 | ``sort_winners.sort_winners`` | ``resolve_state`` :110-213 (its winners) |
-| ``forest.forest`` (+ ``forest.bitonic_sort``) | ``forest`` :551-592 |
+| ``forest.forest`` (+ ``radix_sort.radix_sort``) | ``forest`` :551-592 (the sort :582) |
 | ``linearize.linearize`` | ``device_linearize`` :216-285 |
 | ``linearize_condensed.linearize_condensed`` | ``device_linearize_condensed`` :303-494 |
 | ``expand_runs.expand_runs`` | ``_expander`` :849, ``run_native_kernel``'s gather :1015-1034, ``_expand`` :1135 |
@@ -37,12 +37,13 @@ def wrappers():
     from .collectives import mesh_reduce
     from .emit_packed import emit_packed
     from .expand_runs import expand_runs, unpack_flags
-    from .forest import bitonic_sort, forest
+    from .forest import forest
     from .linearize import (
         linearize, linearize_final, linearize_init, linearize_rank,
         linearize_rank_init, linearize_thread,
     )
     from .linearize_condensed import linearize_condensed
+    from .radix_sort import radix_sort
     from .scatter_winners import scatter_winners, winners_gather, winners_partial
     from .sharded import cond_expand, cond_init, cond_succ
     from .sort_winners import sort_winners
@@ -53,7 +54,7 @@ def wrappers():
         "scatter_winners": scatter_winners,
         "sort_winners": sort_winners,
         "forest": forest,
-        "bitonic_sort": bitonic_sort,
+        "radix_sort": radix_sort,
         "linearize": linearize,
         "linearize_condensed": linearize_condensed,
         "expand_runs": expand_runs,

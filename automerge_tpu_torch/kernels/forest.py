@@ -1,9 +1,10 @@
-"""forest: the RGA sibling forest, and the bitonic sort it uses.
+"""forest: the RGA sibling forest.
 
 Replaces ``automerge_tpu/ops/merge.py`` ``forest`` (:551-592); the CUDA
 kernels are in ``csrc/forest.cu``: a links pass (is_elem, parent_row,
 first_child by atomicMax, one packed int64 sibling key per row), the
-bitonic sort of the keys (``bitonic_sort``, callable on its own), and a
+radix sort of the keys over the digits their layout lets vary
+(``radix_sort.radix_sort`` with ``sibling_digits(P)``), and a
 next-sibling pass over adjacent sorted keys. Node space is N = 2P+3:
 element rows, object roots P + obj_dense, and the sentinel N-1. Bound by
 bytes: 13P read, 5P + 8N written (the sort: 8n read, 8n written).
@@ -13,38 +14,14 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.oplog import ELEM_HEAD, PAD_ACTION, _next_pow2
+from ..ops.oplog import ELEM_HEAD, PAD_ACTION
 from . import _build
 from ._args import expect, on_cuda, ptr, stream
+from .radix_sort import radix_sort, radix_sort_plain
 
 _P, _I = _build.P_, _build.I_
-_SORT_SIG = [_P, _P, _I, _I, _P]
 _LINKS_SIG = [_P, _P, _P, _P, _I] + [_P] * 5 + [_P]
 _NEXT_SIB_SIG = [_P, _I, _P, _P]
-
-
-def bitonic_sort_plain(keys):
-    return torch.sort(keys, stable=True).values
-
-
-def bitonic_sort(keys):
-    """Ascending sort of a 1-D int64 tensor. CPU tensors take the plain
-    version; CUDA tensors launch the bitonic network, padded inside to
-    the next power of two with INT64_MAX keys."""
-    n = keys.shape[0] if isinstance(keys, torch.Tensor) and keys.dim() == 1 else -1
-    expect(keys, "keys", torch.int64, (n,))
-    if not on_cuda(keys=keys):
-        return bitonic_sort_plain(keys)
-    if n >= 1 << 30:
-        raise ValueError(f"bitonic_sort: {n} keys exceed the int32 index range")
-    M = _next_pow2(n)
-    buf = torch.empty(M, dtype=torch.int64, device=keys.device)
-    bitonic_sort.launches += _build.launch(
-        "amt_bitonic_sort", _SORT_SIG, ptr(keys), ptr(buf), n, M, stream(keys))
-    return buf[:n]
-
-
-bitonic_sort.launches = 0
 
 
 def parent_rows(action, insert, elem_ref, obj_dense):
@@ -72,6 +49,15 @@ def sibling_keys(is_elem, parent_row):
     return (sp << 32) | (P - 1 - rows)
 
 
+def sibling_digits(P: int) -> tuple:
+    """The 8-bit digits of the sibling keys that can vary, from their
+    layout alone: the low word P-1-row < P, the high word sib_parent <= N
+    = 2P+3; bit 63 is always clear."""
+    low = ((P - 1).bit_length() + 7) // 8 if P > 0 else 0
+    high = ((2 * P + 3).bit_length() + 7) // 8
+    return tuple(range(low)) + tuple(range(4, 4 + high))
+
+
 def next_sib_from_sorted(sorted_keys, P: int):
     N = 2 * P + 3
     sp = sorted_keys >> 32
@@ -97,14 +83,14 @@ def forest_plain(action, insert, elem_ref, obj_dense):
     first_child.scatter_reduce_(
         0, parent_row[keep].long(), rows[keep], "amax", include_self=True
     )
-    sorted_keys = bitonic_sort_plain(sibling_keys(is_elem, parent_row))
+    sorted_keys = radix_sort_plain(sibling_keys(is_elem, parent_row))
     return is_elem, parent_row, first_child, next_sib_from_sorted(sorted_keys, P)
 
 
 def forest(action, insert, elem_ref, obj_dense):
     """(is_elem, parent_row, first_child, next_sib) for int32/bool [P]
     columns. CPU tensors take the plain version; CUDA tensors launch the
-    kernels (the sort through ``bitonic_sort``)."""
+    kernels (the sort through ``radix_sort``)."""
     P = action.shape[0] if isinstance(action, torch.Tensor) else -1
     expect(action, "action", torch.int32, (P,))
     expect(insert, "insert", torch.bool, (P,))
@@ -125,7 +111,7 @@ def forest(action, insert, elem_ref, obj_dense):
         "amt_forest_links", _LINKS_SIG, ptr(action), ptr(insert), ptr(elem_ref),
         ptr(obj_dense), P, ptr(is_elem), ptr(parent_row), ptr(nodes[0]),
         ptr(nodes[1]), ptr(keys), stream(action))
-    sorted_keys = bitonic_sort(keys)
+    sorted_keys = radix_sort(keys, sibling_digits(P))
     forest.launches += _build.launch(
         "amt_forest_next_sib", _NEXT_SIB_SIG, ptr(sorted_keys), P, ptr(nodes[1]),
         stream(action))

@@ -5,11 +5,12 @@ Replaces ``automerge_tpu/ops/merge.py`` ``resolve_state`` (:110-213)
 without its forest call: the winner step of every merge whose group table
 fails ``scatter_geometry_ok`` (a map of records, and every subset
 re-resolve of one). The CUDA kernel is ``csrc/sort_winners.cu``: one int64
-group key per row, a bitonic sort of the keys, each row's group slot by a
-binary search of its key, atomicMax/atomicAdd of visible rows into the
-slots, then a gather pass that also accumulates the per-object stats.
-Bound by bytes: 18P read, width only at the winners of visible elements,
-16P + 16 written.
+group key per row, each row's group slot found in an open-addressing hash
+table of ``table_capacity(P)`` slots (at most half full, so a linear
+probe ends), atomicMax/atomicAdd of visible rows into the slots, then a
+gather pass that also accumulates the per-object stats: three launches,
+no sort. Bound by bytes: 18P read, width only at the winners of visible
+elements, 16P + 16 written.
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ from ._args import expect, on_cuda, ptr, stream
 
 _P, _I = _build.P_, _build.I_
 _SIG = [_P] * 7 + [_I, _I] + [_P] * 7 + [_P]
+
+
+def table_capacity(P: int) -> int:
+    """Slots of the kernel's hash table: the power of two >= 2 max(P, 1),
+    so its at most P groups fill at most half of it."""
+    return _next_pow2(2 * max(P, 1))
 
 
 def sort_winners_plain(action, insert, elem_ref, obj_dense, prop, width, visible):
@@ -91,15 +98,15 @@ def sort_winners(action, insert, elem_ref, obj_dense, prop, width, visible):
     if P >= 1 << 29:
         raise ValueError(f"sort_winners: {P} rows exceed the int32 key range")
     dev = action.device
-    M = _next_pow2(max(P, 1))
-    keys = torch.empty(M, dtype=torch.int64, device=dev)
-    slots = torch.empty(2, M, dtype=torch.int32, device=dev)
+    C = table_capacity(P)
+    keys = torch.empty(C, dtype=torch.int64, device=dev)
+    slots = torch.empty(2, C, dtype=torch.int32, device=dev)
     slot = torch.empty(P, dtype=torch.int32, device=dev)
     out = torch.empty(2, P, dtype=torch.int32, device=dev)
     stats = torch.empty(2, P + 2, dtype=torch.int32, device=dev)
     sort_winners.launches += _build.launch(
         "amt_sort_winners", _SIG, ptr(action), ptr(insert), ptr(elem_ref),
-        ptr(obj_dense), ptr(prop), ptr(width), ptr(visible), P, M, ptr(keys),
+        ptr(obj_dense), ptr(prop), ptr(width), ptr(visible), P, C, ptr(keys),
         ptr(slots[0]), ptr(slots[1]), ptr(slot), ptr(out[0]), ptr(out[1]),
         ptr(stats), stream(action))
     return out[0], out[1], stats[0], stats[1]

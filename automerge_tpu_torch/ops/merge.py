@@ -12,10 +12,11 @@ part of ``automerge_tpu/ops/merge.py``'s all-device ``merge_kernel`` (:288):
      or ``sort_winners``   group ids (the sort-free ``resolve_state_scatter``
                            form) while the group table passes
                            ``scatter_geometry_ok``, else over sorted group
-                           keys (``resolve_state``), plus per-object
+                           keys (``resolve_state``, grouped by a hash
+                           table on the card), plus per-object
                            visible length and width.
   3. ``forest``          — the RGA sibling forest (parent / first child /
-                           next sibling, by a bitonic sort of sibling keys).
+                           next sibling, by a radix sort of sibling keys).
   4. ``linearize``       — document order by pointer-doubling successor
                            threading + Wyllie list ranking.
 

@@ -185,8 +185,8 @@ def work(name: str, args, out):
         # width only at the winners of visible elements
         return (read + 4 * distinct(winner[elem_vis]) + nbytes(*out),
                 10 * action.numel())
-    if name == "bitonic_sort":
-        (keys,) = args
+    if name == "radix_sort":
+        keys = args[0]
         n = keys.numel()
         return nbytes(keys, *out), n * max(n - 1, 1).bit_length()
     if name == "forest":
@@ -441,18 +441,18 @@ def check_launches(path: str, counts: dict, must: tuple, must_not: tuple) -> Non
         raise AssertionError(f"{path}: kernels launched that must not be: {stray}")
 
 
-SHARED = ("succ_vis", "forest", "bitonic_sort", "linearize")
+SHARED = ("succ_vis", "forest", "radix_sort", "linearize")
 RUN_NATIVE = SHARED + ("expand_runs",)
 PACKED = SHARED + ("expand_runs", "unpack_flags", "emit_packed")
 TRANSPORT_ONLY = ("unpack_flags", "emit_packed")
 # merge_kernel_condensed's kernels, and those it must not launch
-CONDENSED = ("succ_vis", "sort_winners", "forest", "bitonic_sort",
+CONDENSED = ("succ_vis", "sort_winners", "forest", "radix_sort",
              "linearize_condensed")
 NOT_CONDENSED = ("linearize", "scatter_winners", "expand_runs") + TRANSPORT_ONLY
 # the sharded merge's (K11): every path, each linearize arm, each winner
 # arm, and the single-device kernels it must not launch
 MESH_SHARDS = 4
-SHARDED_ALL = ("succ_partial", "visibility", "mesh_reduce", "forest", "bitonic_sort")
+SHARDED_ALL = ("succ_partial", "visibility", "mesh_reduce", "forest", "radix_sort")
 SHARDED_CONDENSED = ("cond_init", "linearize_thread", "cond_succ", "linearize_rank",
                      "cond_expand")
 SHARDED_ROWS = ("linearize_init", "linearize_thread", "linearize_rank_init",
@@ -1124,9 +1124,11 @@ def expand_rows(stacks):
 def resolve_rows(c, scatter_geom):
     """succ_vis, the winners (scatter_winners over ``scatter_geom`` =
     (n_objs2, n_props), sort_winners for None), forest and its
-    bitonic_sort on column tensors ``c``, as a merge runs them: (rows,
-    forest outputs)."""
+    radix_sort on column tensors ``c``, as a merge runs them: (rows,
+    forest outputs). sort_winners and radix_sort are timed beside
+    torch.sort of the same keys."""
     from automerge_tpu_torch.kernels import forest as F
+    from automerge_tpu_torch.kernels import radix_sort as RS
     from automerge_tpu_torch.kernels import scatter_winners as SW
     from automerge_tpu_torch.kernels import sort_winners as SO
     from automerge_tpu_torch.kernels import succ_vis as SV
@@ -1150,8 +1152,9 @@ def resolve_rows(c, scatter_geom):
     fo = F.forest(*fo_in)
     sib = F.sibling_keys(fo[0], fo[1])
     rows.append(("forest", F.forest, F.forest_plain, fo_in, fo, None, ""))
-    rows.append(("bitonic_sort", F.bitonic_sort, F.bitonic_sort_plain, (sib,),
-                 (F.bitonic_sort(sib),), lambda: torch.sort(sib), ""))
+    rs_in = (sib, F.sibling_digits(sib.numel()))
+    rows.append(("radix_sort", RS.radix_sort, RS.radix_sort_plain, rs_in,
+                 (RS.radix_sort(*rs_in),), lambda: torch.sort(sib), ""))
     return rows, fo
 
 
@@ -1237,7 +1240,7 @@ def packed_kernels(cols, n_objs: int, n_props: int, device):
 def condensed_kernels(cols, n_objs: int, n_props: int, device, rcap: int):
     """merge_kernel_condensed's kernels on one path's padded columns (with
     the actor order), as it runs them: succ_vis, sort_winners, forest,
-    bitonic_sort, then linearize_condensed at ``rcap``."""
+    radix_sort, then linearize_condensed at ``rcap``."""
     from automerge_tpu_torch.convert import columns_from_numpy
     from automerge_tpu_torch.kernels import linearize_condensed as LC
 
@@ -1370,7 +1373,7 @@ REPLACES = {
     "scatter_winners": ("automerge_tpu/ops/merge.py:595", "scatter_winners.cu"),
     "sort_winners": ("automerge_tpu/ops/merge.py:110", "sort_winners.cu"),
     "forest": ("automerge_tpu/ops/merge.py:551", "forest.cu"),
-    "bitonic_sort": ("automerge_tpu/ops/merge.py:582", "forest.cu"),
+    "radix_sort": ("automerge_tpu/ops/merge.py:582", "radix_sort.cu"),
     "linearize": ("automerge_tpu/ops/merge.py:216", "linearize.cu"),
     "linearize_condensed": ("automerge_tpu/ops/merge.py:303",
                             "linearize_condensed.cu"),

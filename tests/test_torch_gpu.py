@@ -17,6 +17,7 @@ from automerge_tpu_torch.kernels import forest as F
 from automerge_tpu_torch.kernels import launch_counts, reset_launches
 from automerge_tpu_torch.kernels import linearize as L
 from automerge_tpu_torch.kernels import linearize_condensed as LC
+from automerge_tpu_torch.kernels import radix_sort as RS
 from automerge_tpu_torch.kernels import scatter_winners as SW
 from automerge_tpu_torch.kernels import sort_winners as SO
 from automerge_tpu_torch.kernels import succ_vis as SV
@@ -75,11 +76,76 @@ def test_kernels_equal_plain_versions(cuda, size):
     _same(L.linearize(*li_in), L.linearize_plain(*li_in))
 
 
-@pytest.mark.parametrize("n", [0, 1, 2, 3, 1000, 4096, 24577])
-def test_bitonic_sort_any_length(cuda, n):
+def _sort_keys(kind, n, rng):
+    """int64 keys: random over -2^62..2^62, one value repeated (every
+    digit shared), one value with and without bit 63, or four values."""
+    x = int(rng.integers(0, 1 << 62))
+    if kind == "random":
+        return rng.integers(-(1 << 62), 1 << 62, n)
+    if kind == "same":
+        return np.full(n, x - (1 << 61), dtype=np.int64)
+    if kind == "sign":
+        return np.where(rng.random(n) < 0.5, np.int64(x) + np.int64(-(1 << 63)),
+                        np.int64(x))
+    return rng.integers(0, 4, n) * np.int64(0x0101010101010101)  # "few"
+
+
+# around tile (4096 keys) and power-of-two boundaries
+SORT_LENGTHS = [0, 1, 2, 3, 1000, 4095, 4096, 4097, 24577,
+                (1 << 20) - 1, 1 << 20, (1 << 20) + 1]
+
+
+@pytest.mark.parametrize("kind", ["random", "same", "sign", "few"])
+@pytest.mark.parametrize("n", SORT_LENGTHS)
+def test_radix_sort_any_length(cuda, n, kind):
     rng = np.random.default_rng(n)
-    keys = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n)).to(cuda)
-    _same(F.bitonic_sort(keys), torch.sort(keys).values)
+    keys = torch.from_numpy(_sort_keys(kind, n, rng)).to(cuda)
+    reset_launches()
+    got = RS.radix_sort(keys)
+    assert launch_counts()["radix_sort"] == (9 if n else 0)
+    _same(got, torch.sort(keys).values)
+
+
+@pytest.mark.parametrize("digits", [(0,), (1, 6), (0, 2, 3, 7)])
+@pytest.mark.parametrize("n", [4097, (1 << 20) + 1])
+def test_radix_sort_over_some_digits_is_stable(cuda, n, digits):
+    """Keys that tie on the sorted digits keep their input order: each
+    pass is stable, or the plain version's stable sort would differ."""
+    rng = np.random.default_rng(n + len(digits))
+    keys = torch.from_numpy(_sort_keys("random", n, rng)).to(cuda)
+    reset_launches()
+    got = RS.radix_sort(keys, digits)
+    assert launch_counts()["radix_sort"] == 1 + len(digits)
+    _same(got, RS.radix_sort_plain(keys, digits))
+
+
+@pytest.mark.parametrize("P", [4097, (1 << 20) + 1])
+def test_forest_keeps_many_siblings_in_descending_rows(cuda, P):
+    """Every element inserted at the HEAD of one object (a prepend): one
+    parent, P siblings, next_sib running down the rows; then a second
+    object whose elements alternate between two parents."""
+    rng = np.random.default_rng(P)
+    action = np.ones(P, np.int32)
+    insert = np.ones(P, bool)
+    elem_ref = np.full(P, -1, np.int32)
+    obj_dense = np.zeros(P, np.int32)
+    half = P // 2
+    obj_dense[half:] = 1
+    elem_ref[half + 2:] = half + (np.arange(P - half - 2) % 2)
+    insert[:half] = rng.random(half) >= 0.01  # a few non-elements among them
+    cols = [torch.from_numpy(a).to(cuda) for a in (action, insert, elem_ref, obj_dense)]
+    reset_launches()
+    got = F.forest(*cols)
+    counts = launch_counts()
+    assert counts["forest"] == 4
+    assert counts["radix_sort"] == 1 + len(F.sibling_digits(P))
+    _same(got, F.forest_plain(*cols))
+    next_sib = got[3][:P].cpu().numpy()
+    first = int(got[2][P].item())  # the first object's root
+    chain = [first]
+    while next_sib[chain[-1]] >= 0:
+        chain.append(int(next_sib[chain[-1]]))
+    assert chain == [r for r in range(half - 1, -1, -1) if insert[r]]
 
 
 def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
@@ -88,13 +154,12 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
     reset_launches()
     gpu = merge_columns(log.columns(), device=cuda, **kw)
     P = len(log.padded_columns()["action"])
-    sort_stages = (P - 1).bit_length()  # log2 of the padded sort length
     assert launch_counts() == {
         "succ_vis": 3,  # fill, edges, visibility
         "scatter_winners": 5,  # three fills, scatter, gather
         "sort_winners": 0,  # the text fan-in passes the scatter gate
         "forest": 4,  # two fills, links, next_sib
-        "bitonic_sort": 1 + sort_stages * (sort_stages + 1) // 2,
+        "radix_sort": 1 + len(F.sibling_digits(P)),  # histogram, one pass a digit
         "linearize": 2 * L.rounds(P) + 3,
         "linearize_condensed": 0,  # merge_kernel_condensed's
         # run-native staging: one decode per stack of run tables
@@ -125,10 +190,49 @@ def test_sort_winners_equals_plain_version(cuda, size):
     args = chip_smoke.winner_columns(size[0], 7, cuda, max_prop=size[1])
     reset_launches()
     got = SO.sort_winners(*args)
-    M = 1 << (size[0] - 1).bit_length()
-    stages = (M - 1).bit_length()
-    assert launch_counts()["sort_winners"] == 3 + stages * (stages + 1) // 2
+    assert launch_counts()["sort_winners"] == 3  # fill, insert, gather
     _same(got, SO.sort_winners_plain(*args))
+
+
+def _group_columns(kind, P, rng):
+    """Winner inputs with one hot group (every row a put of one key), every
+    row its own group, or prop ids and object ids over the whole int32
+    range; about a third of the rows invisible."""
+    action = np.ones(P, np.int32)
+    insert = np.zeros(P, bool)
+    elem_ref = np.full(P, -2, np.int32)
+    width = rng.integers(1, 4, P).astype(np.int32)
+    visible = rng.random(P) < 0.7
+    if kind == "hot":
+        obj_dense = np.full(P, 3, np.int32)
+        prop = np.full(P, 5, np.int32)
+    elif kind == "distinct":
+        obj_dense = rng.integers(0, 8, P).astype(np.int32)
+        prop = rng.permutation(P).astype(np.int32)
+    else:
+        obj_dense = rng.integers(0, P + 2, P).astype(np.int32)
+        prop = rng.integers(0, 1 << 31, P).astype(np.int32)
+        prop[::7] = (1 << 31) - 1
+        seq = rng.random(P) < 0.3  # sequence rows: elem_ref keys and inserts
+        prop[seq] = -1
+        insert[seq] = rng.random(int(seq.sum())) < 0.5
+        elem_ref[seq] = rng.integers(-3, P, int(seq.sum()))
+    return tuple(torch.from_numpy(a) for a in
+                 (action, insert, elem_ref, obj_dense, prop, width, visible))
+
+
+@pytest.mark.parametrize("kind", ["hot", "distinct", "int32_range"])
+@pytest.mark.parametrize("P", [1, 24_577, (1 << 20) + 12_345])
+def test_sort_winners_group_extremes(cuda, kind, P):
+    args = tuple(a.to(cuda) for a in _group_columns(kind, P, np.random.default_rng(P)))
+    reset_launches()
+    got = SO.sort_winners(*args)
+    assert launch_counts()["sort_winners"] == 3
+    _same(got, SO.sort_winners_plain(*args))
+    if kind == "hot":
+        vis = args[6].nonzero()
+        assert int(got[0][0]) == (int(vis.max()) if len(vis) else -1)
+        assert int(got[1][0]) == len(vis)
 
 
 def _record_store():
@@ -352,7 +456,7 @@ def test_condensed_merge_on_card_equals_cpu_and_counts_launches(cuda):
 # -- the sharded merge (K11) -------------------------------------------------
 
 
-SHARDED = ("succ_partial", "visibility", "mesh_reduce", "forest", "bitonic_sort")
+SHARDED = ("succ_partial", "visibility", "mesh_reduce", "forest", "radix_sort")
 CONDENSED_ARM = ("cond_init", "linearize_thread", "cond_succ", "linearize_rank",
                  "cond_expand")
 ROWS_ARM = ("linearize_init", "linearize_thread", "linearize_rank_init",

@@ -25,6 +25,7 @@ from automerge_tpu_torch.convert import columns_from_numpy
 from automerge_tpu_torch.kernels import forest as F
 from automerge_tpu_torch.kernels import launch_counts, reset_launches
 from automerge_tpu_torch.kernels import linearize as L
+from automerge_tpu_torch.kernels import radix_sort as RS
 from automerge_tpu_torch.kernels import scatter_winners as SW
 from automerge_tpu_torch.kernels import sort_winners as SO
 from automerge_tpu_torch.kernels import succ_vis as SV
@@ -253,19 +254,100 @@ def test_merge_kernel_beyond_scatter_gate_uses_sorted_winners(case):
         _eq(ref[k], got[k])
 
 
-def test_bitonic_sort_plain_on_cpu():
+def _digit_order(keys, digits):
+    """Python's stable sort by the named 8-bit digits of each key with bit
+    63 flipped, most significant digit first."""
+    def key(k):
+        u = (k % (1 << 64)) ^ (1 << 63)
+        return tuple((u >> (8 * d)) & 0xFF for d in reversed(digits))
+    return sorted(keys, key=key)
+
+
+@pytest.mark.parametrize("digits", [RS.DIGITS, (0,), (2, 5), (0, 1, 2, 4, 5, 6), (7,)])
+def test_radix_sort_plain_on_cpu(digits):
     rng = np.random.default_rng(5)
     keys = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, 1000))
-    got = F.bitonic_sort(keys)
-    assert torch.equal(got, torch.sort(keys).values)
+    keys[::7] = keys[3]
+    got = RS.radix_sort(keys, digits)
+    assert got.tolist() == _digit_order(keys.tolist(), digits)
+    if digits == RS.DIGITS:
+        assert torch.equal(got, torch.sort(keys).values)
+
+
+def test_radix_sort_plain_equals_torch_sort_where_other_digits_are_constant():
+    """The forest's contract: digits left out hold one value in every key."""
+    rng = np.random.default_rng(6)
+    for P in (1, 2, 300, 70_000):
+        is_elem = torch.from_numpy(rng.random(P) < 0.6)
+        parent = torch.from_numpy(rng.integers(0, 2 * P + 3, P).astype(np.int32))
+        keys = F.sibling_keys(is_elem, parent)
+        assert torch.equal(RS.radix_sort(keys, F.sibling_digits(P)),
+                           torch.sort(keys).values)
+
+
+def test_radix_sort_rejects_bad_digits():
+    keys = torch.arange(5, dtype=torch.int64)
+    for digits in ((), (3, 1), (1, 1), (8,), (-1,)):
+        with pytest.raises(ValueError, match="digits"):
+            RS.radix_sort(keys, digits)
 
 
 def test_sibling_key_order_is_parent_then_descending_row():
     is_elem = torch.tensor([True, True, False, True])
     parent = torch.tensor([5, 5, 11, 4], dtype=torch.int32)
-    order = F.bitonic_sort(F.sibling_keys(is_elem, parent))
+    order = RS.radix_sort(F.sibling_keys(is_elem, parent), F.sibling_digits(4))
     rows = (4 - 1 - (order & 0xFFFFFFFF)).tolist()
     assert rows == [3, 1, 0, 2]  # parent 4; parent 5 rows 1, 0; non-element last
+
+
+def _varying_digits(P):
+    """The digits in which two possible sibling keys of a P-row merge
+    differ: every low word P-1-row in [0, P) and every parent in [0, N]."""
+    N = 2 * P + 3
+    lows, highs = range(P), range(N + 1)
+    out = []
+    for d in range(8):
+        if d < 4:
+            vals = {(v >> (8 * d)) & 0xFF for v in lows}
+        else:
+            vals = {(((v << 32) ^ (1 << 63)) >> (8 * d)) & 0xFF for v in highs}
+        if len(vals) > 1:
+            out.append(d)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 126, 127, 128, 129, 255, 256, 257, 700])
+def test_sibling_digits_are_the_digits_that_vary(P):
+    assert F.sibling_digits(P) == _varying_digits(P)
+
+
+def test_sibling_digits_at_large_p():
+    """Past a brute force: the top sorted digit of each word holds that
+    word's largest value's top bits, the next one up holds nothing."""
+    for P in (516_096, 851_968, (1 << 20) + 12_345, (1 << 23) + 1, (1 << 29) - 1):
+        digits = F.sibling_digits(P)
+        low = [d for d in digits if d < 4]
+        high = [d - 4 for d in digits if d >= 4]
+        for top, word in ((low, P - 1), (high, 2 * P + 3)):
+            assert top == list(range(len(top)))
+            assert word >> (8 * len(top)) == 0 and word >> (8 * (len(top) - 1)) > 0
+    assert F.sibling_digits(516_096) == F.sibling_digits(851_968) == (0, 1, 2, 4, 5, 6)
+
+
+@pytest.mark.parametrize("P", [0, 1, 2, 3, 1000, 4096, 851_968, 1_060_921, (1 << 29) - 1])
+def test_table_capacity_is_the_least_power_of_two_at_twice_the_rows(P):
+    C = SO.table_capacity(P)
+    assert C & (C - 1) == 0
+    assert 2 * max(P, 1) <= C < 4 * max(P, 1)
+
+
+def test_scratch_words_hold_counts_counters_and_look_back():
+    for n in (0, 1, 4095, 4096, 4097, 516_096):
+        for digits in (RS.DIGITS, (0, 1, 2, 4, 5, 6), (3,)):
+            tiles = -(-n // RS.TILE)
+            assert RS.scratch_words(n, digits) == 8 * 256 + 8 + len(digits) * tiles * 256
+    assert RS.digit_mask(RS.DIGITS) == 0xFF
+    assert RS.digit_mask((0, 1, 2, 4, 5, 6)) == 0b0111_0111
 
 
 def test_smoke_bound_counts_only_the_bytes_the_function_reads(case):
