@@ -44,7 +44,15 @@ class Stream(NamedTuple):
     device: torch.device
 
 
+# the raw handle of a card's current stream, without building a
+# torch.cuda.Stream object (CUDA builds of PyTorch have it)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream(t: torch.Tensor) -> Stream:
     """The current stream of ``t``'s card: ``launch`` makes that card the
     current device while the entry point runs."""
-    return Stream(torch.cuda.current_stream(t.device).cuda_stream, t.device)
+    dev = t.device
+    if _raw_stream is not None:
+        return Stream(_raw_stream(dev.index), dev)
+    return Stream(torch.cuda.current_stream(dev).cuda_stream, dev)

@@ -11,7 +11,6 @@ a source changes. Nothing is built at import time; the first kernel launch
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -113,27 +112,41 @@ def library() -> ctypes.CDLL:
 
 P_ = ctypes.c_void_p
 I_ = ctypes.c_int
+U_ = ctypes.c_uint
 LL_ = ctypes.c_longlong
+
+_entries = {}
+# the current card's index, read without torch.cuda's lazy-init check
+# (CUDA builds of PyTorch have it)
+_current_card = getattr(torch._C, "_cuda_getDevice", None)
+
+
+def _entry(name: str, argtypes):
+    """The C entry point ``name``, its argument types set once."""
+    fn = getattr(library(), name)
+    fn.argtypes = [*argtypes, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    _entries[name] = fn
+    return fn
 
 
 def launch(name: str, argtypes, *args) -> int:
     """Call the C entry point ``name`` with ``args`` (declared as
     ``argtypes``) and return the number of kernels it launched; raise on
     the cudaError_t it returns. Every entry point takes, after ``args``, a
-    host int that it raises by one per kernel launch. A ``Stream`` among
-    ``args`` passes its handle, and its card is the current device for the
-    call: a kernel launches on the current device, so a stream of another
-    card would be refused."""
-    fn = getattr(library(), name)
-    if fn.argtypes is None:
-        fn.argtypes = [*argtypes, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-    streams = [a for a in args if isinstance(a, Stream)]
-    raw = [a.handle if isinstance(a, Stream) else a for a in args]
-    card = torch.cuda.device(streams[0].device) if streams else contextlib.nullcontext()
+    host int that it raises by one per kernel launch. The last of ``args``
+    is a ``Stream``: its handle is passed, and its card is the current
+    device for the call (entered only when another card is current): a
+    kernel launches on the current device, so a stream of another card
+    would be refused."""
+    fn = _entries.get(name) or _entry(name, argtypes)
+    *raw, st = args
     launched = ctypes.c_int(0)
-    with card:
-        rc = fn(*raw, ctypes.byref(launched))
+    if _current_card is not None and _current_card() == st.device.index:
+        rc = fn(*raw, st.handle, ctypes.byref(launched))
+    else:
+        with torch.cuda.device(st.device):
+            rc = fn(*raw, st.handle, ctypes.byref(launched))
     if rc != 0:
         msg = library().amt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

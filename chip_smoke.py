@@ -95,7 +95,11 @@ Phases, each raising on failure (nothing is caught):
     doubling kernels at one round of one shard's slice); sort_winners also on synthetic
     columns with P > 2^20; the whole merge on the card
     against the plain CPU path on all 13 outputs for that served subset
-    and for a small fan-in;
+    and for a small fan-in; expand_runs at every stack and linearize at
+    every path also timed on the device by torch.profiler (``device_ms``,
+    beside the CUDA-event ``ms``), linearize held to its LAUNCHES launches
+    a call, and one expand_runs call at the text fan-in's first stack
+    timed on the host step by step;
  5. one {"kernels": [...]} line: kernel launches on the main paths (their
     sum, and by path), median CUDA-event times of the kernel, its plain
     version and (where one exists) a single PyTorch call computing the
@@ -151,6 +155,28 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> tuple:
+    """(device ms per call summed over its kernels and memsets, {kernel:
+    ms per call}) of ``fn()`` from torch.profiler over ``reps`` calls
+    after a warm-up: the card's own time, without the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            per[e.key[:60]] = t / reps / 1e3
+    return sum(per.values()), per
 
 
 def nbytes(*tensors) -> int:
@@ -433,12 +459,22 @@ def record_workload():
 
 
 def check_launches(path: str, counts: dict, must: tuple, must_not: tuple) -> None:
+    from automerge_tpu_torch.kernels.linearize import LAUNCHES
+
     idle = [k for k in must if counts[k] < 1]
     if idle:
         raise AssertionError(f"{path}: kernels not launched: {idle}")
+    if counts["linearize"] % LAUNCHES:
+        raise AssertionError(f"{path}: linearize launched {counts['linearize']} "
+                             f"kernels, not {LAUNCHES} a call")
     stray = [k for k in must_not if counts[k]]
     if stray:
         raise AssertionError(f"{path}: kernels launched that must not be: {stray}")
+
+
+def check_call_launches(name: str, launched: int, want: int) -> None:
+    if launched != want:
+        raise AssertionError(f"{name}: {launched} launches a call, not {want}")
 
 
 SHARED = ("succ_vis", "forest", "radix_sort", "linearize")
@@ -1180,8 +1216,11 @@ def path_kernels(cols, n_objs: int, n_props: int, device):
     core, fo = resolve_rows(c, geom)
     rows += core
     li_in = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"])
-    rows.append(("linearize", L.linearize, L.linearize_plain, li_in,
-                 (L.linearize(*li_in),), None, ""))
+    before = L.linearize.launches
+    li = L.linearize(*li_in)
+    check_call_launches("linearize", L.linearize.launches - before, L.LAUNCHES)
+    rows.append(("linearize", L.linearize, L.linearize_plain, li_in, (li,), None,
+                 f"{L.LAUNCHES} launches a call"))
     return rows
 
 
@@ -1399,6 +1438,10 @@ REPLACES = {
 }
 
 
+# the kernels timed on the device as well (torch.profiler)
+DEVICE_TIMED = ("expand_runs", "linearize")
+
+
 def measure(name, kern, plain, args, out, library, reps: int) -> dict:
     """One kernel at one path's shapes: its output against its plain
     version (raising unless equal), its bound and its times."""
@@ -1409,7 +1452,7 @@ def measure(name, kern, plain, args, out, library, reps: int) -> dict:
     bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
               "operations": ops / INT32_OPS_PER_S * 1e3}
     bound_by = max(bounds, key=bounds.get)
-    return {
+    m = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: kern(*args), reps),
         "plain_ms": cuda_ms(lambda: plain(*args), reps),
@@ -1417,6 +1460,49 @@ def measure(name, kern, plain, args, out, library, reps: int) -> dict:
         "bound_by": bound_by,
         "library_ms": cuda_ms(library, reps) if library else None,
     }
+    if name in DEVICE_TIMED:
+        m["device_ms"], m["device_kernels"] = device_ms(lambda: kern(*args), reps)
+        if library:
+            m["library_device_ms"] = device_ms(library, reps)[0]
+    return m
+
+
+def expand_host_steps(W, C, S, n: int, bools, library, reps: int = 200) -> dict:
+    """Host microseconds of one expand_runs call on the card, by the
+    wrapper's steps (argument checks, the layout of the bool columns, the
+    allocations, the stream handle, the C call that launches the kernel,
+    the column views), the whole call, and the yardstick's two PyTorch
+    calls: medians of ``reps`` calls, each timed alone, the card
+    synchronised between calls so that no queue fills."""
+    from automerge_tpu_torch.kernels import expand_runs as E
+    from automerge_tpu_torch.kernels._args import on_cuda, stream
+
+    K, _, bools = E._check(W, C, S, n, bools)
+    bits, nb, order = E._layout(bools)
+    ints, flags = E._outputs(K, nb, n, W.device)
+    st = stream(W)
+    steps = {
+        "checks": lambda: (E._check(W, C, S, n, bools),
+                           on_cuda(W=W, C=C) if S is None else on_cuda(W=W, C=C, S=S)),
+        "layout": lambda: E._layout(bools),
+        "allocate": lambda: E._outputs(K, nb, n, W.device),
+        "stream": lambda: stream(W),
+        "launch": lambda: E._launch(W, C, S, n, bits, ints, flags, st),
+        "views": lambda: E._columns(ints, flags, order),
+        "whole call": lambda: E.expand_runs(W, C, S, n, bools),
+        "yardstick (searchsorted + gather)": library,
+    }
+    us = {}
+    for name, fn in steps.items():
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        us[name] = statistics.median(times) * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def kernel_report(paths, by_path, device, reps: int):
@@ -1430,6 +1516,7 @@ def kernel_report(paths, by_path, device, reps: int):
     from automerge_tpu_torch.kernels import sort_winners as SO
 
     report = {}
+    host_steps_done = False
     for path, (cols, n_objs, n_props, *caps) in paths.items():
         rows_of = (sharded_kernels if "sharded" in path else
                    packed_kernels if path.endswith("packed") else
@@ -1441,6 +1528,11 @@ def kernel_report(paths, by_path, device, reps: int):
                  **measure(name, kern, plain, args, out, library, reps)}
             m["launches"] = by_path[path][name]
             where = f"{path} {tag}".strip()
+            if name == "expand_runs" and not host_steps_done:
+                host_steps_done = True
+                us = expand_host_steps(*args, library)
+                print(f"{where}: expand_runs host us by step {json.dumps(us)}",
+                      flush=True)
             print(f"{where}: {name} equal to its plain version, "
                   f"{json.dumps(m)}", flush=True)
             if name not in report:

@@ -29,29 +29,8 @@ import chip_smoke as S  # noqa: E402
 REPS = 20
 
 
-def device_ms(fn) -> tuple:
-    """(device ms per call summed over its kernels, {kernel: ms per call})
-    of ``fn()`` from torch.profiler over REPS calls after a warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0:
-            per[e.key[:60]] = t / REPS / 1e3
-    return sum(per.values()), per
-
-
 def row(shape: str, name: str, fn) -> None:
-    total, per = device_ms(fn)
+    total, per = S.device_ms(fn, REPS)
     print(json.dumps({"shape": shape, "fn": name, "event_ms": S.cuda_ms(fn, REPS),
                       "device_ms": total, "kernels": per}), flush=True)
 

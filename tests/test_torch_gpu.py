@@ -76,6 +76,54 @@ def test_kernels_equal_plain_versions(cuda, size):
     _same(L.linearize(*li_in), L.linearize_plain(*li_in))
 
 
+def _forest_columns(kind, P, rng):
+    """(action, insert, elem_ref, obj_dense) of a synthetic element forest:
+    one chain typed in order ("chain", as deep as the rows), every element
+    a head insert ("star", P siblings), or elements inserted after a random
+    earlier element of one of P // 64 objects, or at its head, with a few
+    rows no elements ("objects")."""
+    action = np.ones(P, np.int32)
+    insert = np.ones(P, bool)
+    obj = np.zeros(P, np.int32)
+    if kind == "chain":
+        elem_ref = np.arange(-1, P - 1, dtype=np.int32)
+    elif kind == "star":
+        elem_ref = np.full(P, -1, np.int32)
+    else:
+        obj = rng.integers(0, max(P // 64, 1), P).astype(np.int32)
+        order = np.argsort(obj, kind="stable")
+        first = np.searchsorted(obj[order], obj[order])
+        pos = np.arange(P) - first
+        pick = first + (rng.random(P) * pos).astype(np.int64)
+        elem_ref = np.full(P, -1, np.int32)
+        after = (pos > 0) & (rng.random(P) < 0.8)
+        elem_ref[order[after]] = order[pick[after]]
+        insert = rng.random(P) >= 0.02
+    return action, insert, elem_ref, obj
+
+
+# P = 1, not a power of two, and past 2^20
+LINEARIZE_SHAPES = [("chain", 1), ("chain", 4099), ("star", 4099), ("objects", 24_577),
+                    ("chain", (1 << 20) + 1), ("star", (1 << 20) + 1),
+                    ("objects", (1 << 20) + 12_345)]
+
+
+@pytest.mark.parametrize("kind,P", LINEARIZE_SHAPES, ids=lambda v: str(v))
+def test_linearize_equals_plain_version_and_model(cuda, kind, P):
+    """Six launches whatever P; equal to the reference's doubling and to
+    the CPU model of the Euler tour."""
+    cols = [torch.from_numpy(a).to(cuda)
+            for a in _forest_columns(kind, P, np.random.default_rng(P))]
+    fo = F.forest(*cols)
+    args = (fo[2], fo[3], fo[0], cols[2], cols[3])
+    reset_launches()
+    got = L.linearize(*args)
+    assert launch_counts()["linearize"] == L.LAUNCHES
+    _same(got, L.linearize_plain(*args))
+    model, _ = L.linearize_tour_model(*(a.cpu().numpy() for a in args))
+    _same(got.cpu(), model)
+
+
 def _sort_keys(kind, n, rng):
     """int64 keys: random over -2^62..2^62, one value repeated (every
     digit shared), one value with and without bit 63, or four values."""
@@ -160,7 +208,7 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
         "sort_winners": 0,  # the text fan-in passes the scatter gate
         "forest": 4,  # two fills, links, next_sib
         "radix_sort": 1 + len(F.sibling_digits(P)),  # histogram, one pass a digit
-        "linearize": 2 * L.rounds(P) + 3,
+        "linearize": L.LAUNCHES,  # the Euler tour: six launches whatever P
         "linearize_condensed": 0,  # merge_kernel_condensed's
         # run-native staging: one decode per stack of run tables
         "expand_runs": len(stage_cols_run_native(log.padded_columns(), "cpu")[2]),
@@ -308,6 +356,56 @@ def test_expand_runs_equals_plain_version(cuda, n, rcap, delta):
     got = E.expand_runs(*args, n, bools)
     assert launch_counts()["expand_runs"] == 1
     _same(got, E.expand_runs_plain(*args, n, bools))
+
+
+def _edge_stack(name, rng):
+    """(W, C, S, n) of one edge shape of the tiled decode (4096 rows a
+    tile): the run ends shared by every column, values and slopes over the
+    whole int32 range."""
+    T = 4096
+    ends, n, rcap, K = {
+        "one run": ([5000], 5000, 1, 3),
+        "every row a run": (np.arange(1, 4100), 4099, 4099, 2),
+        "rcap far above n": (np.arange(3, 101, 3).tolist() + [100], 100, 8192, 2),
+        "n not a tile multiple": (np.arange(7, 3 * T + 5, 7).tolist() + [3 * T + 5],
+                                  3 * T + 5, 2048, 2),
+        "K 32": (np.arange(11, 6000, 11).tolist() + [6000], 6000, 1024, 32),
+        "ends on tile boundaries": ([12, 64, T - 1, T, T + 1, 2 * T, 3 * T - 1, 3 * T,
+                                     3 * T + 17], 3 * T + 17, 64, 2),
+        "repeated ends": (np.sort(rng.integers(1, 9000, 5000)).tolist() + [9000],
+                          9000, 6000, 2),
+        "text fan-in width": (np.sort(rng.choice(np.arange(1, 516_096), 300_000,
+                                                 replace=False)).tolist() + [516_096],
+                              516_096, 300_032, 5),
+    }[name]
+    C = np.full((K, rcap), n, np.int32)
+    C[:, : len(ends)] = ends
+    W = rng.integers(-(1 << 31), 1 << 31, (K, rcap), dtype=np.int64).astype(np.int32)
+    S = rng.integers(-(1 << 31), 1 << 31, K, dtype=np.int64).astype(np.int32)
+    return W, C, S, n
+
+
+EDGE_STACKS = ["one run", "every row a run", "rcap far above n", "n not a tile multiple",
+               "K 32", "ends on tile boundaries", "repeated ends", "text fan-in width"]
+
+
+@pytest.mark.parametrize("name", EDGE_STACKS)
+@pytest.mark.parametrize("delta", [False, True], ids=["rle", "delta"])
+def test_expand_runs_equals_plain_version_and_model_at_edges(cuda, name, delta):
+    from automerge_tpu_torch.kernels import expand_runs as E
+
+    rng = np.random.default_rng(len(name))
+    W, C, S, n = _edge_stack(name, rng)
+    S = S if delta else None
+    bools = tuple(k % 3 == 1 for k in range(W.shape[0]))
+    args = [torch.from_numpy(a).to(cuda) if a is not None else None for a in (W, C, S)]
+    reset_launches()
+    got = E.expand_runs(*args, n, bools)
+    assert launch_counts()["expand_runs"] == 1
+    _same(got, E.expand_runs_plain(*args, n, bools))
+    model = E.expand_runs_tiled_model(W, C, S, n, bools)
+    _same(tuple(g.cpu() for g in got), model)
+    assert all(g.is_contiguous() for g in got)
 
 
 @pytest.mark.parametrize("n", [1, 1000, 24_577])
