@@ -30,6 +30,12 @@
 //      histogram) + the earlier tiles' count + the position in the run.
 // Every pass is stable, so the sort is. The counts, the tile counters and
 // the look-back words are zeroed by one memset in the entry point.
+// The length may also be read on the device (n_dev: the forest's element
+// count, which its links pass writes): the grid is sized for the
+// capacity n, the histogram counts only [0, *n_dev), and a block whose
+// tiles would start at or past *n_dev exits before it takes a tile id,
+// so the tiles that do run are exactly the first ones and no look-back
+// waits on a block that left. The host never reads the count.
 //
 // Bound: bytes. The keys are read once and written once (8n each). The
 // design reads and writes them once per digit and reads them once more
@@ -53,14 +59,23 @@
 
 static_assert(RS_THREADS == RS_RADIX, "one thread per digit value");
 
+// the keys to sort: n, or the device-side count clamped to [0, n]
+__device__ __forceinline__ int rs_count(int n, const int* n_dev) {
+  if (n_dev == nullptr) return n;
+  int c = *n_dev;
+  return c < 0 ? 0 : (c < n ? c : n);
+}
+
 __device__ __forceinline__ unsigned rs_digit(long long k, int shift) {
   return (unsigned)(((unsigned long long)k ^ RS_SIGN) >> shift) & 0xffu;
 }
 
 __global__ void __launch_bounds__(RS_THREADS)
-rs_histogram(const long long* __restrict__ keys, int n, int mask,
+rs_histogram(const long long* __restrict__ keys, int cap,
+             const int* __restrict__ n_dev, int mask,
              unsigned* __restrict__ hist) {
   __shared__ unsigned sh[8 * RS_RADIX];
+  const int n = rs_count(cap, n_dev);
   for (int i = threadIdx.x; i < 8 * RS_RADIX; i += RS_THREADS) sh[i] = 0;
   __syncthreads();
   for (long long i = (long long)blockIdx.x * RS_THREADS + threadIdx.x; i < n;
@@ -97,8 +112,9 @@ __device__ __forceinline__ unsigned rs_block_excl(unsigned v, unsigned* sh) {
 // zeroed.
 __global__ void __launch_bounds__(RS_THREADS)
 rs_onesweep(const long long* __restrict__ in, long long* __restrict__ out,
-            int n, int shift, const unsigned* __restrict__ hist,
-            unsigned* lookback, int* counter) {
+            int cap, const int* __restrict__ n_dev, int shift,
+            const unsigned* __restrict__ hist, unsigned* lookback,
+            int* counter) {
   __shared__ long long s_keys[RS_TILE];
   __shared__ unsigned s_whist[RS_WARPS][RS_RADIX];
   __shared__ unsigned s_tstart[RS_RADIX];
@@ -106,6 +122,8 @@ rs_onesweep(const long long* __restrict__ in, long long* __restrict__ out,
   __shared__ unsigned s_scan[2][RS_WARPS];
   __shared__ int s_tile;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int n = rs_count(cap, n_dev);
+  if ((long long)blockIdx.x * RS_TILE >= n) return;  // a tile past the keys
   if (t == 0) s_tile = atomicAdd(counter, 1);
   for (int i = t; i < RS_WARPS * RS_RADIX; i += RS_THREADS)
     (&s_whist[0][0])[i] = 0;
@@ -204,14 +222,16 @@ static long long rs_scratch_words(int n, int digits) {
 }
 
 // Sorts in[0:n) ascending and stably by the digits set in digit_mask (bit
-// d: key bits [8d, 8d + 8) with bit 63 flipped). in is only read; pass p
-// (of the popcount(digit_mask) passes, ascending digits) writes buf0 when
-// p is even, buf1 when odd. scratch: scratch_words uint32, at least
-// rs_scratch_words (kernels/radix_sort.py scratch_words), zeroed here.
+// d: key bits [8d, 8d + 8) with bit 63 flipped); with n_dev, in[0:*n_dev)
+// (clamped to [0, n]), buffers sized for n, and the rest of each buffer
+// left as it was. in is only read; pass p (of the popcount(digit_mask)
+// passes, ascending digits) writes buf0 when p is even, buf1 when odd.
+// scratch: scratch_words uint32, at least rs_scratch_words
+// (kernels/radix_sort.py scratch_words), zeroed here.
 AMT_API int amt_radix_sort(const long long* in, long long* buf0, long long* buf1,
                            int n, int digit_mask, unsigned* scratch,
-                           long long scratch_words, cudaStream_t stream,
-                           int* launched) {
+                           long long scratch_words, const int* n_dev,
+                           cudaStream_t stream, int* launched) {
   if (n < 0 || n >= (1 << 30) || digit_mask <= 0 || digit_mask > 0xff)
     return (int)cudaErrorInvalidValue;
   int digits = __builtin_popcount(digit_mask);
@@ -225,7 +245,7 @@ AMT_API int amt_radix_sort(const long long* in, long long* buf0, long long* buf1
   cudaError_t e = cudaMemsetAsync(scratch, 0, words * sizeof(unsigned), stream);
   if (e != cudaSuccess) return (int)e;
   rs_histogram<<<tiles < RS_HIST_BLOCKS ? tiles : RS_HIST_BLOCKS, RS_THREADS, 0,
-                 stream>>>(in, n, digit_mask, hist);
+                 stream>>>(in, n, n_dev, digit_mask, hist);
   AMT_LAUNCHED;
   const long long* src = in;
   long long* bufs[2] = {buf0, buf1};
@@ -233,7 +253,7 @@ AMT_API int amt_radix_sort(const long long* in, long long* buf0, long long* buf1
   for (int d = 0; d < 8; ++d) {
     if (!(digit_mask >> d & 1)) continue;
     rs_onesweep<<<tiles, RS_THREADS, 0, stream>>>(
-        src, bufs[p & 1], n, 8 * d, hist + d * RS_RADIX,
+        src, bufs[p & 1], n, n_dev, 8 * d, hist + d * RS_RADIX,
         lookback + (size_t)p * tiles * RS_RADIX, counters + p);
     AMT_LAUNCHED;
     src = bufs[p & 1];

@@ -1,13 +1,16 @@
 """forest: the RGA sibling forest.
 
 Replaces ``automerge_tpu/ops/merge.py`` ``forest`` (:551-592); the CUDA
-kernels are in ``csrc/forest.cu``: a links pass (is_elem, parent_row,
-first_child by atomicMax, one packed int64 sibling key per row), the
-radix sort of the keys over the digits their layout lets vary
-(``radix_sort.radix_sort`` with ``sibling_digits(P)``), and a
-next-sibling pass over adjacent sorted keys. Node space is N = 2P+3:
-element rows, object roots P + obj_dense, and the sentinel N-1. Bound by
-bytes: 13P read, 5P + 8N written (the sort: 8n read, 8n written).
+kernels are in ``csrc/forest.cu``: a links pass (is_elem and parent_row
+of every row, one packed int64 sibling key per element row, compacted to
+the front of a buffer with the element count kept on the card), the radix
+sort of those keys over the digits their layout lets vary
+(``radix_sort.radix_sort`` with ``sibling_digits(P)`` and that count),
+and a finish pass over adjacent sorted keys (next_sib, and first_child at
+the start of each parent's run). first_child and next_sib start at -1 by
+one memset. Node space is N = 2P+3: element rows, object roots
+P + obj_dense, and the sentinel N-1. Bound by bytes: 13P read, 5P + 8N
+written (the sort: 8 bytes an element read, 8 written).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from .radix_sort import radix_sort, radix_sort_plain
 
 _P, _I = _build.P_, _build.I_
 _LINKS_SIG = [_P, _P, _P, _P, _I] + [_P] * 5 + [_P]
-_NEXT_SIB_SIG = [_P, _I, _P, _P]
+_FINISH_SIG = [_P, _I, _P, _P, _P]
 
 
 def parent_rows(action, insert, elem_ref, obj_dense):
@@ -87,6 +90,46 @@ def forest_plain(action, insert, elem_ref, obj_dense):
     return is_elem, parent_row, first_child, next_sib_from_sorted(sorted_keys, P)
 
 
+def element_keys(is_elem, parent_row):
+    """The sibling keys of the element rows whose parent lies in the node
+    space [0, 2P+3), in row order: what the links pass compacts (in some
+    order of its blocks)."""
+    keep = is_elem & (parent_row >= 0) & (parent_row < 2 * is_elem.shape[0] + 3)
+    return sibling_keys(is_elem, parent_row)[keep]
+
+
+def forest_model(action, insert, elem_ref, obj_dense, block: int = 256,
+                 block_order=None):
+    """The CUDA design in plain PyTorch, pass by pass: (is_elem,
+    parent_row, first_child, next_sib, the number of keys sorted). The
+    links pass compacts the element keys block by block, the blocks of
+    ``block`` rows taking their offsets in ``block_order`` (a permutation
+    of the block indices; default ascending), as the blocks' atomics may;
+    the keys are sorted; each sorted key links its row to the next key's
+    row under the same parent, and the first key of a parent's run is
+    that parent's first child; every other node reads -1."""
+    P = action.shape[0]
+    N = 2 * P + 3
+    dev = action.device
+    is_elem, parent_row = parent_rows(action, insert, elem_ref, obj_dense)
+    keyed = is_elem & (parent_row >= 0) & (parent_row < N)
+    key = sibling_keys(is_elem, parent_row)
+    n_blocks = -(-P // block)
+    order = range(n_blocks) if block_order is None else block_order
+    keys = torch.cat([key[b * block:(b + 1) * block][keyed[b * block:(b + 1) * block]]
+                      for b in order] + [key[:0]])
+    n = keys.shape[0]
+    ks = radix_sort_plain(keys, sibling_digits(P))
+    sp, row = ks >> 32, P - 1 - (ks & 0xFFFFFFFF)
+    nodes = torch.full((2, N), -1, dtype=torch.int32, device=dev)
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = sp[1:] != sp[:-1]
+    nodes[0][sp[start]] = row[start].to(torch.int32)
+    linked = sp[1:] == sp[:-1]
+    nodes[1][row[:-1][linked]] = row[1:][linked].to(torch.int32)
+    return is_elem, parent_row, nodes[0], nodes[1], n
+
+
 def forest(action, insert, elem_ref, obj_dense):
     """(is_elem, parent_row, first_child, next_sib) for int32/bool [P]
     columns. CPU tensors take the plain version; CUDA tensors launch the
@@ -107,14 +150,16 @@ def forest(action, insert, elem_ref, obj_dense):
     parent_row = torch.empty(P, dtype=torch.int32, device=dev)
     nodes = torch.empty(2, N, dtype=torch.int32, device=dev)
     keys = torch.empty(P, dtype=torch.int64, device=dev)
+    n_elem = torch.empty(1, dtype=torch.int32, device=dev)  # set on the card
+    st = stream(action)
     forest.launches += _build.launch(
         "amt_forest_links", _LINKS_SIG, ptr(action), ptr(insert), ptr(elem_ref),
-        ptr(obj_dense), P, ptr(is_elem), ptr(parent_row), ptr(nodes[0]),
-        ptr(nodes[1]), ptr(keys), stream(action))
-    sorted_keys = radix_sort(keys, sibling_digits(P))
+        ptr(obj_dense), P, ptr(is_elem), ptr(parent_row), ptr(nodes), ptr(keys),
+        ptr(n_elem), st)
+    sorted_keys = radix_sort(keys, sibling_digits(P), n_elem)
     forest.launches += _build.launch(
-        "amt_forest_next_sib", _NEXT_SIB_SIG, ptr(sorted_keys), P, ptr(nodes[1]),
-        stream(action))
+        "amt_forest_finish", _FINISH_SIG, ptr(sorted_keys), P, ptr(n_elem),
+        ptr(nodes), st)
     return is_elem, parent_row, nodes[0], nodes[1]
 
 

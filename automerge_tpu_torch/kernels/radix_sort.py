@@ -7,8 +7,11 @@ packed sibling keys of ``forest``. The CUDA kernels are
 then one onesweep scatter pass per digit (tiles ranked stably by warp
 multi-split, global offsets by decoupled look-back), ping-ponging between
 two buffers. The caller names the digits to sort; the ones it leaves out
-must be constant over the keys, which it knows from their layout. Bound by
-bytes: 8n read, 8n written.
+must be constant over the keys, which it knows from their layout. With
+``count`` (an int32 [1] tensor on the keys' card) only the first
+``count`` keys are sorted, a length the kernels read on the card: the
+forest sorts its element rows without the host waiting for their number.
+Bound by bytes: 8n read, 8n written.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ RADIX = 256
 _SIGN = -(1 << 63)
 
 _P, _I, _LL = _build.P_, _build.I_, _build.LL_
-_SIG = [_P, _P, _P, _I, _I, _P, _LL, _P]
+_SIG = [_P, _P, _P, _I, _I, _P, _LL, _P, _P]
 
 
 def digit_mask(digits) -> int:
@@ -44,11 +47,15 @@ def scratch_words(n: int, digits) -> int:
     return 8 * RADIX + 8 + len(tuple(digits)) * tiles * RADIX
 
 
-def radix_sort_plain(keys, digits=DIGITS):
+def radix_sort_plain(keys, digits=DIGITS, count=None):
     """Plain PyTorch version: the keys stably sorted by their ``digits``
     alone (bit 63 flipped, so signed keys order as themselves). Where the
     other digits are constant, as the caller guarantees, that is
-    ``torch.sort(keys, stable=True)``."""
+    ``torch.sort(keys, stable=True)``. With ``count``, the first
+    ``count`` keys (clamped to [0, n]) sorted and the rest as they were."""
+    if count is not None:
+        c = min(max(int(count[0]), 0), keys.shape[0])
+        return torch.cat([radix_sort_plain(keys[:c], digits), keys[c:]])
     if digit_mask(digits) == 0xFF:
         return torch.sort(keys, stable=True).values
     bits = sum(0xFF << (8 * d) for d in digits)
@@ -57,15 +64,21 @@ def radix_sort_plain(keys, digits=DIGITS):
     return keys[torch.sort(order, stable=True).indices]
 
 
-def radix_sort(keys, digits=DIGITS):
+def radix_sort(keys, digits=DIGITS, count=None):
     """Stable ascending sort of a 1-D int64 tensor by ``digits`` (default:
-    all 8). CPU tensors take the plain version; CUDA tensors launch the
-    histogram and one scatter pass per digit."""
+    all 8); with ``count``, an int32 [1] tensor, of its first ``count``
+    keys (clamped to [0, n]), the rest of the result unspecified. CPU
+    tensors take the plain version; CUDA tensors launch the histogram and
+    one scatter pass per digit."""
     n = keys.shape[0] if isinstance(keys, torch.Tensor) and keys.dim() == 1 else -1
     expect(keys, "keys", torch.int64, (n,))
     mask = digit_mask(digits)
-    if not on_cuda(keys=keys):
-        return radix_sort_plain(keys, digits)
+    on = {"keys": keys}
+    if count is not None:
+        expect(count, "count", torch.int32, (1,))
+        on["count"] = count
+    if not on_cuda(**on):
+        return radix_sort_plain(keys, digits, count)
     if n >= 1 << 30:
         raise ValueError(f"radix_sort: {n} keys exceed the int32 index range")
     dev = keys.device
@@ -74,7 +87,7 @@ def radix_sort(keys, digits=DIGITS):
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
     radix_sort.launches += _build.launch(
         "amt_radix_sort", _SIG, ptr(keys), ptr(bufs[0]), ptr(bufs[1]), n, mask,
-        ptr(scratch), words, stream(keys))
+        ptr(scratch), words, None if count is None else ptr(count), stream(keys))
     return bufs[(len(tuple(digits)) - 1) % 2]
 
 

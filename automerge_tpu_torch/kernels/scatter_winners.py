@@ -2,10 +2,12 @@
 
 Replaces ``automerge_tpu/ops/merge.py`` ``resolve_state_scatter``
 (:595-648) without its forest call; the CUDA kernel is
-``csrc/scatter_winners.cu`` (atomicMax/atomicAdd of visible rows into a
-dense group table, then a gather pass that also atomically accumulates
-the per-object stats). Bound by bytes: 18P read, width only at the
-winners of visible elements, 16P + 16 written.
+``csrc/scatter_winners.cu``: two launches after one memset, a scatter of
+visible rows into a dense group table (atomicMax/atomicAdd, once a warp
+where its visible rows share one group) and a gather pass that also sums the
+per-object stats, reduced in the block before its atomics. Bound by
+bytes: 18P read, width only at the winners of visible elements, 16P + 16
+written.
 
 The sharded merge (``parallel/sharding.py``) runs the two passes apart
 over a shard's rows [r0, r0 + count): ``winners_partial`` fills the
@@ -22,7 +24,7 @@ from . import _build
 from ._args import expect, on_cuda, ptr, stream
 
 _P, _I = _build.P_, _build.I_
-_SIG = [_P] * 7 + [_I, _I, _I, _I] + [_P] * 5 + [_P]
+_SIG = [_P] * 7 + [_I, _I, _I, _I] + [_P, _P]
 _PARTIAL_SIG = [_P] * 6 + [_I] * 6 + [_P] * 3
 _GATHER_SIG = [_P] * 6 + [_I] * 6 + [_P] * 6
 
@@ -90,16 +92,15 @@ def scatter_winners(action, insert, elem_ref, obj_dense, prop, width, visible,
                    obj_dense=obj_dense, prop=prop, width=width, visible=visible):
         return scatter_winners_plain(action, insert, elem_ref, obj_dense, prop,
                                      width, visible, n_objs2, n_props)
-    dev = action.device
-    table = torch.empty(2, G, dtype=torch.int32, device=dev)
-    out = torch.empty(2, P, dtype=torch.int32, device=dev)
-    stats = torch.empty(2, P + 2, dtype=torch.int32, device=dev)
+    # one allocation: the win and cnt tables, the stats, winner, conflicts
+    buf = torch.empty(2 * G + 2 * (P + 2) + 2 * P, dtype=torch.int32,
+                      device=action.device)
     scatter_winners.launches += _build.launch(
         "amt_scatter_winners", _SIG, ptr(action), ptr(insert), ptr(elem_ref),
         ptr(obj_dense), ptr(prop), ptr(width), ptr(visible), P, n_objs2,
-        n_props, G, ptr(table[0]), ptr(table[1]), ptr(out[0]), ptr(out[1]),
-        ptr(stats), stream(action))
-    return out[0], out[1], stats[0], stats[1]
+        n_props, G, ptr(buf), stream(action))
+    _, vis_len, text_width, winner, conflicts = buf.split((2 * G, P + 2, P + 2, P, P))
+    return winner, conflicts, vis_len, text_width
 
 
 scatter_winners.launches = 0

@@ -95,11 +95,14 @@ Phases, each raising on failure (nothing is caught):
     doubling kernels at one round of one shard's slice); sort_winners also on synthetic
     columns with P > 2^20; the whole merge on the card
     against the plain CPU path on all 13 outputs for that served subset
-    and for a small fan-in; expand_runs at every stack and linearize at
-    every path also timed on the device by torch.profiler (``device_ms``,
-    beside the CUDA-event ``ms``), linearize held to its LAUNCHES launches
-    a call, and one expand_runs call at the text fan-in's first stack
-    timed on the host step by step;
+    and for a small fan-in; expand_runs at every stack and linearize,
+    scatter_winners, forest and radix_sort at every path also timed on
+    the device by torch.profiler (``device_ms`` beside the CUDA-event
+    ``ms``, and by kernel), linearize held to its LAUNCHES launches a
+    call, scatter_winners and forest to 2, radix_sort at the forest's
+    keys (the element rows' alone, their number printed) over the
+    device-side count, and one expand_runs call at the text fan-in's
+    first stack timed on the host step by step;
  5. one {"kernels": [...]} line: kernel launches on the main paths (their
     sum, and by path), median CUDA-event times of the kernel, its plain
     version and (where one exists) a single PyTorch call computing the
@@ -212,12 +215,13 @@ def work(name: str, args, out):
         return (read + 4 * distinct(winner[elem_vis]) + nbytes(*out),
                 10 * action.numel())
     if name == "radix_sort":
-        keys = args[0]
-        n = keys.numel()
-        return nbytes(keys, *out), n * max(n - 1, 1).bit_length()
+        n = args[3]  # the keys sorted: the first n of the buffer
+        return 16 * n, n * max(n - 1, 1).bit_length()
     if name == "forest":
-        n = args[0].numel()
-        return nbytes(*args, *out), 10 * n + n * max(n - 1, 1).bit_length()
+        P = args[0].numel()
+        # a comparison sort of the element rows' keys alone
+        n = int(out[0].sum())
+        return nbytes(*args, *out), 10 * P + n * max(n - 1, 1).bit_length()
     if name == "linearize":
         first_child, next_sib, is_elem, elem_ref, obj_dense = args
         P = is_elem.numel()
@@ -1164,7 +1168,6 @@ def resolve_rows(c, scatter_geom):
     forest outputs). sort_winners and radix_sort are timed beside
     torch.sort of the same keys."""
     from automerge_tpu_torch.kernels import forest as F
-    from automerge_tpu_torch.kernels import radix_sort as RS
     from automerge_tpu_torch.kernels import scatter_winners as SW
     from automerge_tpu_torch.kernels import sort_winners as SO
     from automerge_tpu_torch.kernels import succ_vis as SV
@@ -1177,21 +1180,55 @@ def resolve_rows(c, scatter_geom):
               c["width"], sv[3])
     if scatter_geom is not None:
         sw_in = win_in + scatter_geom
+        before = SW.scatter_winners.launches
+        sw = SW.scatter_winners(*sw_in)
+        check_call_launches("scatter_winners",
+                            SW.scatter_winners.launches - before, SW_LAUNCHES)
         rows.append(("scatter_winners", SW.scatter_winners,
-                     SW.scatter_winners_plain, sw_in, SW.scatter_winners(*sw_in),
-                     None, ""))
+                     SW.scatter_winners_plain, sw_in, sw, None,
+                     f"{SW_LAUNCHES} launches a call"))
     else:
         keys = group_keys(*win_in[:5])
         rows.append(("sort_winners", SO.sort_winners, SO.sort_winners_plain,
                      win_in, SO.sort_winners(*win_in), lambda: torch.sort(keys), ""))
     fo_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
+    before = F.forest.launches
     fo = F.forest(*fo_in)
-    sib = F.sibling_keys(fo[0], fo[1])
-    rows.append(("forest", F.forest, F.forest_plain, fo_in, fo, None, ""))
-    rs_in = (sib, F.sibling_digits(sib.numel()))
-    rows.append(("radix_sort", RS.radix_sort, RS.radix_sort_plain, rs_in,
-                 (RS.radix_sort(*rs_in),), lambda: torch.sort(sib), ""))
+    check_call_launches("forest", F.forest.launches - before, FOREST_LAUNCHES)
+    # the forest sorts its element rows' keys alone, compacted to the
+    # front of a P-key buffer, by a count that stays on the card
+    P = c["action"].numel()
+    elem = F.element_keys(fo[0], fo[1])
+    n = elem.numel()
+    buf = torch.zeros(P, dtype=torch.int64, device=c["action"].device)
+    buf[:n] = elem
+    count = torch.tensor([n], dtype=torch.int32, device=buf.device)
+    tag = f"{n} of {P} rows' keys sorted"
+    rows.append(("forest", F.forest, F.forest_plain, fo_in, fo, None,
+                 f"{FOREST_LAUNCHES} launches a call, {tag}"))
+    digits = F.sibling_digits(P)
+    rs_in = (buf, digits, count, n)
+    rows.append(("radix_sort", sorted_prefix, sorted_prefix_plain, rs_in,
+                 (sorted_prefix(*rs_in),), lambda: torch.sort(elem), tag))
     return rows, fo
+
+
+SW_LAUNCHES = 2  # scatter_winners: scatter, gather
+FOREST_LAUNCHES = 2  # forest: links, finish (its radix_sort counts apart)
+
+
+def sorted_prefix(keys, digits, count, n: int):
+    """radix_sort over a device-side count, as the forest calls it: the
+    sorted first ``n`` keys (``n`` = ``count``, known here)."""
+    from automerge_tpu_torch.kernels import radix_sort as RS
+
+    return RS.radix_sort(keys, digits, count)[:n]
+
+
+def sorted_prefix_plain(keys, digits, count, n: int):
+    from automerge_tpu_torch.kernels import radix_sort as RS
+
+    return RS.radix_sort_plain(keys, digits, count)[:n]
 
 
 def path_kernels(cols, n_objs: int, n_props: int, device):
@@ -1439,7 +1476,8 @@ REPLACES = {
 
 
 # the kernels timed on the device as well (torch.profiler)
-DEVICE_TIMED = ("expand_runs", "linearize")
+DEVICE_TIMED = ("expand_runs", "linearize", "scatter_winners", "forest",
+                "radix_sort")
 
 
 def measure(name, kern, plain, args, out, library, reps: int) -> dict:

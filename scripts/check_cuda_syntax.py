@@ -50,6 +50,7 @@ unsigned __ballot_sync(unsigned, int); unsigned __activemask(); int __popc(unsig
 template <class T> T __shfl_sync(unsigned, T, int, int = 32); template <class T> T __shfl_up_sync(unsigned, T, unsigned, int = 32);
 template <class T> T __shfl_down_sync(unsigned, T, unsigned, int = 32); template <class T> T __shfl_xor_sync(unsigned, T, int, int = 32);
 template <class T> unsigned __match_any_sync(unsigned, T); int __reduce_add_sync(unsigned, int); unsigned __reduce_add_sync(unsigned, unsigned);
+int __reduce_min_sync(unsigned, int); unsigned __reduce_min_sync(unsigned, unsigned); int __reduce_max_sync(unsigned, int); unsigned __reduce_max_sync(unsigned, unsigned);
 void __syncthreads(); int __syncthreads_or(int); int __syncthreads_and(int); int __syncthreads_count(int); void __syncwarp(unsigned = 0xffffffffu); void __threadfence();
 template <class T> T atomicAdd(T*, T); template <class T> T atomicMax(T*, T); template <class T> T atomicMin(T*, T); template <class T> T atomicCAS(T*, T, T); template <class T> T atomicExch(T*, T); template <class T> T atomicOr(T*, T);
 long long clock64(); template <class T> T __ldg(const T*); template <class T> T min(T, T); template <class T> T max(T, T);

@@ -185,7 +185,7 @@ def test_forest_keeps_many_siblings_in_descending_rows(cuda, P):
     reset_launches()
     got = F.forest(*cols)
     counts = launch_counts()
-    assert counts["forest"] == 4
+    assert counts["forest"] == 2  # links, finish
     assert counts["radix_sort"] == 1 + len(F.sibling_digits(P))
     _same(got, F.forest_plain(*cols))
     next_sib = got[3][:P].cpu().numpy()
@@ -196,6 +196,138 @@ def test_forest_keeps_many_siblings_in_descending_rows(cuda, P):
     assert chain == [r for r in range(half - 1, -1, -1) if insert[r]]
 
 
+@pytest.mark.parametrize("P", [1, 4096, 24_577, (1 << 20) + 1])
+def test_forest_without_elements_sorts_nothing(cuda, P):
+    """A record store's columns: map puts and pad rows, no insert. The
+    sort runs over a device-side count of 0 and first_child and next_sib
+    stay -1 everywhere."""
+    rng = np.random.default_rng(P)
+    action = np.where(rng.random(P) < 0.9, 1, 15).astype(np.int32)
+    cols = [torch.from_numpy(a).to(cuda) for a in (
+        action, np.zeros(P, bool), np.full(P, -2, np.int32),
+        rng.integers(0, 9, P).astype(np.int32))]
+    reset_launches()
+    got = F.forest(*cols)
+    assert launch_counts()["forest"] == 2
+    _same(got, F.forest_plain(*cols))
+    assert int(got[2].max()) == int(got[3].max()) == -1
+
+
+def test_forest_one_parent_with_2000_children(cuda):
+    """Every element at the HEAD of one object, then pad rows: one run of
+    2,000 siblings, the object's first child the last row."""
+    P = 2048
+    action = np.full(P, 15, np.int32)
+    action[:2000] = 1
+    cols = [torch.from_numpy(a).to(cuda) for a in (
+        action, np.ones(P, bool), np.full(P, -1, np.int32), np.zeros(P, np.int32))]
+    got = F.forest(*cols)
+    _same(got, F.forest_plain(*cols))
+    assert int(got[2][P]) == 1999
+    assert got[3][:2000].tolist() == list(range(-1, 1999))
+
+
+@pytest.mark.parametrize("kind", ["random", "few"])
+@pytest.mark.parametrize("count", [0, 1, 4095, 4096, 4097, 24_577])
+def test_radix_sort_over_a_device_side_count(cuda, count, kind):
+    """The first ``count`` keys of a 24,577-key buffer sorted by a length
+    the kernels read on the card; launches as for the whole buffer."""
+    n = 24_577
+    rng = np.random.default_rng(count)
+    keys = torch.from_numpy(_sort_keys(kind, n, rng)).to(cuda)
+    c = torch.tensor([count], dtype=torch.int32, device=cuda)
+    reset_launches()
+    got = RS.radix_sort(keys, RS.DIGITS, c)
+    assert launch_counts()["radix_sort"] == 9
+    _same(got[:count], torch.sort(keys[:count]).values)
+    _same(got[:count], RS.radix_sort_plain(keys, RS.DIGITS, c)[:count])
+
+
+def _scatter_columns(kind, P, rng):
+    """Scatter-winner inputs and their group table (n_objs2, n_props): a
+    text of one object whose widths make obj_text_width wrap past 2^31
+    ("one_object"); elements of three objects interleaved row by row
+    ("objects") or in runs of 300 rows ("object_runs"); every visible row
+    a put of one map key ("hot"); every row its own group ("distinct").
+    About a fifth of the rows invisible."""
+    action = np.ones(P, np.int32)
+    visible = rng.random(P) < 0.8
+    width = rng.integers(1 << 12, 1 << 13, P).astype(np.int32)
+    prop = np.full(P, -1, np.int32)
+    insert = np.ones(P, bool)
+    elem_ref = np.where(rng.random(P) < 0.5, -1,
+                        (rng.random(P) * np.arange(P)).astype(np.int64)).astype(np.int32)
+    obj = np.zeros(P, np.int32)
+    n_objs2, n_props = 4, 8
+    if kind == "objects":
+        obj = rng.integers(0, 3, P).astype(np.int32)
+    elif kind == "object_runs":
+        obj = ((np.arange(P) // 300) % 3).astype(np.int32)
+    elif kind == "hot":
+        insert[:] = False
+        obj[:] = 3
+        prop[:] = 5
+    elif kind == "distinct":
+        insert[:] = False
+        prop = rng.permutation(P).astype(np.int32)
+        n_props = P
+    cols = tuple(torch.from_numpy(a) for a in
+                 (action, insert, elem_ref, obj, prop, width, visible))
+    return cols, n_objs2, n_props
+
+
+@pytest.mark.parametrize("kind", ["one_object", "objects", "object_runs", "hot",
+                                  "distinct"])
+@pytest.mark.parametrize("P", [1, 24_577, (1 << 20) + 12_345])
+def test_scatter_winners_at_its_extremes(cuda, kind, P):
+    cols, n_objs2, n_props = _scatter_columns(kind, P, np.random.default_rng(P))
+    args = (*(a.to(cuda) for a in cols), n_objs2, n_props)
+    reset_launches()
+    got = SW.scatter_winners(*args)
+    assert launch_counts()["scatter_winners"] == 2
+    _same(got, SW.scatter_winners_plain(*args))
+    vis = cols[6].nonzero()
+    if kind == "hot":
+        assert int(got[0][0]) == (int(vis.max()) if len(vis) else -1)
+        assert int(got[1][0]) == len(vis)
+    if kind == "one_object" and P > 1 << 20:
+        # the widths of ~10^6 visible elements sum past 2^31 and wrap
+        total = int(cols[5][got[0].cpu()[cols[1] & (got[0].cpu() >= 0)].long()]
+                    .long().sum())
+        assert total >= 1 << 31
+        assert int(got[3][0]) == (total + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def test_winners_gather_on_a_shards_rows(cuda):
+    """Four shards' row ranges scattered apart, their tables combined as
+    the collectives do, then each shard's rows gathered: equal to the
+    plain versions, one launch each; the shards' stats sum to the
+    single-device kernel's."""
+    cols, n_objs2, n_props = _scatter_columns("objects", 24_576,
+                                              np.random.default_rng(3))
+    cols = tuple(a.to(cuda) for a in cols)
+    P = cols[0].numel()
+    Pl = P // 4
+    part = cols[:5] + (cols[6],)
+    reset_launches()
+    tables = [SW.winners_partial(*part, i * Pl, Pl, n_objs2, n_props) for i in range(4)]
+    assert launch_counts()["winners_partial"] == 4
+    for i, t in enumerate(tables):
+        _same(t, SW.winners_partial_plain(*part, i * Pl, Pl, n_objs2, n_props))
+    win = torch.stack([t[0] for t in tables]).amax(0)
+    cnt = torch.stack([t[1] for t in tables]).sum(0, dtype=torch.int32)
+    stats = torch.zeros(2, P + 2, dtype=torch.int32, device=cuda)
+    reset_launches()
+    for i in range(4):
+        wg_in = (*cols[:6], win, cnt, i * Pl, Pl, n_objs2, n_props)
+        got = SW.winners_gather(*wg_in)
+        _same(got, SW.winners_gather_plain(*wg_in))
+        stats += got[2]
+    assert launch_counts()["winners_gather"] == 4
+    whole = SW.scatter_winners(*cols, n_objs2, n_props)
+    _same((stats[0], stats[1]), (whole[2], whole[3]))
+
+
 def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
     log = _log(*SIZES[1])
     kw = dict(n_objs=log.n_objs, n_props=len(log.props))
@@ -204,9 +336,9 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
     P = len(log.padded_columns()["action"])
     assert launch_counts() == {
         "succ_vis": 3,  # fill, edges, visibility
-        "scatter_winners": 5,  # three fills, scatter, gather
+        "scatter_winners": 2,  # scatter, gather (one memset before)
         "sort_winners": 0,  # the text fan-in passes the scatter gate
-        "forest": 4,  # two fills, links, next_sib
+        "forest": 2,  # links, finish (one memset before)
         "radix_sort": 1 + len(F.sibling_digits(P)),  # histogram, one pass a digit
         "linearize": L.LAUNCHES,  # the Euler tour: six launches whatever P
         "linearize_condensed": 0,  # merge_kernel_condensed's

@@ -21,7 +21,8 @@ from automerge_tpu_torch.ops.oplog import OpLog
 from automerge_tpu_torch import workload as W
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "automerge_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "automerge_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "scripts").glob("profile_*_torch.py")))
 
 _NO_JAX_RUN = r"""
 import importlib, pkgutil, sys
