@@ -36,11 +36,3 @@ static inline int amt_blocks(long long n) {
 __device__ __forceinline__ int amt_clamp(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
-
-// one copy per translation unit: the sources build without relocatable
-// device code, so a kernel is launched only from its own file
-static __global__ void amt_fill_i32(int* __restrict__ out, int value,
-                                    long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = value;
-}

@@ -14,7 +14,7 @@
 //      the text fan-in, whose run heads are distinct, grouping every warp
 //      by __match_any_sync instead cost 6.5 µs against 4.2 for per-row
 //      atomics (NVIDIA H100 80GB HBM3, 700 W,
-//      scripts/profile_winners_forest_torch.py).
+//      scripts/profile_winners_forest_torch.py as of commit 0c01cf5).
 //   2. sw_gather: every row reads winner/conflicts back from its group,
 //      and the visible elements' count and winners' widths are summed per
 //      object. A text's elements all belong to one object, so an atomic

@@ -96,13 +96,15 @@ Phases, each raising on failure (nothing is caught):
     columns with P > 2^20; the whole merge on the card
     against the plain CPU path on all 13 outputs for that served subset
     and for a small fan-in; expand_runs at every stack and linearize,
-    scatter_winners, forest and radix_sort at every path also timed on
-    the device by torch.profiler (``device_ms`` beside the CUDA-event
-    ``ms``, and by kernel), linearize held to its LAUNCHES launches a
-    call, scatter_winners and forest to 2, radix_sort at the forest's
-    keys (the element rows' alone, their number printed) over the
-    device-side count, and one expand_runs call at the text fan-in's
-    first stack timed on the host step by step;
+    scatter_winners, forest, radix_sort, succ_vis, succ_partial and
+    visibility at every path also timed on the device by torch.profiler
+    (``device_ms`` beside the CUDA-event ``ms``, and by kernel),
+    linearize held to its LAUNCHES launches a call, scatter_winners,
+    forest and succ_vis to 2, succ_partial to 1, radix_sort at the
+    forest's keys (the element rows' alone, their number printed) over
+    the device-side count, and one expand_runs call at the text fan-in's
+    first stack and one succ_vis call at the text fan-in timed on the
+    host step by step;
  5. one {"kernels": [...]} line: kernel launches on the main paths (their
     sum, and by path), median CUDA-event times of the kernel, its plain
     version and (where one exists) a single PyTorch call computing the
@@ -160,26 +162,32 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> tuple:
+def device_ms(fn, reps: int, tries: int = 3) -> tuple:
     """(device ms per call summed over its kernels and memsets, {kernel:
     ms per call}) of ``fn()`` from torch.profiler over ``reps`` calls
-    after a warm-up: the card's own time, without the host's."""
+    after a warm-up: the card's own time, without the host's. The
+    profiler now and then records no device activity at all; such a
+    window is profiled again, up to ``tries`` times, and then reported
+    as (None, {}): not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0:
-            per[e.key[:60]] = t / reps / 1e3
-    return sum(per.values()), per
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            if t > 0:
+                per[e.key[:60]] = t / reps / 1e3
+        if per:
+            return sum(per.values()), per
+    return None, {}
 
 
 def nbytes(*tensors) -> int:
@@ -203,9 +211,11 @@ def work(name: str, args, out):
         src = pred_src.long().clamp(0, P - 1)
         inc = ((pred_tgt >= 0) & (pred_tgt < P) & covered[src]
                & (action[src] == Action.INCREMENT))
-        read = nbytes(pred_src, pred_tgt, action, value_tag, covered)
-        # value_i32 only at the sources of counted increment edges
-        return read + 4 * distinct(src[inc]) + nbytes(*out), 3 * Q + 6 * P
+        read = nbytes(pred_src, pred_tgt, action, covered)
+        # value_i32 only at the sources of counted increment edges, and
+        # value_tag only at their targets (is the target a counter put?)
+        return (read + 4 * distinct(src[inc]) + 4 * distinct(pred_tgt[inc])
+                + nbytes(*out), 3 * Q + 6 * P)
     if name in ("scatter_winners", "sort_winners"):
         action, insert, elem_ref, obj_dense, prop, _width, visible = args[:7]
         winner = out[0]
@@ -1174,8 +1184,11 @@ def resolve_rows(c, scatter_geom):
 
     sv_in = (c["action"], c["value_tag"], c["value_i32"], c["covered"],
              c["pred_src"], c["pred_tgt"])
+    before = SV.succ_vis.launches
     sv = SV.succ_vis(*sv_in)
-    rows = [("succ_vis", SV.succ_vis, SV.succ_vis_plain, sv_in, sv, None, "")]
+    check_call_launches("succ_vis", SV.succ_vis.launches - before, SV_LAUNCHES)
+    rows = [("succ_vis", SV.succ_vis, SV.succ_vis_plain, sv_in, sv, None,
+             f"{SV_LAUNCHES} launches a call")]
     win_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
               c["width"], sv[3])
     if scatter_geom is not None:
@@ -1213,6 +1226,8 @@ def resolve_rows(c, scatter_geom):
     return rows, fo
 
 
+SV_LAUNCHES = 2  # succ_vis: row pass, edge pass
+SP_LAUNCHES = 1  # succ_partial: edge pass (one memset before)
 SW_LAUNCHES = 2  # scatter_winners: scatter, gather
 FOREST_LAUNCHES = 2  # forest: links, finish (its radix_sort counts apart)
 
@@ -1358,9 +1373,12 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
                 c["pred_src"][i * Ql:(i + 1) * Ql].contiguous(),
                 c["pred_tgt"][i * Ql:(i + 1) * Ql].contiguous())
 
+    before = SV.succ_partial.launches
     accs = [SV.succ_partial(*succ_in(i)) for i in range(n)]
+    check_call_launches(f"succ_partial, {n} calls",
+                        SV.succ_partial.launches - before, n * SP_LAUNCHES)
     rows = [("succ_partial", SV.succ_partial, SV.succ_partial_plain, succ_in(0),
-             (accs[0],), None, "shard 0")]
+             (accs[0],), None, f"shard 0, {SP_LAUNCHES} launch a call")]
     stack = torch.stack([a.reshape(-1) for a in accs])
     acc = CK.mesh_reduce(stack, "sum")
     rows.append(("mesh_reduce", CK.mesh_reduce, CK.mesh_reduce_plain, (stack, "sum"),
@@ -1477,7 +1495,18 @@ REPLACES = {
 
 # the kernels timed on the device as well (torch.profiler)
 DEVICE_TIMED = ("expand_runs", "linearize", "scatter_winners", "forest",
-                "radix_sort")
+                "radix_sort", "succ_vis", "succ_partial", "visibility")
+
+
+def bound(name: str, args, out) -> tuple:
+    """(the least ms the card could take for ``name`` on these inputs,
+    "bytes" or "operations"): ``work`` over the memory rate and the
+    int32 rate, the larger."""
+    moved, ops = work(name, args, out)
+    bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+              "operations": ops / INT32_OPS_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    return bounds[bound_by], bound_by
 
 
 def measure(name, kern, plain, args, out, library, reps: int) -> dict:
@@ -1486,15 +1515,12 @@ def measure(name, kern, plain, args, out, library, reps: int) -> dict:
     want = plain(*args)
     want = want if isinstance(want, tuple) else (want,)
     err = max_abs_err(out, want)
-    moved, ops = work(name, args, out)
-    bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
-              "operations": ops / INT32_OPS_PER_S * 1e3}
-    bound_by = max(bounds, key=bounds.get)
+    bound_ms, bound_by = bound(name, args, out)
     m = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: kern(*args), reps),
         "plain_ms": cuda_ms(lambda: plain(*args), reps),
-        "bound_ms": bounds[bound_by],
+        "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": cuda_ms(library, reps) if library else None,
     }
@@ -1519,7 +1545,7 @@ def expand_host_steps(W, C, S, n: int, bools, library, reps: int = 200) -> dict:
     bits, nb, order = E._layout(bools)
     ints, flags = E._outputs(K, nb, n, W.device)
     st = stream(W)
-    steps = {
+    return host_us({
         "checks": lambda: (E._check(W, C, S, n, bools),
                            on_cuda(W=W, C=C) if S is None else on_cuda(W=W, C=C, S=S)),
         "layout": lambda: E._layout(bools),
@@ -1529,7 +1555,35 @@ def expand_host_steps(W, C, S, n: int, bools, library, reps: int = 200) -> dict:
         "views": lambda: E._columns(ints, flags, order),
         "whole call": lambda: E.expand_runs(W, C, S, n, bools),
         "yardstick (searchsorted + gather)": library,
-    }
+    }, reps)
+
+
+def succ_vis_host_steps(args, reps: int = 200) -> dict:
+    """Host microseconds of one succ_vis call on the card, by the
+    wrapper's steps (six ``expect`` calls and ``on_cuda``, the one
+    allocation, the stream handle, the C call that launches the row and
+    edge passes, the four views) and the whole call, as
+    ``expand_host_steps`` times them."""
+    from automerge_tpu_torch.kernels import succ_vis as SV
+    from automerge_tpu_torch.kernels._args import stream
+
+    P, dev = args[0].shape[0], args[0].device
+    out = SV._output(P, dev)
+    st = stream(args[0])
+    return host_us({
+        "checks": lambda: SV._check(*args),
+        "allocate": lambda: SV._output(P, dev),
+        "stream": lambda: stream(args[0]),
+        "launch": lambda: SV._launch(*args, out, st),
+        "views": lambda: SV._views(out, P),
+        "whole call": lambda: SV.succ_vis(*args),
+    }, reps)
+
+
+def host_us(steps: dict, reps: int) -> dict:
+    """{step: median host microseconds of ``reps`` calls}, each call
+    timed alone, the card synchronised between calls so that no queue
+    fills."""
     us = {}
     for name, fn in steps.items():
         times = []
@@ -1543,6 +1597,25 @@ def expand_host_steps(W, C, S, n: int, bools, library, reps: int = 200) -> dict:
     return us
 
 
+# the wrappers timed on the host step by step, at the first path that
+# runs them: name -> (its arguments, its yardstick) -> {step: µs}
+HOST_STEPS = {
+    "expand_runs": lambda args, library: expand_host_steps(*args, library),
+    "succ_vis": lambda args, library: succ_vis_host_steps(args),
+}
+
+
+def kernel_rows(path: str, spec, device):
+    """The kernel rows of one path, by its name (see ``kernel_report``),
+    on ``spec`` = (padded columns, n_objs, n_props, *caps)."""
+    cols, n_objs, n_props, *caps = spec
+    rows_of = (sharded_kernels if "sharded" in path else
+               packed_kernels if path.endswith("packed") else
+               eager_kernels if path.endswith("expand") else
+               condensed_kernels if path.endswith("condensed") else path_kernels)
+    return rows_of(cols, n_objs, n_props, device, *caps)
+
+
 def kernel_report(paths, by_path, device, reps: int):
     """Each kernel against its plain version at the shapes of every path
     that runs it (``paths``: name -> (padded columns, n_objs, n_props), and
@@ -1554,22 +1627,18 @@ def kernel_report(paths, by_path, device, reps: int):
     from automerge_tpu_torch.kernels import sort_winners as SO
 
     report = {}
-    host_steps_done = False
-    for path, (cols, n_objs, n_props, *caps) in paths.items():
-        rows_of = (sharded_kernels if "sharded" in path else
-                   packed_kernels if path.endswith("packed") else
-                   eager_kernels if path.endswith("expand") else
-                   condensed_kernels if path.endswith("condensed") else path_kernels)
-        for name, kern, plain, args, out, library, tag in rows_of(
-                cols, n_objs, n_props, device, *caps):
-            m = {"P": len(cols["action"]),
+    host_steps_done = set()
+    for path, spec in paths.items():
+        for name, kern, plain, args, out, library, tag in kernel_rows(
+                path, spec, device):
+            m = {"P": len(spec[0]["action"]),
                  **measure(name, kern, plain, args, out, library, reps)}
             m["launches"] = by_path[path][name]
             where = f"{path} {tag}".strip()
-            if name == "expand_runs" and not host_steps_done:
-                host_steps_done = True
-                us = expand_host_steps(*args, library)
-                print(f"{where}: expand_runs host us by step {json.dumps(us)}",
+            if name in HOST_STEPS and name not in host_steps_done:
+                host_steps_done.add(name)
+                us = HOST_STEPS[name](args, library)
+                print(f"{where}: {name} host us by step {json.dumps(us)}",
                       flush=True)
             print(f"{where}: {name} equal to its plain version, "
                   f"{json.dumps(m)}", flush=True)

@@ -335,7 +335,7 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
     gpu = merge_columns(log.columns(), device=cuda, **kw)
     P = len(log.padded_columns()["action"])
     assert launch_counts() == {
-        "succ_vis": 3,  # fill, edges, visibility
+        "succ_vis": 2,  # row pass, edge pass
         "scatter_winners": 2,  # scatter, gather (one memset before)
         "sort_winners": 0,  # the text fan-in passes the scatter gate
         "forest": 2,  # links, finish (one memset before)
@@ -355,6 +355,70 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
     cpu = merge_columns(log.columns(), device="cpu", **kw)
     for k in ALL_OUTPUTS:
         np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+
+
+def _succ_vis_columns(P, Q, seed, device, offset):
+    """Synthetic succ_vis inputs on the card: every action, about a fifth
+    uncovered, a third of the puts counters, increments of any int32,
+    targets in [-1, P] and sources in [0, P], a hot row with 2,000
+    in-edges; each column a view at ``offset`` elements into a buffer of
+    its own (an odd offset: not 16-byte aligned, the scalar path)."""
+    rng = np.random.default_rng(seed)
+    cols = (
+        rng.choice([0, 1, 1, 1, 2, 3, 4, 5, 5, 7, 15], P).astype(np.int32),
+        np.where(rng.random(P) < 0.35, 8, 4).astype(np.int32),
+        rng.integers(-(1 << 31), 1 << 31, P, dtype=np.int64).astype(np.int32),
+        rng.random(P) < 0.8,
+        rng.integers(0, P + 1, Q).astype(np.int32),
+        np.where(np.arange(Q) < min(2000, Q // 4), 0,
+                 rng.integers(-1, P + 1, Q)).astype(np.int32),
+    )
+    out = []
+    for a in cols:
+        buf = torch.empty(len(a) + offset, dtype=torch.from_numpy(a).dtype,
+                          device=device)
+        buf[offset:] = torch.from_numpy(a).to(device)
+        out.append(buf[offset:])
+    return tuple(out)
+
+
+# (P, Q): one row, three, past a multiple of 4, the text fan-in's shape
+SUCC_VIS_SIZES = [(1, 3), (3, 0), (4097, 3000), (516_096, 81_920)]
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd-offset"])
+@pytest.mark.parametrize("size", SUCC_VIS_SIZES, ids=lambda s: f"P{s[0]}-Q{s[1]}")
+def test_succ_vis_equals_plain_version(cuda, size, offset):
+    """The row pass and the edge pass: equal to the plain version in two
+    launches (one without edges), on aligned columns (four rows a thread)
+    and on views at an odd offset (the scalar path)."""
+    P, Q = size
+    sv_in = _succ_vis_columns(P, Q, P, cuda, offset)
+    reset_launches()
+    got = SV.succ_vis(*sv_in)
+    assert launch_counts()["succ_vis"] == (2 if Q else 1)
+    _same(got, SV.succ_vis_plain(*sv_in))
+    vis_in = (sv_in[0], sv_in[1], sv_in[3], got[0], got[1])
+    _same(SV.visibility(*vis_in), SV.visibility_plain(*vis_in))
+
+
+def test_sharded_halves_equal_succ_vis_on_four_shards(cuda):
+    """succ_partial on each of four shards' edges (one launch after a
+    memset), mesh_reduce's sum, then visibility: succ_vis's results."""
+    from automerge_tpu_torch.kernels import collectives as CK
+
+    action, value_tag, value_i32, covered, pred_src, pred_tgt = _succ_vis_columns(
+        24_576, 8_192, 9, cuda, 0)
+    reset_launches()
+    accs = [SV.succ_partial(action, value_i32, covered, s.contiguous(),
+                            t.contiguous())
+            for s, t in zip(pred_src.chunk(4), pred_tgt.chunk(4))]
+    assert launch_counts()["succ_partial"] == 4
+    acc = CK.mesh_reduce(torch.stack([a.reshape(-1) for a in accs]), "sum")
+    acc = acc.reshape(3, -1)
+    visible = SV.visibility(action, value_tag, covered, acc[0], acc[1])
+    _same((acc[0], acc[1], acc[2], visible),
+          SV.succ_vis(action, value_tag, value_i32, covered, pred_src, pred_tgt))
 
 
 # (P, max prop id): a small P whose prop ids exceed it, as a subset

@@ -361,10 +361,12 @@ def test_smoke_bound_counts_only_the_bytes_the_function_reads(case):
              c["pred_src"], c["pred_tgt"])
     src = c["pred_src"].long()
     tgt = c["pred_tgt"].long()
-    inc = (tgt >= 0) & c["covered"][src] & (c["action"][src] == 5)
+    inc = (tgt >= 0) & (tgt < P) & c["covered"][src] & (c["action"][src] == 5)
     n_inc_src = len(set(src[inc].tolist()))
+    n_inc_tgt = len(set(tgt[inc].tolist()))
     moved, _ = chip_smoke.work("succ_vis", sv_in, SV.succ_vis(*sv_in))
-    assert moved == 8 * Q + 9 * P + 4 * n_inc_src + 13 * P
+    # value_i32 at the increments' sources, value_tag at their targets
+    assert moved == 8 * Q + 5 * P + 4 * (n_inc_src + n_inc_tgt) + 13 * P
 
     is_elem, _, first_child, next_sib = F.forest(
         c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
