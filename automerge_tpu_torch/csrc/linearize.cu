@@ -60,6 +60,23 @@
 // round's state (the reference's loop body is a pure function of it), so
 // the state lives in ping-pong buffers: an in-place `jump = jump[jump]`
 // would race.
+//
+// Where every shard sits on one card, the shards' slices tile the whole
+// state, so the sharded merge runs each loop through one rounds entry
+// (amt_linearize_thread_rounds, amt_linearize_rank_rounds): `rounds`
+// launches from C, each over all E nodes, swapping two ping-pong buffers
+// of the wrapper's one scratch allocation between them; no copy, no
+// allocation and no Python between rounds, and the inputs are never
+// written. Bound: bytes, a round's random load at the node each jumps to
+// (the gathers of the reference). Inside the loop the state is a record
+// a node, thread {ans, jump, done, 0} (int4) and rank {dist, nxt}
+// (int2), so that load is one 16- or 8-byte L2 sector and not three or
+// two scattered ones; the whole state (16E or 8E bytes, 8.3 MB at the
+// text fan-in's rows arm) stays in the 50 MB L2. The first round reads
+// the separate arrays and the last writes them (the layouts are template
+// arguments, so no pack or unpack launch); the records hold the raw
+// values, out-of-range links included, so the outputs are those of the
+// per-round loop bit for bit.
 #include "common.cuh"
 
 __global__ void li_init(const int* __restrict__ first_child,
@@ -137,6 +154,88 @@ __global__ void li_rank(const int* __restrict__ dist0,
   int j = amt_clamp(nxt0[i], E);
   dist1[k] = (int)((unsigned)dist0[i] + (unsigned)dist0[j]);
   nxt1[k] = nxt0[j];
+}
+
+// the rounds entries' state layouts: a node's thread state as {ans, jump,
+// done, 0} and its rank state as {dist, nxt}, read from and written to
+// separate arrays (the first and last rounds) or records (between)
+struct ThreadArrays {
+  const int* __restrict__ ans;
+  const bool* __restrict__ done;
+  const int* __restrict__ jump;
+  __device__ __forceinline__ int4 get(int i) const {
+    return make_int4(ans[i], jump[i], (int)done[i], 0);
+  }
+};
+struct ThreadArraysOut {
+  int* __restrict__ ans;
+  bool* __restrict__ done;
+  int* __restrict__ jump;
+  __device__ __forceinline__ void put(int i, int4 s) const {
+    ans[i] = s.x;
+    jump[i] = s.y;
+    done[i] = s.z != 0;
+  }
+};
+struct RankArrays {
+  const int* __restrict__ dist;
+  const int* __restrict__ nxt;
+  __device__ __forceinline__ int2 get(int i) const {
+    return make_int2(dist[i], nxt[i]);
+  }
+};
+struct RankArraysOut {
+  int* __restrict__ dist;
+  int* __restrict__ nxt;
+  __device__ __forceinline__ void put(int i, int2 s) const {
+    dist[i] = s.x;
+    nxt[i] = s.y;
+  }
+};
+template <class T>
+struct Records {
+  const T* __restrict__ rec;
+  __device__ __forceinline__ T get(int i) const { return rec[i]; }
+};
+template <class T>
+struct RecordsOut {
+  T* __restrict__ rec;
+  __device__ __forceinline__ void put(int i, T s) const { rec[i] = s; }
+};
+
+// one threading round over all E nodes (li_thread's arithmetic): a
+// node's own state, coalesced, and the state at j, one record
+template <class In, class Out>
+__global__ void li_thread_round(In in, Out out, int E) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= E) return;
+  int4 s = in.get(i);
+  int4 t = in.get(amt_clamp(s.y, E));
+  bool take = !s.z && t.z;
+  out.put(i, make_int4(take ? t.x : s.x, t.y, (s.z || take) ? 1 : 0, 0));
+}
+
+// one Wyllie round over all E nodes (li_rank's arithmetic)
+template <class In, class Out>
+__global__ void li_rank_round(In in, Out out, int E) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= E) return;
+  int2 s = in.get(i);
+  int2 t = in.get(amt_clamp(s.y, E));
+  out.put(i, make_int2((int)((unsigned)s.x + (unsigned)t.x), t.y));
+}
+
+// rounds >= 2 launches of `round` over E nodes: arrays -> records, then
+// records -> records in the ping-pong pair rec[0], rec[1], then records
+// -> arrays
+template <class Rec, class Arrays, class ArraysOut, class Launch>
+static void li_rounds(Arrays in, ArraysOut out, Rec* rec0, int E, int rounds,
+                      Launch launch) {
+  Rec* rec[2] = {rec0, rec0 + E};
+  launch(in, RecordsOut<Rec>{rec[0]});
+  for (int r = 1; r < rounds - 1; ++r)
+    launch(Records<Rec>{rec[(r - 1) & 1]}, RecordsOut<Rec>{rec[r & 1]});
+  launch(Records<Rec>{rec[(rounds - 2) & 1]}, out);
 }
 
 __global__ void li_final(const int* __restrict__ first_child,
@@ -660,6 +759,72 @@ AMT_API int amt_linearize_rank(const int* dist0, const int* nxt0, int E,
   li_rank<<<amt_blocks(count), AMT_THREADS, 0, stream>>>(dist0, nxt0, E, i0,
                                                          count, dist1, nxt1);
   AMT_LAUNCHED;
+  return (int)cudaGetLastError();
+}
+
+// the int32 words of scratch the rounds entries need for `rounds` rounds
+// of E records of `words` each: none for one round (array to array), one
+// buffer for two, the ping-pong pair past that
+static long long li_record_words(int words, int E, int rounds) {
+  return rounds < 2 ? 0 : (long long)words * E * (rounds == 2 ? 1 : 2);
+}
+
+// `rounds` threading rounds over all E nodes (E < 2^30): ans/jump int32
+// [E], done bool [E] in, never written; ans1/done1/jump1 out, as
+// `rounds` calls of amt_linearize_thread over [0, E) give them;
+// records: li_record_words(4, E, rounds) int32 words, 16-byte aligned
+AMT_API int amt_linearize_thread_rounds(const int* ans, const bool* done,
+                                        const int* jump, int E, int rounds,
+                                        int* records, long long record_words,
+                                        int* ans1, bool* done1, int* jump1,
+                                        cudaStream_t stream, int* launched) {
+  if (E < 0 || E >= (1 << 30) || rounds < 1) return (int)cudaErrorInvalidValue;
+  if (record_words < li_record_words(4, E, rounds))
+    return (int)cudaErrorInvalidValue;
+  if (E == 0) return (int)cudaGetLastError();
+  int blocks = amt_blocks(E);
+  if (rounds == 1) {  // the range kernel over [0, E)
+    li_thread<<<blocks, AMT_THREADS, 0, stream>>>(ans, done, jump, E, 0, E,
+                                                  ans1, done1, jump1);
+    AMT_LAUNCHED;
+    return (int)cudaGetLastError();
+  }
+  li_rounds<int4>(ThreadArrays{ans, done, jump},
+                  ThreadArraysOut{ans1, done1, jump1}, (int4*)records, E, rounds,
+                  [&](auto src, auto dst) {
+                    li_thread_round<decltype(src), decltype(dst)>
+                        <<<blocks, AMT_THREADS, 0, stream>>>(src, dst, E);
+                    AMT_LAUNCHED;
+                  });
+  return (int)cudaGetLastError();
+}
+
+// `rounds` Wyllie rounds over all E nodes (E < 2^30): dist/nxt int32 [E]
+// in, never written; dist1/nxt1 out; records: li_record_words(2, E,
+// rounds) int32 words, 8-byte aligned
+AMT_API int amt_linearize_rank_rounds(const int* dist, const int* nxt, int E,
+                                      int rounds, int* records,
+                                      long long record_words, int* dist1,
+                                      int* nxt1, cudaStream_t stream,
+                                      int* launched) {
+  if (E < 0 || E >= (1 << 30) || rounds < 1) return (int)cudaErrorInvalidValue;
+  if (record_words < li_record_words(2, E, rounds))
+    return (int)cudaErrorInvalidValue;
+  if (E == 0) return (int)cudaGetLastError();
+  int blocks = amt_blocks(E);
+  if (rounds == 1) {  // the range kernel over [0, E)
+    li_rank<<<blocks, AMT_THREADS, 0, stream>>>(dist, nxt, E, 0, E, dist1,
+                                                nxt1);
+    AMT_LAUNCHED;
+    return (int)cudaGetLastError();
+  }
+  li_rounds<int2>(RankArrays{dist, nxt}, RankArraysOut{dist1, nxt1},
+                  (int2*)records, E, rounds,
+                  [&](auto src, auto dst) {
+                    li_rank_round<decltype(src), decltype(dst)>
+                        <<<blocks, AMT_THREADS, 0, stream>>>(src, dst, E);
+                    AMT_LAUNCHED;
+                  });
   return (int)cudaGetLastError();
 }
 

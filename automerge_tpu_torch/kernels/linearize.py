@@ -19,8 +19,12 @@ round by round: ``linearize_init`` (the threading state over Epad nodes,
 padded past the sentinel with fixed points), ``linearize_thread`` and
 ``linearize_rank`` (one round over a slice of the nodes, reading the
 full gathered state), ``linearize_rank_init`` and ``linearize_final``.
-Its condensed arm runs ``linearize_thread`` and ``linearize_rank`` over
-the chain tables.
+Its condensed arm runs the same loops over the chain tables. Where every
+shard of the mesh sits on one device, a loop is one call of
+``linearize_thread_rounds`` / ``linearize_rank_rounds``: all its rounds
+over all E nodes in one C call, ``rounds`` launches, the state carried in
+records ({ans, jump, done, 0}, {dist, nxt}) between them. Bound by bytes:
+a round's load of the state at the node each jumps to.
 """
 
 from __future__ import annotations
@@ -40,6 +44,10 @@ _ROUND_SIG = [_P] * 3 + [_I] * 3 + [_P] * 3 + [_P]
 _RANK_INIT_SIG = [_P] * 2 + [_I, _I] + [_P] * 2 + [_P]
 _RANK_SIG = [_P] * 2 + [_I] * 3 + [_P] * 2 + [_P]
 _FINAL_SIG = [_P] * 4 + [_I] * 3 + [_P] + [_P]
+_THREAD_ROUNDS_SIG = [_P] * 3 + [_I] * 2 + [_P, _build.LL_] + [_P] * 3 + [_P]
+_RANK_ROUNDS_SIG = [_P] * 2 + [_I] * 2 + [_P, _build.LL_] + [_P] * 2 + [_P]
+# the node range of the rounds entries (their C entries refuse more)
+MAX_ROUNDS_NODES = 1 << 30
 
 
 def ceil_log2(n: int) -> int:
@@ -397,25 +405,47 @@ def linearize_init(first_child, next_sib, is_elem, elem_ref, Epad: int):
 linearize_init.launches = 0
 
 
-def linearize_thread(ans, done, jump, i0: int, count: int):
+def _check_out(out, like, count: int, names) -> None:
+    """``out``: one contiguous tensor of [count] per state array, of its
+    type and on its device."""
+    if len(out) != len(like):
+        raise ValueError(f"out: expected {len(like)} tensors, got {len(out)}")
+    for o, t, name in zip(out, like, names):
+        expect(o, f"out {name}", t.dtype, (count,))
+        if o.device != t.device:
+            raise ValueError(f"out {name}: on {o.device}, the state on {t.device}")
+
+
+def _plain_into(out, got):
+    for o, g in zip(out, got):
+        o.copy_(g)
+    return tuple(out)
+
+
+def linearize_thread(ans, done, jump, i0: int, count: int, out=None):
     """One threading round over the nodes [i0, i0+count) of the E-node
     state (ans/jump int32 [E], done bool [E]): (ans, done, jump) of those
-    nodes, [count] each. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    nodes, [count] each, written into ``out`` when it is given (three
+    tensors of [count], e.g. views of a next-round buffer at i0). CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     E = ans.shape[0] if isinstance(ans, torch.Tensor) else -1
     expect(ans, "ans", torch.int32, (E,))
     expect(done, "done", torch.bool, (E,))
     expect(jump, "jump", torch.int32, (E,))
     _check_range(E, i0, count)
+    if out is not None:
+        _check_out(out, (ans, done, jump), count, ("ans", "done", "jump"))
     if not on_cuda(ans=ans, done=done, jump=jump):
-        return linearize_thread_plain(ans, done, jump, i0, count)
-    dev = ans.device
-    out = torch.empty(2, count, dtype=torch.int32, device=dev)
-    done1 = torch.empty(count, dtype=torch.bool, device=dev)
+        got = linearize_thread_plain(ans, done, jump, i0, count)
+        return got if out is None else _plain_into(out, got)
+    if out is None:
+        ints = torch.empty(2, count, dtype=torch.int32, device=ans.device)
+        out = (ints[0], torch.empty(count, dtype=torch.bool, device=ans.device),
+               ints[1])
     linearize_thread.launches += _build.launch(
         "amt_linearize_thread", _ROUND_SIG, ptr(ans), ptr(done), ptr(jump), E,
-        i0, count, ptr(out[0]), ptr(done1), ptr(out[1]), stream(ans))
-    return out[0], done1, out[1]
+        i0, count, ptr(out[0]), ptr(out[1]), ptr(out[2]), stream(ans))
+    return tuple(out)
 
 
 linearize_thread.launches = 0
@@ -442,21 +472,111 @@ def linearize_rank_init(fc_e, ans, P: int):
 linearize_rank_init.launches = 0
 
 
-def linearize_rank(dist, nxt, i0: int, count: int):
+def linearize_rank(dist, nxt, i0: int, count: int, out=None):
     """One Wyllie round over the nodes [i0, i0+count) of the E-node state
-    (dist/nxt int32 [E]): (dist, nxt) of those nodes, [count] each. CPU
+    (dist/nxt int32 [E]): (dist, nxt) of those nodes, [count] each,
+    written into ``out`` when it is given (two tensors of [count]). CPU
     tensors take the plain version; CUDA tensors launch the kernel."""
     E = dist.shape[0] if isinstance(dist, torch.Tensor) else -1
     expect(dist, "dist", torch.int32, (E,))
     expect(nxt, "nxt", torch.int32, (E,))
     _check_range(E, i0, count)
+    if out is not None:
+        _check_out(out, (dist, nxt), count, ("dist", "nxt"))
     if not on_cuda(dist=dist, nxt=nxt):
-        return linearize_rank_plain(dist, nxt, i0, count)
-    out = torch.empty(2, count, dtype=torch.int32, device=dist.device)
+        got = linearize_rank_plain(dist, nxt, i0, count)
+        return got if out is None else _plain_into(out, got)
+    if out is None:
+        out = tuple(torch.empty(2, count, dtype=torch.int32, device=dist.device))
     linearize_rank.launches += _build.launch(
         "amt_linearize_rank", _RANK_SIG, ptr(dist), ptr(nxt), E, i0, count,
         ptr(out[0]), ptr(out[1]), stream(dist))
+    return tuple(out)
+
+
+def _check_rounds(E: int, rounds: int) -> None:
+    if rounds < 1:
+        raise ValueError(f"rounds must be at least 1, not {rounds}")
+    if E >= MAX_ROUNDS_NODES:
+        raise ValueError(f"{E} nodes exceed the rounds entries' node range "
+                         f"(< {MAX_ROUNDS_NODES})")
+
+
+def record_words(words: int, E: int, rounds: int) -> int:
+    """int32 words of a rounds entry's scratch (``li_record_words``): E
+    records of ``words`` each, none for one round, one buffer for two,
+    the ping-pong pair past that."""
+    return 0 if rounds < 2 else words * E * (1 if rounds == 2 else 2)
+
+
+def linearize_thread_rounds_plain(ans, done, jump, rounds: int):
+    """Plain PyTorch version: ``rounds`` threading rounds over all E
+    nodes, (ans, done, jump) after the last."""
+    E = ans.shape[0]
+    for _ in range(rounds):
+        ans, done, jump = linearize_thread_plain(ans, done, jump, 0, E)
+    return ans, done, jump
+
+
+def linearize_thread_rounds(ans, done, jump, rounds: int):
+    """``rounds`` threading rounds over all E nodes of the state
+    (ans/jump int32 [E], done bool [E], never written): (ans, done, jump)
+    after the last, [E] each, as ``rounds`` calls of ``linearize_thread``
+    over [0, E) give them. CPU tensors take the plain version; CUDA
+    tensors launch ``rounds`` kernels from one C call."""
+    E = ans.shape[0] if isinstance(ans, torch.Tensor) else -1
+    expect(ans, "ans", torch.int32, (E,))
+    expect(done, "done", torch.bool, (E,))
+    expect(jump, "jump", torch.int32, (E,))
+    _check_rounds(E, rounds)
+    if not on_cuda(ans=ans, done=done, jump=jump):
+        return linearize_thread_rounds_plain(ans, done, jump, rounds)
+    dev = ans.device
+    records = torch.empty(record_words(4, E, rounds), dtype=torch.int32, device=dev)
+    out = torch.empty(2, E, dtype=torch.int32, device=dev)
+    done1 = torch.empty(E, dtype=torch.bool, device=dev)
+    linearize_thread_rounds.launches += _build.launch(
+        "amt_linearize_thread_rounds", _THREAD_ROUNDS_SIG, ptr(ans), ptr(done),
+        ptr(jump), E, rounds, ptr(records), records.numel(), ptr(out[0]),
+        ptr(done1), ptr(out[1]), stream(ans))
+    return out[0], done1, out[1]
+
+
+linearize_thread_rounds.launches = 0
+
+
+def linearize_rank_rounds_plain(dist, nxt, rounds: int):
+    """Plain PyTorch version: ``rounds`` Wyllie rounds over all E nodes,
+    (dist, nxt) after the last."""
+    E = dist.shape[0]
+    for _ in range(rounds):
+        dist, nxt = linearize_rank_plain(dist, nxt, 0, E)
+    return dist, nxt
+
+
+def linearize_rank_rounds(dist, nxt, rounds: int):
+    """``rounds`` Wyllie rounds over all E nodes of the state (dist/nxt
+    int32 [E], never written): (dist, nxt) after the last, [E] each, as
+    ``rounds`` calls of ``linearize_rank`` over [0, E) give them. CPU
+    tensors take the plain version; CUDA tensors launch ``rounds``
+    kernels from one C call."""
+    E = dist.shape[0] if isinstance(dist, torch.Tensor) else -1
+    expect(dist, "dist", torch.int32, (E,))
+    expect(nxt, "nxt", torch.int32, (E,))
+    _check_rounds(E, rounds)
+    if not on_cuda(dist=dist, nxt=nxt):
+        return linearize_rank_rounds_plain(dist, nxt, rounds)
+    dev = dist.device
+    records = torch.empty(record_words(2, E, rounds), dtype=torch.int32, device=dev)
+    out = torch.empty(2, E, dtype=torch.int32, device=dev)
+    linearize_rank_rounds.launches += _build.launch(
+        "amt_linearize_rank_rounds", _RANK_ROUNDS_SIG, ptr(dist), ptr(nxt), E,
+        rounds, ptr(records), records.numel(), ptr(out[0]), ptr(out[1]),
+        stream(dist))
     return out[0], out[1]
+
+
+linearize_rank_rounds.launches = 0
 
 
 linearize_rank.launches = 0

@@ -22,9 +22,17 @@ collectives turn the first into the second:
   copied into one [n, L] stack on each distinct device and folded there
   by the ``mesh_reduce`` kernel (int32 sums wrap).
 
-``stats`` counts each collective's calls and the bytes it copied into
-its buffers, by kind; ``gathers`` lists every ``all_gather`` in call
-order as (per-shard length, bytes copied). ``reset_stats()`` zeroes both.
+A doubling loop of the sharded merge gathers its state every round
+without ``all_gather``'s allocation: ``all_gather_into`` copies in only
+the slices other devices wrote into their own full-size buffers, and on
+a mesh of one device, where a kernel writes the whole state, nothing is
+copied at all (``note_gather``).
+
+``stats`` counts each collective's calls, the bytes it delivered into
+the gathered or stacked buffers (``bytes``, the reference's volume,
+whoever wrote them) and the bytes ``copy_`` actually moved (``copied``),
+by kind; ``gathers`` lists every all_gather in call order as (per-shard
+length, bytes delivered). ``reset_stats()`` zeroes both.
 """
 
 from __future__ import annotations
@@ -44,16 +52,26 @@ gathers: List[Tuple[int, int]] = []
 
 def reset_stats() -> None:
     stats.clear()
-    stats.update({k: {"calls": 0, "bytes": 0} for k in KINDS})
+    stats.update({k: {"calls": 0, "bytes": 0, "copied": 0} for k in KINDS})
     gathers.clear()
 
 
 reset_stats()
 
 
-def _note(kind: str, nbytes: int) -> None:
+def _note(kind: str, nbytes: int, copied: int) -> None:
     stats[kind]["calls"] += 1
     stats[kind]["bytes"] += nbytes
+    stats[kind]["copied"] += copied
+
+
+def note_gather(mesh: "Mesh", length: int, itemsize: int, copied: int = 0) -> None:
+    """One tiled all_gather of ``length`` values of ``itemsize`` bytes a
+    shard, in the reference's terms: every distinct device receives all
+    ``size`` slices; ``copied`` of those bytes were moved by a copy."""
+    nbytes = len(mesh.distinct) * mesh.size * length * itemsize
+    gathers.append((length, nbytes))
+    _note("all_gather", nbytes, copied)
 
 
 def _normal(device) -> torch.device:
@@ -73,6 +91,15 @@ class Mesh:
         self.devices = devs
         self.size = len(devs)
         self.distinct = tuple(dict.fromkeys(devs))
+        # (device, first shard, shard count): the maximal runs of
+        # consecutive shards on one device, in shard order
+        runs = []
+        for i, d in enumerate(devs):
+            if runs and runs[-1][0] == d:
+                runs[-1][2] += 1
+            else:
+                runs.append([d, i, 1])
+        self.runs = tuple(map(tuple, runs))
 
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]})"
@@ -121,9 +148,25 @@ def all_gather(mesh: Mesh, parts: Sequence[torch.Tensor]):
             full[i * L:(i + 1) * L].copy_(p)
         out[d] = full
     nbytes = len(mesh.distinct) * mesh.size * L * parts[0].element_size()
-    gathers.append((L, nbytes))
-    _note("all_gather", nbytes)
+    note_gather(mesh, L, parts[0].element_size(), nbytes)
     return out
+
+
+def all_gather_into(mesh: Mesh, full: Dict[torch.device, torch.Tensor],
+                    length: int) -> None:
+    """A tiled all_gather in place: ``full`` holds one buffer of
+    ``size * length`` values per distinct device, in which each device
+    has written the slices of its own shards; each buffer gets the other
+    devices' slices copied in, and its own are not copied."""
+    copied = 0
+    for d, buf in full.items():
+        for src, first, count in mesh.runs:
+            if src != d:
+                sl = slice(first * length, (first + count) * length)
+                buf[sl].copy_(full[src][sl])
+                copied += count * length * buf.element_size()
+    itemsize = next(iter(full.values())).element_size()
+    note_gather(mesh, length, itemsize, copied)
 
 
 def _reduce(kind: str, op: str, mesh: Mesh, parts: Sequence[torch.Tensor]):
@@ -135,7 +178,8 @@ def _reduce(kind: str, op: str, mesh: Mesh, parts: Sequence[torch.Tensor]):
         for i, p in enumerate(parts):
             stack[i].copy_(p.reshape(L))
         out[d] = mesh_reduce(stack, op).reshape(shape)
-    _note(kind, len(mesh.distinct) * mesh.size * L * 4)
+    nbytes = len(mesh.distinct) * mesh.size * L * 4
+    _note(kind, nbytes, nbytes)
     return out
 
 

@@ -25,7 +25,11 @@ each distinct device, and the phases run as follows.
    one ``all_gather`` of O(P) values ends it. ``linearize="rows"`` runs
    the reference's other arm instead (its arm without the native
    library): the same loops over the E = P + 1 element nodes, padded to
-   n (P/n + 1), so each round gathers O(P).
+   n (P/n + 1), so each round gathers O(P). Where every shard sits on one
+   device (``Mesh(["cuda:0"] * 4)``, a CPU mesh), the shards' slices tile
+   the state and a loop is one call of its rounds entry (``rounds``
+   launches, no copy); over distinct devices each device advances its
+   shards' slices in its own buffers and only the others' are copied in.
 
 Replicated phases run once per distinct device of the mesh (their values
 are the same on every shard); row-sliced phases launch once per shard,
@@ -102,16 +106,47 @@ def _sharded_winners(mesh, cols, out, Pl, n_objs2, n_props):
                       obj_vis_len=stats[d][0], obj_text_width=stats[d][1])
 
 
-def _doubling(mesh, step, state, length: int, rounds: int):
-    """``rounds`` rounds of ``step`` (a range kernel of ``linearize``):
-    each shard advances its slice of ``length`` nodes of the replicated
-    state, and an all_gather per array re-replicates it."""
+# the doubling loops: (range kernel, rounds entry) of ``linearize``
+THREAD = (L.linearize_thread, L.linearize_thread_rounds)
+RANK = (L.linearize_rank, L.linearize_rank_rounds)
+
+
+def _doubling(mesh, loop, state, length: int, rounds: int):
+    """``rounds`` rounds of ``loop`` (``THREAD`` or ``RANK``): each round
+    every shard advances its slice of ``length`` nodes of the replicated
+    state, and an all_gather per array re-replicates it. Where every
+    shard sits on one device the slices tile the state: the loop's
+    rounds entry runs it whole in one call, and the gathers move
+    nothing; over distinct devices, ``_exchange``."""
+    if len(mesh.distinct) > 1:
+        return _exchange(mesh, loop[0], state, length, rounds)
+    (d,) = mesh.distinct
+    arrays = tuple(s[d] for s in state)
+    out = loop[1](*arrays, rounds)
     for _ in range(rounds):
-        parts = C.per_shard(mesh, lambda i, d: step(
-            *(s[d] for s in state), i * length, length))
-        state = tuple(C.all_gather(mesh, [p[k] for p in parts])
-                      for k in range(len(state)))
-    return state
+        for a in arrays:
+            C.note_gather(mesh, length, a.element_size())
+    return tuple({d: o} for o in out)
+
+
+def _exchange(mesh, step, state, length: int, rounds: int):
+    """``rounds`` rounds of the range kernel ``step`` over the mesh's
+    devices: two full-size buffers per array on each device, allocated
+    once; each round every run of consecutive shards on one device is one
+    launch writing into that device's next buffer at its offset, and
+    ``all_gather_into`` copies in the other devices' slices."""
+    bufs = [{d: tuple(torch.empty_like(s[d]) for s in state) for d in mesh.distinct}
+            for _ in range(min(rounds, 2))]
+    cur = {d: tuple(s[d] for s in state) for d in mesh.distinct}
+    for r in range(rounds):
+        nxt = bufs[r % 2]
+        for d, first, count in mesh.runs:
+            i0, n = first * length, count * length
+            step(*cur[d], i0, n, out=tuple(b[i0:i0 + n] for b in nxt[d]))
+        for k in range(len(state)):
+            C.all_gather_into(mesh, {d: nxt[d][k] for d in mesh.distinct}, length)
+        cur = nxt
+    return tuple({d: cur[d][k] for d in mesh.distinct} for k in range(len(state)))
 
 
 def _sharded_linearize(mesh, cols, out, Pl):
@@ -125,10 +160,10 @@ def _sharded_linearize(mesh, cols, out, Pl):
                                 out[d]["is_elem"], cols[d]["elem_ref"],
                                 mesh.size * El) for d in mesh.distinct}
     state = tuple({d: init[d][k] for d in mesh.distinct} for k in range(3))
-    ans, _, _ = _doubling(mesh, L.linearize_thread, state, El, rounds)
+    ans, _, _ = _doubling(mesh, THREAD, state, El, rounds)
     rank = {d: L.linearize_rank_init(init[d][3], ans[d], P) for d in mesh.distinct}
     state = tuple({d: rank[d][k] for d in mesh.distinct} for k in range(2))
-    dist, _ = _doubling(mesh, L.linearize_rank, state, El, rounds)
+    dist, _ = _doubling(mesh, RANK, state, El, rounds)
     return {d: L.linearize_final(out[d]["first_child"], out[d]["is_elem"],
                                  cols[d]["obj_dense"], dist[d], 0, P)
             for d in mesh.distinct}
@@ -143,11 +178,11 @@ def _sharded_linearize_condensed(mesh, cols, cond, Pl, Rl):
     rounds = L.ceil_log2(R2) + 1
     init = {d: cond_init(cond[d]["centry"], cond[d]["cpar"]) for d in mesh.distinct}
     state = tuple({d: init[d][k] for d in mesh.distinct} for k in range(3))
-    ans, _, _ = _doubling(mesh, L.linearize_thread, state, Rl, rounds)
+    ans, _, _ = _doubling(mesh, THREAD, state, Rl, rounds)
     succ = {d: cond_succ(cond[d]["tail_ans"], ans[d], cond[d]["chain_id"],
                          cond[d]["clen"]) for d in mesh.distinct}
     state = tuple({d: succ[d][k] for d in mesh.distinct} for k in range(2))
-    cdist, _ = _doubling(mesh, L.linearize_rank, state, Rl, rounds)
+    cdist, _ = _doubling(mesh, RANK, state, Rl, rounds)
     ranks = C.per_shard(mesh, lambda i, d: cond_expand(
         cond[d]["chain_id"], cond[d]["offset"], cols[d]["obj_dense"],
         cols[d]["insert"], cols[d]["action"], cond[d]["start_chain"], cdist[d],

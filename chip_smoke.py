@@ -66,7 +66,16 @@ Phases, each raising on failure (nothing is caught):
        rows" (the row arm), "typing sharded" and "typing sharded rows"
        (the all_gather bytes per doubling round of both arms and their
        ratio), "records sharded" (the sort-based winners, R = 0) and
-       "records sharded packed"; then "text mesh doc": (a)'s log less its
+       "records sharded packed"; on the one card each doubling loop is
+       one call of its rounds entry, held to exactly ``rounds`` launches
+       (the range kernels to none), the loops timed in that merge
+       between synchronisations ("<path> doubling": the two loops'
+       wall, the all_gather bytes delivered and those copied); then
+       "text sharded exchange": the row arm's two loops
+       through the distinct-card exchange (``sharding._exchange``, a
+       range launch per run of shards a round, ``rounds`` each here)
+       driven on the one card, equal to the rounds entries; then "text
+       mesh doc": (a)'s log less its
        last replica change as two DeviceDocs, one with enable_mesh on the
        card, both applying that change (its full re-resolve: over the
        mesh in one), equal on READ_FETCH and the text; "text sharded 4
@@ -92,7 +101,9 @@ Phases, each raising on failure (nothing is caught):
     shard's shapes of "text sharded", "text sharded rows" and "records
     sharded" (mesh_reduce at the psum of the counts and the pmax of the
     winners, its library time torch.stack(...).sum(0) / .amax(0); the
-    doubling kernels at one round of one shard's slice); sort_winners also on synthetic
+    range kernels at one round of one shard's slice, the rounds entries
+    at the whole loop over all nodes, timed on the device too, with a
+    round's share of their time and bound); sort_winners also on synthetic
     columns with P > 2^20; the whole merge on the card
     against the plain CPU path on all 13 outputs for that served subset
     and for a small fan-in; expand_runs at every stack and linearize,
@@ -118,6 +129,7 @@ Phases, each raising on failure (nothing is caught):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -323,6 +335,22 @@ def sharded_work(name: str, args, out, distinct):
         # the slice's state, and the state at the distinct nodes it jumps to
         read = per_node * (count + distinct(j))
         return read + nbytes(*out), (4 if len(state) == 3 else 3) * count
+    if name in ("linearize_thread_rounds", "linearize_rank_rounds"):
+        # the whole loop: each round a full round over all E nodes of the
+        # state it reads, run here by the plain version; the links run
+        # into chain ends, so a later round gathers at fewer distinct nodes
+        from automerge_tpu_torch.kernels import linearize as L
+
+        *state, rounds = args
+        step = name[:-len("_rounds")]
+        plain = getattr(L, f"{step}_plain")
+        E = state[0].numel()
+        moved = ops = 0
+        for _ in range(rounds):
+            nxt = plain(*state, 0, E)
+            m, o = sharded_work(step, (*state, 0, E), nxt, distinct)
+            moved, ops, state = moved + m, ops + o, nxt
+        return moved, ops
     if name == "linearize_rank_init":
         fc_e, ans, _P = args
         return nbytes(fc_e, ans, *out), 3 * ans.numel()
@@ -503,10 +531,12 @@ NOT_CONDENSED = ("linearize", "scatter_winners", "expand_runs") + TRANSPORT_ONLY
 # arm, and the single-device kernels it must not launch
 MESH_SHARDS = 4
 SHARDED_ALL = ("succ_partial", "visibility", "mesh_reduce", "forest", "radix_sort")
-SHARDED_CONDENSED = ("cond_init", "linearize_thread", "cond_succ", "linearize_rank",
-                     "cond_expand")
-SHARDED_ROWS = ("linearize_init", "linearize_thread", "linearize_rank_init",
-                "linearize_rank", "linearize_final")
+SHARDED_CONDENSED = ("cond_init", "cond_succ", "cond_expand")
+SHARDED_ROWS = ("linearize_init", "linearize_rank_init", "linearize_final")
+# the doubling loops: on a mesh of one card one rounds entry a loop, over
+# distinct cards a range launch a run of shards a round
+ONE_CARD_LOOPS = ("linearize_thread_rounds", "linearize_rank_rounds")
+CARDS_LOOPS = ("linearize_thread", "linearize_rank")
 SHARDED_SCATTER = ("winners_partial", "winners_gather")
 NOT_SHARDED = ("succ_vis", "scatter_winners", "linearize", "linearize_condensed",
                "emit_packed")
@@ -906,11 +936,14 @@ def sharded_path(name, card, cols, n_objs: int, n_props: int, mesh, single,
     after: its kernels must run (the row-range winners where the sharded
     gate passes, the sort-based ones where it fails; the ``linearize``
     arm's loops) and no single-device merge kernel; all 13 outputs equal
-    ``single`` = (outputs, seconds) of ``single_merge``. Returns (launch
-    counts, the all_gathers as (per-shard length, bytes), R2)."""
+    ``single`` = (outputs, seconds) of ``single_merge``; its two doubling
+    loops timed in it (``timed_doubling``, whose synchronisations its wall
+    includes). Returns (launch counts, the all_gathers as (per-shard
+    length, bytes), R2)."""
     import numpy as np
 
     from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.kernels import linearize as L
     from automerge_tpu_torch.ops.merge import ALL_OUTPUTS
     from automerge_tpu_torch.parallel import collectives as C
     from automerge_tpu_torch.parallel import sharding as PS
@@ -934,8 +967,9 @@ def sharded_path(name, card, cols, n_objs: int, n_props: int, mesh, single,
     C.reset_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    out = PS.sharded_merge_columns(cols, mesh, n_objs=n_objs, n_props=n_props,
-                                   transport=transport, linearize=linearize)
+    with timed_doubling(mesh) as walls:
+        out = PS.sharded_merge_columns(cols, mesh, n_objs=n_objs, n_props=n_props,
+                                       transport=transport, linearize=linearize)
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
     stats, gathers = json.loads(json.dumps(C.stats)), list(C.gathers)
@@ -947,18 +981,119 @@ def sharded_path(name, card, cols, n_objs: int, n_props: int, mesh, single,
     print(f"{name} launches {json.dumps(counts)}", flush=True)
     arm = SHARDED_CONDENSED if linearize == "condensed" else SHARDED_ROWS
     other = tuple(k for k in SHARDED_CONDENSED + SHARDED_ROWS if k not in arm)
+    one_card = len(mesh.distinct) == 1
+    loops, idle = ((ONE_CARD_LOOPS, CARDS_LOOPS) if one_card
+                   else (CARDS_LOOPS, ONE_CARD_LOOPS))
     winners = SHARDED_SCATTER if scatter else ("sort_winners",)
     not_winners = ("sort_winners",) if scatter else SHARDED_SCATTER
     decode = ("expand_runs", "unpack_flags")
     check_launches(name, counts,
-                   SHARDED_ALL + arm + winners + (decode if transport == "packed" else ()),
-                   NOT_SHARDED + other + not_winners
+                   SHARDED_ALL + arm + loops + winners
+                   + (decode if transport == "packed" else ()),
+                   NOT_SHARDED + other + idle + not_winners
                    + (decode if transport == "dict" else ()))
+    rounds = L.ceil_log2(R2) + 1 if linearize == "condensed" else L.rounds(P)
+    for loop in loops:
+        # one call of `rounds` launches, or a launch a run a round
+        check_call_launches(f"{name} {loop}", counts[loop],
+                            rounds * (1 if one_card else len(mesh.runs)))
     for k in ALL_OUTPUTS:
         if out[k].shape != want[k].shape or not np.array_equal(out[k], want[k]):
             raise AssertionError(f"{name}: {k} differs from the single-device merge's")
     print(f"{name}: all 13 outputs equal to the single-device merge's", flush=True)
+    (t_thread, b_thread, c_thread), (t_rank, b_rank, c_rank) = walls
+    print(f"{name} doubling: {rounds} rounds a loop; wall (host-synchronised) "
+          f"thread {t_thread:.6f} s, rank {t_rank:.6f} s, both "
+          f"{t_thread + t_rank:.6f} s on {card}; all_gather bytes delivered "
+          f"{b_thread + b_rank}, copied {c_thread + c_rank}", flush=True)
     return counts, gathers, R2
+
+
+@contextlib.contextmanager
+def timed_doubling(mesh):
+    """Within it, each doubling loop of the sharded merge (``sharding.
+    _doubling``) is timed on the host between two synchronisations of the
+    mesh's cards (its host driving and its kernels): yields the list of
+    (seconds, all_gather bytes it delivered in the reference's terms,
+    bytes ``copy_`` moved), one a loop."""
+    from automerge_tpu_torch.parallel import collectives as C
+    from automerge_tpu_torch.parallel import sharding as PS
+
+    loops = []
+    doubling = PS._doubling
+
+    def timed(*args):
+        for d in mesh.distinct:
+            torch.cuda.synchronize(d)
+        before = dict(C.stats["all_gather"])
+        t0 = time.perf_counter()
+        out = doubling(*args)
+        for d in mesh.distinct:
+            torch.cuda.synchronize(d)
+        after = C.stats["all_gather"]
+        loops.append((time.perf_counter() - t0, after["bytes"] - before["bytes"],
+                      after["copied"] - before["copied"]))
+        return out
+
+    PS._doubling = timed
+    try:
+        yield loops
+    finally:
+        PS._doubling = doubling
+
+
+def exchange_path(card, device, log) -> dict:
+    """(f) The distinct-card exchange of the doubling loops
+    (``sharding._exchange``: each round a range launch per run of shards
+    written into its card's own buffers, the other cards' slices copied
+    in) driven on the one card over the text fan-in's row arm, where the
+    mesh is one run: the launch counts set to 0 just before both loops
+    and read just after, the range kernels ``rounds`` launches each and
+    the rounds entries none, both loops equal to the rounds entries'."""
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.kernels import forest as F
+    from automerge_tpu_torch.kernels import linearize as L
+    from automerge_tpu_torch.parallel import collectives as C
+    from automerge_tpu_torch.parallel import default_mesh
+    from automerge_tpu_torch.parallel import sharding as PS
+
+    name = "text sharded exchange"
+    mesh = default_mesh(devices=[device] * MESH_SHARDS)
+    cols = log.padded_columns()
+    c = columns_from_numpy({k: cols[k] for k in PS.COLUMN_SPECS}, device)
+    P = c["action"].numel()
+    El = P // MESH_SHARDS + 1
+    rounds = L.rounds(P)
+    fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
+    st = L.linearize_init(fo[2], fo[3], fo[0], c["elem_ref"], MESH_SHARDS * El)
+    (d,) = mesh.distinct
+    torch.cuda.synchronize(device)
+    C.reset_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    thread = PS._exchange(mesh, L.linearize_thread, tuple({d: t} for t in st[:3]),
+                          El, rounds)
+    rk = L.linearize_rank_init(st[3], thread[0][d], P)
+    rank = PS._exchange(mesh, L.linearize_rank, tuple({d: t} for t in rk), El,
+                        rounds)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(f"{name}: the row arm's two loops through the distinct-card exchange "
+          f"on {MESH_SHARDS} shards of one card, {rounds} rounds each, Epad "
+          f"{MESH_SHARDS * El}: {seconds:.6f} s wall (host-synchronised, the "
+          f"rank init between) on {card}; collectives {json.dumps(C.stats)}; "
+          f"launches {json.dumps(counts)}", flush=True)
+    check_launches(name, counts, CARDS_LOOPS, ONE_CARD_LOOPS)
+    for loop in CARDS_LOOPS:
+        check_call_launches(f"{name} {loop}", counts[loop], rounds)
+    for got, want in ((thread, L.linearize_thread_rounds(*st[:3], rounds)),
+                      (rank, L.linearize_rank_rounds(*rk, rounds))):
+        if not all(torch.equal(g[d], w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name}: differs from the rounds entries")
+    print(f"{name}: both loops equal to the rounds entries'", flush=True)
+    return {name: counts}
 
 
 def doubling_bytes(gathers, length: int, rounds: int) -> float:
@@ -1001,11 +1136,12 @@ def mesh_doc_path(card, device, log, text_obj):
               f"{json.dumps(counts[mode])}", flush=True)
         docs[mode] = doc
     check_launches("text mesh doc", counts["mesh"],
-                   SHARDED_ALL + SHARDED_CONDENSED + SHARDED_SCATTER,
-                   NOT_SHARDED + ("sort_winners",))
+                   SHARDED_ALL + SHARDED_CONDENSED + ONE_CARD_LOOPS + SHARDED_SCATTER,
+                   NOT_SHARDED + CARDS_LOOPS + ("sort_winners",))
     check_launches("text mesh doc single", counts["single"],
                    RUN_NATIVE + ("scatter_winners",),
-                   SHARDED_ALL[:3] + SHARDED_CONDENSED + SHARDED_SCATTER)
+                   SHARDED_ALL[:3] + SHARDED_CONDENSED + ONE_CARD_LOOPS
+                   + CARDS_LOOPS + SHARDED_SCATTER)
     mesh, single = docs["mesh"], docs["single"]
     n = mesh.log.n
     for k in DeviceDoc.READ_FETCH:
@@ -1056,6 +1192,7 @@ def sharded_paths(card, device, text, typing_log, record_log):
             print(f"typing sharded: all_gather bytes per doubling round, condensed "
                   f"arm {per_round['condensed']:.1f}, row arm {per_round['rows']:.1f}, "
                   f"ratio {per_round['rows'] / per_round['condensed']:.2f}", flush=True)
+    counts.update(exchange_path(card, device, text_log))
     counts.update(mesh_doc_path(card, device, text_log, text_obj))
     n_cards = torch.cuda.device_count()
     if n_cards >= MESH_SHARDS:
@@ -1412,14 +1549,26 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
                      wg_in, SW.winners_gather(*wg_in), None, "shard 0"))
     fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
 
-    def doubling(step, plain, state, length, rounds, tag):
-        """A round at shard 1's slice measured, then the loop over all
-        nodes to its end."""
+    def doubling(loop, state, length, rounds, tag):
+        """A round of the range kernel at shard 1's slice, then the whole
+        loop over all nodes by its rounds entry (``rounds`` launches), as
+        a mesh of one card runs it."""
+        (step, plain), (whole, whole_plain) = loop
         args = (*state, length, length)
-        rows.append((step.__name__, step, plain, args, step(*args), None, tag))
-        for _ in range(rounds):
-            state = step(*state, 0, state[0].numel())
-        return state
+        rows.append((step.__name__, step, plain, args, step(*args), None,
+                     f"{tag} shard 1"))
+        args = (*state, rounds)
+        before = whole.launches
+        out = whole(*args)
+        check_call_launches(whole.__name__, whole.launches - before, rounds)
+        rows.append((whole.__name__, whole, whole_plain, args, out, None,
+                     f"{tag}, {rounds} rounds"))
+        return out
+
+    thread = ((L.linearize_thread, L.linearize_thread_plain),
+              (L.linearize_thread_rounds, L.linearize_thread_rounds_plain))
+    rank = ((L.linearize_rank, L.linearize_rank_plain),
+            (L.linearize_rank_rounds, L.linearize_rank_rounds_plain))
 
     if linearize == "rows":
         El = Pl + 1
@@ -1427,14 +1576,12 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
         st = L.linearize_init(*li_in)
         rows.append(("linearize_init", L.linearize_init, L.linearize_init_plain,
                      li_in, st, None, f"Epad={n * El}"))
-        ans = doubling(L.linearize_thread, L.linearize_thread_plain, st[:3], El,
-                       L.rounds(P), f"El={El} shard 1")[0]
+        ans = doubling(thread, st[:3], El, L.rounds(P), f"El={El}")[0]
         rk_in = (st[3], ans, P)
         rk = L.linearize_rank_init(*rk_in)
         rows.append(("linearize_rank_init", L.linearize_rank_init,
                      L.linearize_rank_init_plain, rk_in, rk, None, ""))
-        dist = doubling(L.linearize_rank, L.linearize_rank_plain, rk, El,
-                        L.rounds(P), f"El={El} shard 1")[0]
+        dist = doubling(rank, rk, El, L.rounds(P), f"El={El}")[0]
         fi_in = (fo[2], fo[0], c["obj_dense"], dist, 0, P)
         rows.append(("linearize_final", L.linearize_final, L.linearize_final_plain,
                      fi_in, (L.linearize_final(*fi_in),), None, ""))
@@ -1447,14 +1594,12 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
     rows.append(("cond_init", SH.cond_init, SH.cond_init_plain, ci_in, ci, None,
                  f"R2={R2}"))
     rounds = L.ceil_log2(R2) + 1
-    ans = doubling(L.linearize_thread, L.linearize_thread_plain, ci, Rl, rounds,
-                   f"R2={R2} shard 1")[0]
+    ans = doubling(thread, ci, Rl, rounds, f"R2={R2}")[0]
     cs_in = (cond["tail_ans"], ans, cond["chain_id"], cond["clen"])
     cs = SH.cond_succ(*cs_in)
     rows.append(("cond_succ", SH.cond_succ, SH.cond_succ_plain, cs_in, cs, None,
                  f"R2={R2}"))
-    cdist = doubling(L.linearize_rank, L.linearize_rank_plain, cs, Rl, rounds,
-                     f"R2={R2} shard 1")[0]
+    cdist = doubling(rank, cs, Rl, rounds, f"R2={R2}")[0]
     ce_in = (cond["chain_id"], cond["offset"], c["obj_dense"], c["insert"],
              c["action"], cond["start_chain"], cdist, 0, Pl)
     rows.append(("cond_expand", SH.cond_expand, SH.cond_expand_plain, ce_in,
@@ -1486,6 +1631,10 @@ REPLACES = {
                             "linearize.cu"),
     "linearize_rank": ("automerge_tpu/parallel/sharding.py:238", "linearize.cu"),
     "linearize_final": ("automerge_tpu/parallel/sharding.py:247", "linearize.cu"),
+    "linearize_thread_rounds": ("automerge_tpu/parallel/sharding.py:218",
+                                "linearize.cu"),
+    "linearize_rank_rounds": ("automerge_tpu/parallel/sharding.py:238",
+                              "linearize.cu"),
     "cond_init": ("automerge_tpu/parallel/sharding.py:283", "sharded.cu"),
     "cond_succ": ("automerge_tpu/parallel/sharding.py:300", "sharded.cu"),
     "cond_expand": ("automerge_tpu/parallel/sharding.py:320", "sharded.cu"),
@@ -1495,7 +1644,8 @@ REPLACES = {
 
 # the kernels timed on the device as well (torch.profiler)
 DEVICE_TIMED = ("expand_runs", "linearize", "scatter_winners", "forest",
-                "radix_sort", "succ_vis", "succ_partial", "visibility")
+                "radix_sort", "succ_vis", "succ_partial", "visibility",
+                "linearize_thread_rounds", "linearize_rank_rounds")
 
 
 def bound(name: str, args, out) -> tuple:
@@ -1528,6 +1678,12 @@ def measure(name, kern, plain, args, out, library, reps: int) -> dict:
         m["device_ms"], m["device_kernels"] = device_ms(lambda: kern(*args), reps)
         if library:
             m["library_device_ms"] = device_ms(library, reps)[0]
+    if name.endswith("_rounds"):  # a whole doubling loop: also a round's mean
+        rounds = args[-1]
+        m["rounds"] = rounds
+        m["bound_ms_a_round"] = bound_ms / rounds
+        m["device_ms_a_round"] = (m["device_ms"] / rounds
+                                  if m["device_ms"] is not None else None)
     return m
 
 

@@ -4,6 +4,7 @@ with ``--ab``, against another checkout's in the same process.
 
     python3 scripts/profile_kernels_torch.py --kernels NAME[,NAME...]
         [--paths PATH[,PATH...]] [--cols FILE.npz] [--ab DIR] [--label NAME]
+        [--mesh card|cards]
 
 The kernels and their arguments are those of ``chip_smoke.kernel_rows``:
 each path's kernels run on its padded columns as its merge runs them,
@@ -14,9 +15,16 @@ named as there (``succ_vis``, ``forest``, ``radix_sort``,
 subset (the last batch of 16 replica changes applied to the rest, its
 dirty objects' rows). A fan-in's name followed by `` expand``,
 `` packed``, `` sharded`` or `` sharded rows`` takes that staging,
-transport or sharded arm. ``--cols`` keeps the four paths' padded
-columns in one file: built and written when it is missing, read when it
-is there, so that several runs share their inputs and skip the parse.
+transport or sharded arm. ``--cols`` keeps the paths' padded columns
+in one file: built and written when it is missing, read when it is
+there, so that several runs share their inputs and skip the parse; only
+the fan-ins the paths name are built.
+
+On a sharded path the kernel name ``sharded_merge`` is a row of the
+whole sharded merge, ``parallel.sharding.sharded_merge_columns`` over
+four shards on the card (``Mesh(["cuda:0"] * 4)``; with ``--mesh
+cards``, over four distinct cards) with that path's arm: its launches
+by kernel, its times, no bound.
 
 One JSON line a row: the launches of one call, the median CUDA-event ms
 of 20 single calls (host work included), the ``torch.profiler`` device
@@ -64,8 +72,9 @@ FANINS = ("text", "typing", "records")
 PATHS = FANINS + ("served",)
 
 
-def build_paths(device) -> dict:
-    """{path: (padded columns, n_objs, n_props)} of the four paths."""
+def build_paths(device, wanted=PATHS) -> dict:
+    """{path: (padded columns, n_objs, n_props)} of the paths in
+    ``wanted`` (of ``PATHS``)."""
     from automerge_tpu_torch import workload as W
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
     from automerge_tpu_torch.ops.oplog import OpLog, pad_columns
@@ -75,11 +84,19 @@ def build_paths(device) -> dict:
         log = OpLog.from_changes([parse_change(b)[0] for b in blobs])
         return log.padded_columns(), log.n_objs, len(log.props)
 
-    paths = {"text": spec(S.workload(S.BASE_EDITS, S.REPLICAS, S.PER_REPLICA)[0]),
-             "typing": spec(S.workload(S.BASE_EDITS, S.REPLICAS, S.PER_REPLICA,
-                                       W.typing_trace)[0])}
+    paths = {}
+    if "text" in wanted:
+        paths["text"] = spec(S.workload(S.BASE_EDITS, S.REPLICAS, S.PER_REPLICA)[0])
+    if "typing" in wanted:
+        paths["typing"] = spec(S.workload(S.BASE_EDITS, S.REPLICAS, S.PER_REPLICA,
+                                          W.typing_trace)[0])
+    if "records" not in wanted and "served" not in wanted:
+        return paths
     base, reps = S.record_workload()[:2]
-    paths["records"] = spec([base] + reps)
+    if "records" in wanted:
+        paths["records"] = spec([base] + reps)
+    if "served" not in wanted:
+        return paths
     # the served subset: the last batch applied to a document of the rest
     doc = DeviceDoc.merge([base] + reps[:-SERVED_BATCH], device=device)
     dirty_sets = []
@@ -162,7 +179,10 @@ def counterpart(alias: str, kern):
 
 
 def same(a, b) -> bool:
-    """Outputs equal exactly: tensors, sequences and dicts of them."""
+    """Outputs equal exactly: tensors, arrays, sequences and dicts of them."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and np.array_equal(a, b))
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
                 and a.dtype == b.dtype and torch.equal(a, b))
@@ -206,23 +226,48 @@ def ab_pairs(fn_a, fn_b, pairs: int) -> dict:
 
 
 def launches(kernels_mod, name: str, fn):
+    """The launches of one call of ``fn``: of the kernel ``name``, or, for
+    a row that is no kernel (``sharded_merge``), of every kernel that
+    launched, by name."""
     kernels_mod.reset_launches()
     fn()
-    return kernels_mod.launch_counts().get(name)
+    counts = kernels_mod.launch_counts()
+    if name in counts:
+        return counts[name]
+    return {k: v for k, v in counts.items() if v}
+
+
+def merge_rows(path: str, spec, device, mesh=None):
+    """The whole sharded merge on a sharded path's columns over ``mesh``
+    (default: ``MESH_SHARDS`` shards on ``device``), as a row of
+    ``chip_smoke.kernel_rows``' form (no plain version, no library)."""
+    from automerge_tpu_torch.parallel import default_mesh
+    from automerge_tpu_torch.parallel import sharding as PS
+
+    cols, n_objs, n_props, linearize = spec
+    mesh = mesh or default_mesh(devices=[device] * S.MESH_SHARDS)
+    args = (cols, mesh, n_objs, n_props, "dict", linearize)
+    out = PS.sharded_merge_columns(*args)
+    where = ("one card" if len(mesh.distinct) == 1
+             else f"{len(mesh.distinct)} devices")
+    return [("sharded_merge", PS.sharded_merge_columns, None, args, out, None,
+             f"{mesh.size} shards on {where}, {linearize} arm")]
 
 
 def ab_row(other_pkg, other, name: str, args, out, fn) -> dict:
     """This tree's kernel against ``other``, the other tree's, in this
     process (see the module's note)."""
     got = other(*args)
-    if not same(out, got if isinstance(got, tuple) else (got,)):
+    if not same(out, got if isinstance(got, (tuple, dict)) else (got,)):
         raise AssertionError(f"{name}: the other tree's outputs differ")
     ofn = lambda: other(*args)  # noqa: E731
     turns = [S.device_ms(f, REPS) for f in (ofn, fn, fn, ofn)]
+    host_reps = 200 if name in S.REPLACES else REPS
     return {"launches": launches(other_pkg.kernels, name, ofn),
             "device_ms_turns": [t[0] for t in turns],
             "device_kernels": turns[0][1],
-            "host_us_whole_call": S.host_us({"whole call": ofn}, 200)["whole call"],
+            "host_us_whole_call": S.host_us({"whole call": ofn},
+                                            host_reps)["whole call"],
             **ab_pairs(fn, ofn, AB_PAIRS)}
 
 
@@ -234,8 +279,12 @@ def main() -> int:
     ap.add_argument("--ab", default="", help="another checkout, timed against "
                     "this one in the same process")
     ap.add_argument("--label", default="")
+    ap.add_argument("--mesh", choices=("card", "cards"), default="card",
+                    help="the sharded_merge row's mesh: four shards on the "
+                    "card, or four distinct cards")
     a = ap.parse_args()
     from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.parallel import default_mesh
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels_torch: no CUDA device")
@@ -245,19 +294,22 @@ def main() -> int:
     if a.cols and os.path.exists(a.cols):
         paths = load_paths(a.cols)
     else:
-        paths = build_paths(device)
+        paths = build_paths(device, {p.split()[0] for p in a.paths.split(",")})
         if a.cols:
             save_paths(a.cols, paths)
     other_pkg = load_tree_as(AB_ALIAS, a.ab) if a.ab else None
+    mesh = default_mesh(S.MESH_SHARDS) if a.mesh == "cards" else None
     for path in a.paths.split(","):
         spec = path_spec(paths, path)
-        for name, kern, _plain, args, out, library, tag in S.kernel_rows(
-                path, spec, device):
+        rows = S.kernel_rows(path, spec, device)
+        if "sharded_merge" in wanted and "sharded" in path:
+            rows += merge_rows(path, spec, device, mesh)
+        for name, kern, _plain, args, out, library, tag in rows:
             if name not in wanted:
                 continue
             fn = lambda: kern(*args)  # noqa: E731
-            out = out if isinstance(out, tuple) else (out,)
-            ms, by = S.bound(name, args, out)
+            out = out if isinstance(out, (tuple, dict)) else (out,)
+            ms, by = S.bound(name, args, out) if name in S.REPLACES else (None, None)
             row = {"label": a.label, "path": path, "tag": tag, "fn": name,
                    "P": len(spec[0]["action"]),
                    "launches": launches(kernels, name, fn),

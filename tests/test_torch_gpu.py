@@ -350,6 +350,7 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
         "succ_partial": 0, "visibility": 0, "winners_partial": 0,
         "winners_gather": 0, "linearize_init": 0, "linearize_thread": 0,
         "linearize_rank_init": 0, "linearize_rank": 0, "linearize_final": 0,
+        "linearize_thread_rounds": 0, "linearize_rank_rounds": 0,
         "cond_init": 0, "cond_succ": 0, "cond_expand": 0, "mesh_reduce": 0,
     }
     cpu = merge_columns(log.columns(), device="cpu", **kw)
@@ -751,10 +752,12 @@ def test_condensed_merge_on_card_equals_cpu_and_counts_launches(cuda):
 
 
 SHARDED = ("succ_partial", "visibility", "mesh_reduce", "forest", "radix_sort")
-CONDENSED_ARM = ("cond_init", "linearize_thread", "cond_succ", "linearize_rank",
-                 "cond_expand")
-ROWS_ARM = ("linearize_init", "linearize_thread", "linearize_rank_init",
-            "linearize_rank", "linearize_final")
+# on a mesh of one card the doubling loops are the rounds entries, one
+# call a loop (the range kernels over distinct cards)
+CONDENSED_ARM = ("cond_init", "linearize_thread_rounds", "cond_succ",
+                 "linearize_rank_rounds", "cond_expand")
+ROWS_ARM = ("linearize_init", "linearize_thread_rounds", "linearize_rank_init",
+            "linearize_rank_rounds", "linearize_final")
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
@@ -837,6 +840,12 @@ def test_range_kernels_equal_plain_versions(cuda):
     _same(rk, L.linearize_rank_init_plain(st[3], st[0], P))
     for i0, count in ((0, Epad), (El, El), (Epad - 9, 9)):
         _same(L.linearize_rank(*rk, i0, count), L.linearize_rank_plain(*rk, i0, count))
+    # the range kernels writing into a next-round buffer at their offset
+    buf = tuple(torch.zeros_like(t) for t in st[:3])
+    got = L.linearize_thread(*st[:3], El, El, out=tuple(b[El:2 * El] for b in buf))
+    _same(got, L.linearize_thread_plain(*st[:3], El, El))
+    assert all(b.data_ptr() == g.data_ptr() - El * b.element_size()
+               for b, g in zip(buf, got))
     for r0, count in ((0, P), (11, P - 20)):
         fi_in = (fo[2], fo[0], c["obj_dense"], rk[0], r0, count)
         _same(L.linearize_final(*fi_in), L.linearize_final_plain(*fi_in))
@@ -854,6 +863,48 @@ def test_range_kernels_equal_plain_versions(cuda):
         _same(SH.cond_expand(*ce_in), SH.cond_expand_plain(*ce_in))
 
 
+def _rounds_state(E, seed):
+    """A thread state (ans, done, jump) and a rank state (dist, nxt) of E
+    nodes: links along a random permutation (chains of every length), a
+    few out of range (-1, E, E + 5), distances of any int32."""
+    rng = np.random.default_rng(seed)
+
+    def links():
+        out = rng.permutation(E).astype(np.int32)
+        k = min(E, 3)
+        out[rng.choice(E, k, replace=False)] = np.array([-1, E, E + 5], np.int32)[:k]
+        return torch.from_numpy(out)
+
+    done = torch.from_numpy(rng.random(E) < 0.3)
+    dist = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, E, dtype=np.int64)
+                            .astype(np.int32))
+    return (links(), done, links()), (dist, links())
+
+
+# E: small, the text fan-in's row arm (Epad = 4 (P/4 + 1), P = 516,096)
+# and its condensed arm's chain slots (R2)
+@pytest.mark.parametrize("E", [1, 5, 4097, 516_100, 524_288])
+def test_rounds_entries_equal_plain_versions(cuda, E):
+    """Each rounds entry against its plain version (the range round
+    chained), for one, two and the full rounds, in exactly ``rounds``
+    launches, its inputs untouched."""
+    thread, rank = _rounds_state(E, E)
+    thread = tuple(t.to(cuda) for t in thread)
+    rank = tuple(t.to(cuda) for t in rank)
+    before = tuple(t.clone() for t in thread + rank)
+    for rounds in sorted({1, 2, L.ceil_log2(E) + 1}):
+        reset_launches()
+        got = L.linearize_thread_rounds(*thread, rounds)
+        assert launch_counts()["linearize_thread_rounds"] == rounds
+        _same(got, L.linearize_thread_rounds_plain(*thread, rounds))
+        reset_launches()
+        got = L.linearize_rank_rounds(*rank, rounds)
+        assert launch_counts()["linearize_rank_rounds"] == rounds
+        _same(got, L.linearize_rank_rounds_plain(*rank, rounds))
+    torch.cuda.synchronize()
+    _same(thread + rank, before)
+
+
 def _sharded_logs():
     base, reps, _ = _record_store()
     return [("text", _log(*SIZES[1])), ("typing", _typing_log(20000, 8, 100)),
@@ -868,6 +919,7 @@ def test_sharded_merge_on_card_equals_single_device(cuda, linearize, transport):
     its arm: the row-range winners where the gate passes (text, typing),
     the sort-based ones where it fails (records)."""
     from automerge_tpu_torch.parallel import default_mesh, sharded_merge_columns
+    from automerge_tpu_torch.parallel import sharding as PS
 
     mesh = default_mesh(devices=[cuda] * 4)
     for name, log in _sharded_logs():
@@ -878,6 +930,14 @@ def test_sharded_merge_on_card_equals_single_device(cuda, linearize, transport):
         got = sharded_merge_columns(cols, mesh, transport=transport,
                                     linearize=linearize, **kw)
         counts = launch_counts()
+        if linearize == "condensed":
+            R2, _ = PS.condense_host(cols, log.n_objs + 2, 4)
+            rounds = L.ceil_log2(R2) + 1
+        else:
+            rounds = L.rounds(len(cols["action"]))
+        assert counts["linearize_thread_rounds"] == counts["linearize_rank_rounds"] \
+            == rounds, (name, rounds, counts)
+        assert counts["linearize_thread"] == counts["linearize_rank"] == 0
         arm = CONDENSED_ARM if linearize == "condensed" else ROWS_ARM
         scatter = name != "records"
         winners = ("winners_partial", "winners_gather") if scatter else ("sort_winners",)
@@ -903,11 +963,19 @@ def test_sharded_merge_over_distinct_cards(cuda):
     log = _log(*SIZES[1])
     cols = log.padded_columns()
     kw = dict(n_objs=log.n_objs, n_props=len(log.props))
-    got = sharded_merge_columns(cols, mesh, **kw)
     single = merge_columns(cols, device=cuda, **kw)
-    for k in ALL_OUTPUTS:
-        m = len(single[k])
-        np.testing.assert_array_equal(got[k][:m], single[k], err_msg=k)
+    for linearize in ("condensed", "rows"):
+        reset_launches()
+        got = sharded_merge_columns(cols, mesh, linearize=linearize, **kw)
+        counts = launch_counts()
+        # a range launch a card a round, the rounds entries idle
+        assert counts["linearize_thread"] == counts["linearize_rank"] > 0
+        assert counts["linearize_thread"] % 4 == 0
+        assert counts["linearize_thread_rounds"] == counts["linearize_rank_rounds"] == 0
+        for k in ALL_OUTPUTS:
+            m = len(single[k])
+            np.testing.assert_array_equal(got[k][:m], single[k],
+                                          err_msg=f"{linearize} {k}")
 
 
 @pytest.mark.parametrize("cards", ["repeated", "distinct"])

@@ -68,6 +68,20 @@ for arm in ("condensed", "rows"):
                                 default_mesh(devices=["cpu"] * 2),
                                 linearize=arm, **kw)
     assert all((out[k][:len(v)] == v).all() for k, v in single.items())
+    # distinct devices: the doubling loops' per-round exchange
+    from automerge_tpu_torch.parallel import Mesh
+    out = sharded_merge_columns(log.padded_columns(), Mesh(["cpu:0", "cpu:1"]),
+                                linearize=arm, **kw)
+    assert all((out[k][:len(v)] == v).all() for k, v in single.items())
+import torch
+from automerge_tpu_torch.kernels import linearize as L
+links = torch.tensor([1, 2, 9, -1], dtype=torch.int32)
+ans, done, jump = L.linearize_thread_rounds(
+    links, torch.tensor([False, False, True, True]), links, 3)
+assert ans.tolist() == [9, 9, 9, -1] and done.all()
+dist, nxt = L.linearize_rank_rounds(torch.ones(4, dtype=torch.int32), links, 3)
+assert dist.tolist() == [8, 8, 8, 8]
+assert L.linearize_thread_rounds.launches == L.linearize_rank_rounds.launches == 0
 mesh_runs = []
 inner = DeviceDoc._mesh_resolve_inner
 DeviceDoc._mesh_resolve_inner = lambda self: mesh_runs.append(1) or inner(self)

@@ -119,3 +119,99 @@ def test_succ_vis_bound_reads_value_tag_only_at_increment_targets(records):
     assert ops == 3 * Q + 6 * P
     ms, by = chip_smoke.bound("succ_vis", args, out)
     assert by == "bytes" and ms == moved / chip_smoke.HBM_BYTES_PER_S * 1e3
+
+
+def test_same_compares_numpy_outputs_exactly():
+    a = np.arange(5, dtype=np.int32)
+    assert PK.same({"x": a}, {"x": a.copy()})
+    assert not PK.same({"x": a}, {"x": a.astype(np.int64)})
+    assert not PK.same({"x": a}, {"x": a + 1})
+    assert not PK.same(a, torch.from_numpy(a))
+
+
+def test_sharded_merge_row_runs_the_whole_merge_and_its_other_tree(records):
+    """The ``sharded_merge`` row: the whole sharded merge of a sharded
+    path's arm over four shards of the device, its launches by kernel
+    (none on the CPU), equal to another checkout's."""
+    alias = "profile_kernels_test_merge_tree"
+    pkg = PK.load_tree_as(alias, str(ROOT))
+    for arm in ("condensed", "rows"):
+        ((name, kern, plain, args, out, library, tag),) = PK.merge_rows(
+            f"records sharded {arm}", (*records, arm), torch.device("cpu"))
+        assert name == "sharded_merge" and plain is None and library is None
+        assert args[1].size == chip_smoke.MESH_SHARDS and args[-1] == arm
+        other = PK.counterpart(alias, kern)
+        assert other.__module__ == f"{alias}.parallel.sharding"
+        assert PK.same(out, other(*args))
+        assert PK.launches(pkg.kernels, name, lambda: other(*args)) == {}
+
+
+def test_sharded_merge_row_takes_a_mesh_of_distinct_devices(records):
+    """``--mesh cards``: the row's merge over the mesh it is given, here
+    four shards on two CPU devices, equal to the one-device mesh's."""
+    from automerge_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(["cpu:0", "cpu:1", "cpu:0", "cpu:1"])
+    ((name, kern, _, args, out, _, tag),) = PK.merge_rows(
+        "records sharded rows", (*records, "rows"), torch.device("cpu"), mesh)
+    assert name == "sharded_merge" and args[1] is mesh
+    assert tag == "4 shards on 2 devices, rows arm"
+    ((_, _, _, _, want, _, tag),) = PK.merge_rows(
+        "records sharded rows", (*records, "rows"), torch.device("cpu"))
+    assert tag == "4 shards on one card, rows arm"
+    assert PK.same(out, want)
+
+
+def _rounds_work(step, plain, state, rounds):
+    """The sum over ``rounds`` chained range rounds over all E nodes of
+    ``chip_smoke.work`` of each, on the state that round reads."""
+    E = state[0].numel()
+    moved = ops = 0
+    for _ in range(rounds):
+        nxt = plain(*state, 0, E)
+        m, o = chip_smoke.work(step, (*state, 0, E), nxt)
+        moved, ops, state = moved + m, ops + o, nxt
+    return moved, ops
+
+
+def test_rounds_bound_sums_each_rounds_work():
+    """A rounds entry's bound: the sum over its rounds of the bound of
+    one range round over all E nodes of the state that round reads."""
+    from automerge_tpu_torch.kernels import linearize as L
+
+    rng = np.random.default_rng(4)
+    E = 300
+    dist = torch.from_numpy(rng.integers(0, 9, E).astype(np.int32))
+    nxt = torch.from_numpy(rng.integers(-1, E + 3, E).astype(np.int32))
+    out = L.linearize_rank_rounds(dist, nxt, 7)
+    assert chip_smoke.work("linearize_rank_rounds", (dist, nxt, 7), out) == (
+        _rounds_work("linearize_rank", L.linearize_rank_plain, (dist, nxt), 7))
+
+
+@pytest.mark.parametrize("loop", ["thread", "rank"])
+def test_rounds_bound_shrinks_as_the_links_collapse(loop):
+    """One list 0 -> 1 -> ... -> E-1, the last a fixed point: after k
+    rounds each link points 2^k ahead, clamped at the end, so round k
+    gathers at max(E - 2^k, 1) distinct nodes and the loop's bound is
+    below rounds times its first round's."""
+    from automerge_tpu_torch.kernels import linearize as L
+
+    E, rounds = 64, 7
+    node = torch.arange(E, dtype=torch.int32)
+    link = torch.clamp(node + 1, max=E - 1)
+    if loop == "thread":
+        state, per_node = (link.clone(), node == E - 1, link), 9
+    else:
+        state, per_node = (torch.ones(E, dtype=torch.int32), link), 8
+    name = f"linearize_{loop}"
+    whole = getattr(L, f"{name}_rounds")
+    plain = getattr(L, f"{name}_plain")
+    moved, ops = chip_smoke.work(f"{name}_rounds", (*state, rounds),
+                                 whole(*state, rounds))
+    first = chip_smoke.work(name, (*state, 0, E), plain(*state, 0, E))
+    # each round reads its E records and the distinct ones it jumps to,
+    # and writes E records
+    assert moved == sum(per_node * (2 * E + max(E - 2 ** k, 1))
+                        for k in range(rounds))
+    assert moved < rounds * first[0]
+    assert ops == rounds * first[1]

@@ -593,3 +593,51 @@ def test_enable_mesh_without_enough_cards_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         default_mesh(devices=["cuda"] * 4)
     assert doc._mesh is None
+
+
+def _distinct_cpu_mesh(n):
+    """n shards over distinct CPU devices (``cpu:k``): the sharded merge
+    takes its per-round exchange, as over distinct cards; runs of
+    consecutive shards on one device at 4, devices that come back at 8."""
+    if n == 2:
+        return Mesh(["cpu:0", "cpu:1"])
+    if n == 4:
+        return Mesh(["cpu:0", "cpu:0", "cpu:1", "cpu:1"])
+    return Mesh([f"cpu:{i % 3}" for i in range(n)])
+
+
+@pytest.mark.parametrize("linearize", PS.LINEARIZE)
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_sharded_merge_over_distinct_devices_equals_jax(monkeypatch, name, n,
+                                                        linearize):
+    """The doubling loops' exchange between distinct devices, whole
+    merge: equal to the JAX package's on all 13 outputs, its all_gathers
+    recorded as on one device repeated; the loops copy only the other
+    devices' slices there, and nothing on one device."""
+    cols, n_objs, n_props = _workload(name)
+    doubling = PS._doubling
+    loops = []
+
+    def spy(mesh, *args):
+        before = dict(C.stats["all_gather"])
+        out = doubling(mesh, *args)
+        after = C.stats["all_gather"]
+        loops.append((after["bytes"] - before["bytes"],
+                      after["copied"] - before["copied"]))
+        return out
+
+    monkeypatch.setattr(PS, "_doubling", spy)
+    lengths = {}
+    for mesh in (_distinct_cpu_mesh(n), _cpu_mesh(n)):
+        C.reset_stats()
+        loops.clear()
+        got = sharded_merge_columns(cols, mesh, n_objs=n_objs, n_props=n_props,
+                                    linearize=linearize)
+        _assert_outputs_equal(got, _jax_sharded(name, n), f"{name} n={n}")
+        lengths[len(mesh.distinct)] = [length for length, _ in C.gathers]
+        k = len(mesh.distinct)
+        assert len(loops) == 2
+        # bytes count every device's buffer; a device's own slices stay
+        assert all(copied * k == delivered * (k - 1) for delivered, copied in loops)
+    assert lengths[len(_distinct_cpu_mesh(n).distinct)] == lengths[1]
