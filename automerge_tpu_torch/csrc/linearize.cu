@@ -77,7 +77,7 @@
 // arguments, so no pack or unpack launch); the records hold the raw
 // values, out-of-range links included, so the outputs are those of the
 // per-round loop bit for bit.
-#include "common.cuh"
+#include "tour.cuh"
 
 __global__ void li_init(const int* __restrict__ first_child,
                         const int* __restrict__ next_sib,
@@ -255,83 +255,14 @@ __global__ void li_final(const int* __restrict__ first_child,
 }
 
 // -- the single-device entry: an Euler tour ranked by a ruling set -------------
+// (the ruling set's level 1 and its helpers: tour.cuh)
 
-#define LT_END (-1)
 #define LT_HEAD (-2)      // node1's ruler field: a list head that is no ruler
 #define LT_INACTIVE (-3)  // node1's ruler field: a row that is no element
-#define LT_FULL 0xffffffffu
-#define LT_WARPS (AMT_THREADS / 32)
-// the level-3 rulers, ranked by one block in shared memory
-#define LT_R3_CAP 10240
-#define LT_R3_TARGET 6144u
-#define LT_BLOCK 1024
-// the block's own rulers (level 4) among them, ranked by doubling
-#define LT_R4_CAP 2048
-#define LT_R4_TARGET 1024u
-
-// one in stride of the slots s (a Weyl sequence: consecutive slots, as a
-// typed chain visits them, are spread evenly)
-__device__ __forceinline__ unsigned lt_weyl(unsigned s) { return s * 0x9E3779B9u; }
-
-// independent hashes of a ruler's slot (murmur3's finalizer) for the
-// rulers of the levels above
-__device__ __forceinline__ unsigned lt_mix(unsigned h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-#define LT_SEED2 0u
-#define LT_SEED3 0x5BD1E995u
-#define LT_SEED4 0x27D4EB2Fu
-
-// a ruler of the next level when hash * count < num (num / 2^32 / count
-// is the chance)
-__device__ __forceinline__ bool lt_pick(unsigned slot, unsigned seed, int count,
-                                        unsigned long long num) {
-  return (unsigned long long)lt_mix(slot ^ seed) * (unsigned)count < num;
-}
-
-// the chance of a level-1 (level-2) ruler to be one of the next level,
-// sqrt(LT_R3_TARGET / R1) each, as num for lt_pick over r1 rulers
-__device__ __forceinline__ unsigned long long lt_level_num(int r1) {
-  return (unsigned long long)(sqrt((double)LT_R3_TARGET * (double)r1) *
-                              4294967296.0);
-}
 
 __global__ void lt_clear(int* __restrict__ counters) {
   if (threadIdx.x < 4) counters[threadIdx.x] = 0;
 }
-
-// Ids for the threads of a block that ask (want = 0, 1 or 2 each), from
-// one atomicAdd on *counter a block: thousands on one address would
-// queue. Every thread of the block calls it.
-__device__ int lt_block_ids(int want, int* counter) {
-  __shared__ int warp_base[LT_WARPS];
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = want;
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(LT_FULL, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) warp_base[warp] = incl;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int sum = 0;
-    for (int w = 0; w < LT_WARPS; ++w) {
-      int c = warp_base[w];
-      warp_base[w] = sum;
-      sum += c;
-    }
-    int base = sum > 0 ? atomicAdd(counter, sum) : 0;
-    for (int w = 0; w < LT_WARPS; ++w) warp_base[w] += base;
-  }
-  __syncthreads();
-  return warp_base[warp] + incl - want;
-}
-
 // Element row v -> node1[v] = {succ(enter v), its ruler id, succ(exit v),
 // its ruler id}: -1 ends a list; a ruler id is -1 for none, LT_HEAD for
 // an enter slot that starts a list. A row that is no element has no
@@ -393,44 +324,19 @@ lt_succ(const int* __restrict__ first_child, const int* __restrict__ next_sib,
   if (rid_e >= 0) pred2[rid_e] = 0;
   if (rid_x >= 0) pred2[rid_x] = 0;
 }
-
-// Level 1. Slot s walks when it is a ruler or a list head; node1 is read
-// per slot as {succ, ruler id}; op1[slot] = {walker, prefix}, tw1[walker]
-// = {total, ruler reached or -1}. A ruler also writes node2[its id] =
-// {next ruler, total, its id again if it is a level-2 ruler else -1, its
-// slot}: a level-2 ruler keeps its level-1 id, so no atomic is needed.
-__global__ void lt_walk1(const int2* __restrict__ node1, int slots, int r1cap,
-                         const int* __restrict__ counters,
-                         int2* __restrict__ op1, int2* __restrict__ tw1,
-                         int4* __restrict__ node2,
-                         unsigned char* __restrict__ pred2,
-                         unsigned char* __restrict__ pred3) {
-  int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= slots) return;
-  int2 nd = node1[s];
-  int rid = nd.y;
-  if (rid < 0 && rid != LT_HEAD) return;
-  int cur = s, acc = 0, end = -1;
-  for (int step = 0; step < slots; ++step) {  // bounded: a cycle cannot hang
-    op1[cur] = make_int2(s, acc);
-    acc += !(cur & 1);
-    int nx = nd.x;
-    if (nx < 0) break;
-    nd = node1[nx];
-    if (nd.y >= 0) {
-      end = nd.y;
-      break;
-    }
-    cur = nx;
+// The element rows' tour for lt_walk1: node1 read per slot as {succ,
+// ruler id}; a ruler or a list head walks; enter slots weigh 1, exit 0
+struct LtRowTour {
+  const int2* __restrict__ node;
+  int slots;
+  __device__ __forceinline__ LtRowTour bind() const { return *this; }
+  __device__ __forceinline__ int nodes() const { return slots; }
+  __device__ __forceinline__ int2 rec(int s) const { return node[s]; }
+  __device__ __forceinline__ bool walks(int, int rid) const {
+    return rid >= 0 || rid == LT_HEAD;
   }
-  tw1[s] = make_int2(acc, end);
-  if (rid < 0) return;
-  if (end >= 0) pred2[end] = 1;
-  int r1 = min(counters[0], r1cap);
-  bool up = lt_pick((unsigned)s, LT_SEED2, r1, lt_level_num(r1));
-  if (up) pred3[rid] = 0;
-  node2[rid] = make_int4(end, acc, up ? rid : -1, s);
-}
+  __device__ __forceinline__ int weight(int s) const { return !(s & 1); }
+};
 
 // Levels 2 and 3: the same walk over the rulers of the level below, all
 // indexed by their level-1 id (level 3 skips those that are no level-2
@@ -442,7 +348,7 @@ __global__ void lt_walk1(const int2* __restrict__ node1, int slots, int r1cap,
 // picks none.
 __global__ void __launch_bounds__(AMT_THREADS)
 lt_walk_rulers(const int4* __restrict__ node, const int4* __restrict__ member,
-               const unsigned char* __restrict__ pred, int r1cap,
+               const unsigned char* __restrict__ pred, int r1cap, int min_stride,
                int* __restrict__ counters, int2* __restrict__ op,
                int2* __restrict__ tw, int4* __restrict__ node_out,
                unsigned char* __restrict__ pred_out) {
@@ -475,7 +381,8 @@ lt_walk_rulers(const int4* __restrict__ node, const int4* __restrict__ member,
   bool ruler = walks && rid >= 0;
   int next = -1;
   if (pred_out != nullptr) {  // level 2
-    bool up = ruler && lt_pick((unsigned)slot, LT_SEED3, r1, lt_level_num(r1));
+    bool up = ruler && lt_pick((unsigned)slot, LT_SEED3, r1,
+                               lt_level_num(r1, min_stride));
     int id = lt_block_ids((int)up, &counters[2]);
     if (up && id < LT_R3_CAP) next = id;
     if (ruler && end >= 0) pred_out[end] = 1;
@@ -598,17 +505,29 @@ __global__ void lt_push(const int2* __restrict__ op2, const int2* __restrict__ t
   }
   D1[r] = (int)d;
 }
+static const int LT_BLOCK_SMEM = (2 * LT_R3_CAP + 2 * LT_R4_CAP) * (int)sizeof(int2) +
+                                 LT_R3_CAP * (int)sizeof(short) + LT_R3_CAP;
 
-// the weight from slot s to the end of its list: its walker's total less
-// its prefix, plus that of the level-1 ruler the walker reached
-__device__ __forceinline__ unsigned lt_dist(int s, const int2* __restrict__ op1,
-                                            const int2* __restrict__ tw1,
-                                            const int* __restrict__ D1, int slots,
-                                            int r1cap) {
-  int2 a = op1[s];
-  int2 t = tw1[amt_clamp(a.x, slots)];
-  unsigned d = (unsigned)t.x - (unsigned)a.y;
-  return t.y < 0 ? d : d + (unsigned)D1[min(t.y, r1cap - 1)];
+int lt_rank_levels(const LtLevels& lv, int r1cap, int min_stride,
+                   cudaStream_t stream, int* launched) {
+  lt_walk_rulers<<<amt_blocks(r1cap), AMT_THREADS, 0, stream>>>(
+      lv.node2, nullptr, lv.pred2, r1cap, min_stride, lv.counters, lv.op2, lv.tw2,
+      lv.node3, lv.pred3);
+  AMT_LAUNCHED;
+  lt_walk_rulers<<<amt_blocks(r1cap), AMT_THREADS, 0, stream>>>(
+      lv.node3, lv.node2, lv.pred3, r1cap, min_stride, lv.counters, lv.op3, lv.tw3,
+      lv.node4, nullptr);
+  AMT_LAUNCHED;
+  cudaError_t e = cudaFuncSetAttribute(
+      lt_rank_block, cudaFuncAttributeMaxDynamicSharedMemorySize, LT_BLOCK_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  lt_rank_block<<<1, LT_BLOCK, LT_BLOCK_SMEM, stream>>>(lv.node4, lv.counters,
+                                                        lv.D3);
+  AMT_LAUNCHED;
+  lt_push<<<amt_blocks(r1cap), AMT_THREADS, 0, stream>>>(
+      lv.op2, lv.tw2, lv.op3, lv.tw3, lv.D3, lv.counters, r1cap, lv.D1);
+  AMT_LAUNCHED;
+  return (int)cudaGetLastError();
 }
 
 __global__ void lt_final(const int* __restrict__ first_child,
@@ -629,22 +548,11 @@ __global__ void lt_final(const int* __restrict__ first_child,
   unsigned dr = lt_dist(2 * r, op1, tw1, D1, slots, r1cap);
   elem_index[r] = (int)(ds - dr);
 }
-
-static long long lt_marks(long long bytes) { return (bytes + 15) / 16 * 4; }
-
 // int32 words of amt_linearize's scratch (kernels/linearize.py
-// scratch_words): node1, op1, tw1 4P each; for levels 2 and 3 (r1cap
-// rulers each at most) node 4, op and tw 2 each a ruler; D1 1 a level-1
-// ruler (rounded up to 4 words); node4 4 and D3 1 a level-3 ruler; 4
-// counters; then the byte marks pred2 and pred3 [r1cap], each rounded up
-// to 16 bytes
+// scratch_words): node1, op1, tw1 4P each, then the levels' state
 static long long lt_scratch_words(long long P, long long r1cap) {
-  return 12 * P + 16 * r1cap + (r1cap + 3) / 4 * 4 + 5LL * LT_R3_CAP + 4 +
-         2 * lt_marks(r1cap);
+  return 12 * P + lt_levels_words(r1cap);
 }
-
-static const int LT_BLOCK_SMEM = (2 * LT_R3_CAP + 2 * LT_R4_CAP) * (int)sizeof(int2) +
-                                 LT_R3_CAP * (int)sizeof(short) + LT_R3_CAP;
 
 // first_child/next_sib: int32 [N = 2P+3], the forest's (the heads are
 // read off its layout); elem_index: int32 [P]; t1: the level-1 ruler
@@ -664,44 +572,22 @@ AMT_API int amt_linearize(const int* first_child, const int* next_sib,
   int4* node1 = (int4*)at;  at += 4LL * P;
   int2* op1 = (int2*)at;    at += 4LL * P;
   int2* tw1 = (int2*)at;    at += 4LL * P;
-  int4* node2 = (int4*)at;  at += 4LL * r1cap;
-  int2* op2 = (int2*)at;    at += 2LL * r1cap;
-  int2* tw2 = (int2*)at;    at += 2LL * r1cap;
-  int4* node3 = (int4*)at;  at += 4LL * r1cap;
-  int2* op3 = (int2*)at;    at += 2LL * r1cap;
-  int2* tw3 = (int2*)at;    at += 2LL * r1cap;
-  int* D1 = at;             at += (r1cap + 3) / 4 * 4;  // node4 16-byte aligned
-  int4* node4 = (int4*)at;  at += 4LL * LT_R3_CAP;
-  int* D3 = at;             at += LT_R3_CAP;
-  int* counters = at;       at += 4;
-  unsigned char* pred2 = (unsigned char*)at;
-  unsigned char* pred3 = pred2 + 4 * lt_marks(r1cap);
-  lt_clear<<<1, 32, 0, stream>>>(counters);
+  LtLevels lv = lt_carve_levels(at, r1cap);
+  lt_clear<<<1, 32, 0, stream>>>(lv.counters);
   AMT_LAUNCHED;
   // pred2 and pred3 are zeroed where a ruler gets its id
   lt_succ<<<amt_blocks(P), AMT_THREADS, 0, stream>>>(
       first_child, next_sib, is_elem, elem_ref, obj_dense, P, t1, r1cap, node1,
-      pred2, counters);
+      lv.pred2, lv.counters);
   AMT_LAUNCHED;
   lt_walk1<<<amt_blocks(slots), AMT_THREADS, 0, stream>>>(
-      (const int2*)node1, slots, r1cap, counters, op1, tw1, node2, pred2, pred3);
+      LtRowTour{(const int2*)node1, slots}, slots, r1cap, 0, lv.counters, op1,
+      tw1, lv.node2, lv.pred2, lv.pred3);
   AMT_LAUNCHED;
-  lt_walk_rulers<<<amt_blocks(r1cap), AMT_THREADS, 0, stream>>>(
-      node2, nullptr, pred2, r1cap, counters, op2, tw2, node3, pred3);
-  AMT_LAUNCHED;
-  lt_walk_rulers<<<amt_blocks(r1cap), AMT_THREADS, 0, stream>>>(
-      node3, node2, pred3, r1cap, counters, op3, tw3, node4, nullptr);
-  AMT_LAUNCHED;
-  cudaError_t e = cudaFuncSetAttribute(
-      lt_rank_block, cudaFuncAttributeMaxDynamicSharedMemorySize, LT_BLOCK_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  lt_rank_block<<<1, LT_BLOCK, LT_BLOCK_SMEM, stream>>>(node4, counters, D3);
-  AMT_LAUNCHED;
-  lt_push<<<amt_blocks(r1cap), AMT_THREADS, 0, stream>>>(
-      op2, tw2, op3, tw3, D3, counters, r1cap, D1);
-  AMT_LAUNCHED;
+  int err = lt_rank_levels(lv, r1cap, 0, stream, launched);
+  if (err) return err;
   lt_final<<<amt_blocks(P), AMT_THREADS, 0, stream>>>(
-      first_child, is_elem, obj_dense, P, op1, tw1, D1, r1cap, elem_index);
+      first_child, is_elem, obj_dense, P, op1, tw1, lv.D1, r1cap, elem_index);
   AMT_LAUNCHED;
   return (int)cudaGetLastError();
 }

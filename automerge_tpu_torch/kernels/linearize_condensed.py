@@ -5,20 +5,24 @@ Replaces ``automerge_tpu/ops/merge.py`` ``device_linearize_condensed``
 (:303-494). It gives ``linearize``'s ``elem_index`` without pointer
 chasing over all P rows: the insert rows are laid out in actor order
 (``aorder``, from ``OpLog.actor_order``), where a typing chain is a
-contiguous stretch of slots; two scans find the chains (runs), and both
-doubling loops (the sibling climb and the Wyllie ranking) run over tables
-of at most ``rcap`` runs. Each object's chain start is read from its
-root (:490-494). The reference's ``obj_cap`` arm (:481-488) reads the same
-roots through a table; it exists there to pack the winner key into one
-int32, which the sort-based winners here do not need, so it is not ported.
+contiguous stretch of slots (a run). ``linearize_condensed_plain`` keeps
+the reference's algorithm (two scans find the runs; a sibling climb and
+a Wyllie ranking over tables of at most ``rcap`` runs, ceil_log2(rcap)+1
+rounds each) and stays the oracle. Each object's chain start is read from
+its root (:490-494). The reference's ``obj_cap`` arm (:481-488) reads the
+same roots through a table; it exists there to pack the winner key into
+one int32, which the sort-based winners here do not need, so it is not
+ported.
 
-The CUDA kernels are in ``csrc/linearize_condensed.cu``: a slot pass with
-block-local scans, a pass over the block totals and a fix-up (the scans
-are written by hand), the run tables, ceil_log2(rcap)+1 rounds of each
-loop, one launch per round on ping-pong buffers, then the broadcast to
-rows and the rank. Bound by bytes: is_elem and aorder read in full (5P),
-elem_ref, next_sib and obj_dense at the element rows, first_child at the
-element parents and the object roots, elem_index (4P) written.
+The CUDA kernel (``csrc/linearize_condensed.cu``) has no doubling loop:
+one slot pass scans the runs (decoupled look-back across tiles), the runs
+become a condensed Euler tour whose successors are all local (an enter
+node a run, weighing its length; an exit node a head or sibling-bearing
+slot), and ``linearize``'s ruling set ranks it (``csrc/tour.cuh``);
+``LAUNCHES`` launches after one memset, whatever ``rcap``. Bound by
+bytes: is_elem and aorder read in full (5P), elem_ref, next_sib and
+obj_dense at the element rows, first_child at the element parents and
+the object roots, elem_index (4P) written.
 
 ``aorder`` must hold every element row once (its pad slots P), as
 ``OpLog.actor_order`` padded by ``pad_columns`` does. The run count must
@@ -33,14 +37,65 @@ import torch
 from . import _build
 from ._args import expect, on_cuda, ptr, stream
 from .linearize import ceil_log2
+from .linearize import scratch_words as tour_levels_words
 
-_P, _I = _build.P_, _build.I_
-_SIG = [_P] * 6 + [_I, _I, _I] + [_P] * 3 + [_P]
+_P, _I, _LL = _build.P_, _build.I_, _build.LL_
+_SIG = [_P] * 6 + [_I, _I, _I, _P, _LL, _P, _LL, _P, _P]
+LAUNCHES = 8  # the slot scan, the tour, the ruling set's five, the final pass
+TILE = 4096  # slots per scan tile
 
 
 def rounds(rcap: int) -> int:
-    """Doubling rounds of each loop over ``rcap`` runs."""
+    """Doubling rounds of each of the reference's loops over ``rcap`` runs."""
     return ceil_log2(rcap) + 1
+
+
+def tour_capacity(P: int, rcap: int) -> int:
+    """Tour nodes the kernel has room for: rcap enter nodes and an exit
+    node for each of at most P slots."""
+    return rcap + P
+
+
+def ruler_capacity(P: int, rcap: int) -> int:
+    """Level-1 rulers kept: one in four (the stride on the device is at
+    least 4) of the nodes a forest's tour can have (3 rcap: a sibling
+    names a run head), and a margin for the hash's deviation; past it a
+    node is simply no ruler."""
+    cap = tour_capacity(P, rcap)
+    return min(cap, min(cap, 3 * rcap) // 4 + 1024)
+
+
+def _round4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def scratch_words(P: int, rcap: int, r1cap: int) -> int:
+    """int32 words of the kernel's scratch (``lc_scratch_words``); the
+    ruling set's levels take what ``linearize``'s scratch has past its
+    12P words of rows."""
+    nb = -(-P // TILE)
+    cap = tour_capacity(P, rcap)
+    return (4 + 4 * nb + 4 + _round4(P) + 4 * P + _round4(rcap)
+            + _round4(6 * cap) + tour_levels_words(0, r1cap))
+
+
+def tour_size(first_child, next_sib, is_elem, elem_ref, aorder) -> tuple:
+    """(runs, exit nodes) of the kernel's condensed tour on these inputs,
+    in plain PyTorch: a run breaks at a slot whose row is not its parent
+    element's first child with the parent in the slot before; an exit
+    node is a run head or a slot whose row has a next sibling."""
+    P = is_elem.shape[0]
+    valid = aorder < P
+    rows = aorder.clamp(0, P - 1).long()
+    er = elem_ref[rows].long()
+    erc = er.clamp(0, P - 1)
+    prev = torch.cat([torch.full((1,), P, device=aorder.device), aorder[:-1]])
+    elem = valid & is_elem[rows]
+    cont = (elem & (er >= 0) & (er < P) & is_elem[erc]
+            & (first_child[erc].long() == rows) & (er == prev.long()))
+    brk = valid & ~cont
+    flag = elem & (next_sib[rows] != -1)
+    return int(brk.sum()), int((brk | flag).sum())
 
 
 def _check_runs(n_runs: int, rcap: int) -> None:
@@ -158,13 +213,10 @@ def linearize_condensed_plain(first_child, next_sib, is_elem, elem_ref,
     return torch.where(is_elem & (start >= 0), at(t_row, start, P) - t_row, -1)
 
 
-def linearize_condensed(first_child, next_sib, is_elem, elem_ref, obj_dense,
-                        aorder, rcap: int):
-    """elem_index int32 [P] from the forest (first_child/next_sib int32
-    [2P+3], is_elem bool [P]), the elem_ref/obj_dense columns and the
-    actor-order slots ``aorder`` int32 [P], with at most ``rcap`` runs.
-    CPU tensors take the plain version; CUDA tensors launch the kernels
-    and read the run count back to check it against ``rcap``."""
+def _check(first_child, next_sib, is_elem, elem_ref, obj_dense, aorder,
+           rcap: int) -> bool:
+    """True for valid CUDA arguments on one card, False for valid CPU
+    ones; raises for any other."""
     P = is_elem.shape[0] if isinstance(is_elem, torch.Tensor) else -1
     N = 2 * P + 3
     expect(first_child, "first_child", torch.int32, (N,))
@@ -175,28 +227,46 @@ def linearize_condensed(first_child, next_sib, is_elem, elem_ref, obj_dense,
     expect(aorder, "aorder", torch.int32, (P,))
     if P < 1 or rcap < 1:
         raise ValueError(f"linearize_condensed: P {P}, rcap {rcap}")
-    args = (first_child, next_sib, is_elem, elem_ref, obj_dense, aorder)
-    if not on_cuda(first_child=first_child, next_sib=next_sib, is_elem=is_elem,
-                   elem_ref=elem_ref, obj_dense=obj_dense, aorder=aorder):
-        return linearize_condensed_plain(*args, rcap)
-    if P >= 1 << 29 or rcap >= 1 << 29:
+    cuda = on_cuda(first_child=first_child, next_sib=next_sib, is_elem=is_elem,
+                   elem_ref=elem_ref, obj_dense=obj_dense, aorder=aorder)
+    if cuda and (P >= 1 << 29 or rcap >= 1 << 29):
         raise ValueError(f"linearize_condensed: {P} rows / rcap {rcap} exceed "
                          "the int32 node range")
-    dev = is_elem.device
-    # int32 scratch: 5 slot arrays of P, 8 run arrays of rcap + 1, the block
-    # totals (3 per scan block of 1024 slots) and, last, the run count and
-    # the element count; uint8: the slot flags and the climb's done x2
-    blocks = -(-P // 1024)
-    scratch = torch.empty(5 * P + 8 * (rcap + 1) + 3 * blocks + 2,
-                          dtype=torch.int32, device=dev)
-    flags = torch.empty(P + 2 * rcap, dtype=torch.uint8, device=dev)
-    elem_index = torch.empty(P, dtype=torch.int32, device=dev)
-    n = _build.launch(
+    return cuda
+
+
+def _buffers(P: int, rcap: int, dev):
+    """(scratch int32, flags uint8, elem_index int32 [P]): the scratch
+    with the run count at [0], the slot flags then the tour's node marks."""
+    words = scratch_words(P, rcap, ruler_capacity(P, rcap))
+    return (torch.empty(words, dtype=torch.int32, device=dev),
+            torch.empty(P + tour_capacity(P, rcap), dtype=torch.uint8, device=dev),
+            torch.empty(P, dtype=torch.int32, device=dev))
+
+
+def _launch(args, rcap: int, scratch, flags, elem_index, st) -> int:
+    """The kernel's launches on the stream ``st``: their count."""
+    P = elem_index.shape[0]
+    return _build.launch(
         "amt_linearize_condensed", _SIG, *map(ptr, args), P, rcap,
-        rounds(rcap), ptr(scratch),
-        ptr(flags), ptr(elem_index), stream(is_elem))
-    linearize_condensed.launches += n
-    _check_runs(int(scratch[-2]), rcap)
+        ruler_capacity(P, rcap), ptr(scratch), scratch.shape[0], ptr(flags),
+        flags.shape[0], ptr(elem_index), st)
+
+
+def linearize_condensed(first_child, next_sib, is_elem, elem_ref, obj_dense,
+                        aorder, rcap: int):
+    """elem_index int32 [P] from the forest (first_child/next_sib int32
+    [2P+3], is_elem bool [P]), the elem_ref/obj_dense columns and the
+    actor-order slots ``aorder`` int32 [P], with at most ``rcap`` runs.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    and read the run count back to check it against ``rcap``."""
+    args = (first_child, next_sib, is_elem, elem_ref, obj_dense, aorder)
+    if not _check(*args, rcap):
+        return linearize_condensed_plain(*args, rcap)
+    scratch, flags, elem_index = _buffers(is_elem.shape[0], rcap, is_elem.device)
+    linearize_condensed.launches += _launch(args, rcap, scratch, flags, elem_index,
+                                            stream(is_elem))
+    _check_runs(int(scratch[0]), rcap)  # the run count: the one host sync
     return elem_index
 
 

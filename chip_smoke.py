@@ -54,8 +54,8 @@ Phases, each raising on failure (nothing is caught):
        first, the path "typing") and (b)'s record log (no sequence: one
        run); run count and rcap printed; all 13 outputs equal the dict
        merge's; the DeviceDoc built from them reads the same text (the
-       generator's counts); linearize_condensed launches, linearize does
-       not;
+       generator's counts); linearize_condensed launches (LAUNCHES a
+       call, its tour's nodes printed), linearize does not;
     f. the sharded merge (parallel.sharded_merge_columns) over a mesh of
        4 shards on the card (Mesh(["cuda:0"] * 4)), each path against
        the single-device merge_kernel on the same padded columns (all 13
@@ -843,6 +843,7 @@ def condensed_merge(name: str, log, want: dict, device):
 
     from automerge_tpu_torch import kernels
     from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.kernels import linearize_condensed as LC
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
     from automerge_tpu_torch.ops.merge import (
         ALL_OUTPUTS, condensed_caps, merge_kernel_condensed,
@@ -868,6 +869,13 @@ def condensed_merge(name: str, log, want: dict, device):
         {k: round(v, 6) for k, v in phases.items()}), flush=True)
     print(f"{name} launches {json.dumps(counts)}", flush=True)
     check_launches(name, counts, CONDENSED, NOT_CONDENSED)
+    check_call_launches(f"{name} linearize_condensed",
+                        counts["linearize_condensed"], LC.LAUNCHES)
+    R, X = LC.tour_size(out["first_child"], out["next_sib"], out["is_elem"],
+                        c["elem_ref"], c["aorder"])
+    print(f"{name}: linearize_condensed {counts['linearize_condensed']} launches "
+          f"a call (rcap {rcap}); its tour {R + X} nodes ({R} runs, {X} exit "
+          "nodes)", flush=True)
     for k in ALL_OUTPUTS:
         got = res[k][: len(want[k])] if k.startswith("obj_") else res[k]
         if not np.array_equal(got, want[k]):
@@ -1476,9 +1484,13 @@ def condensed_kernels(cols, n_objs: int, n_props: int, device, rcap: int):
     rows, fo = resolve_rows(c, None)
     lc_in = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"], c["aorder"],
              rcap)
+    before = LC.linearize_condensed.launches
+    lc = LC.linearize_condensed(*lc_in)
+    check_call_launches("linearize_condensed",
+                        LC.linearize_condensed.launches - before, LC.LAUNCHES)
     rows.append(("linearize_condensed", LC.linearize_condensed,
-                 LC.linearize_condensed_plain, lc_in,
-                 (LC.linearize_condensed(*lc_in),), None, f"rcap={rcap}"))
+                 LC.linearize_condensed_plain, lc_in, (lc,), None,
+                 f"rcap={rcap}"))
     return rows
 
 
@@ -1643,7 +1655,8 @@ REPLACES = {
 
 
 # the kernels timed on the device as well (torch.profiler)
-DEVICE_TIMED = ("expand_runs", "linearize", "scatter_winners", "forest",
+DEVICE_TIMED = ("expand_runs", "linearize", "linearize_condensed",
+                "scatter_winners", "forest",
                 "radix_sort", "succ_vis", "succ_partial", "visibility",
                 "linearize_thread_rounds", "linearize_rank_rounds")
 
@@ -1736,6 +1749,35 @@ def succ_vis_host_steps(args, reps: int = 200) -> dict:
     }, reps)
 
 
+def linearize_condensed_host_steps(args, reps: int = 200) -> dict:
+    """Host microseconds of one linearize_condensed call on the card, by
+    the wrapper's steps (six ``expect`` calls and ``on_cuda``, the three
+    allocations, the stream handle, the C call that launches the memset
+    and the eight kernels, the run count's readback after a launch: the
+    device's time with it) and the whole call, as ``expand_host_steps``
+    times them."""
+    from automerge_tpu_torch.kernels import linearize_condensed as LC
+    from automerge_tpu_torch.kernels._args import stream
+
+    *cols, rcap = args
+    P, dev = cols[2].shape[0], cols[2].device
+    bufs = LC._buffers(P, rcap, dev)
+    st = stream(cols[2])
+
+    def launch_and_read():
+        LC._launch(cols, rcap, *bufs, st)
+        return int(bufs[0][0])
+
+    return host_us({
+        "checks": lambda: LC._check(*args),
+        "allocate": lambda: LC._buffers(P, rcap, dev),
+        "stream": lambda: stream(cols[2]),
+        "launch": lambda: LC._launch(cols, rcap, *bufs, st),
+        "launch and readback": launch_and_read,
+        "whole call": lambda: LC.linearize_condensed(*args),
+    }, reps)
+
+
 def host_us(steps: dict, reps: int) -> dict:
     """{step: median host microseconds of ``reps`` calls}, each call
     timed alone, the card synchronised between calls so that no queue
@@ -1758,6 +1800,7 @@ def host_us(steps: dict, reps: int) -> dict:
 HOST_STEPS = {
     "expand_runs": lambda args, library: expand_host_steps(*args, library),
     "succ_vis": lambda args, library: succ_vis_host_steps(args),
+    "linearize_condensed": lambda args, library: linearize_condensed_host_steps(args),
 }
 
 

@@ -14,8 +14,11 @@ named as there (``succ_vis``, ``forest``, ``radix_sort``,
 ``chip_smoke.py`` builds them, and ``served``, the record store's served
 subset (the last batch of 16 replica changes applied to the rest, its
 dirty objects' rows). A fan-in's name followed by `` expand``,
-`` packed``, `` sharded`` or `` sharded rows`` takes that staging,
-transport or sharded arm. ``--cols`` keeps the paths' padded columns
+`` packed``, `` sharded``, `` sharded rows`` or `` condensed`` takes
+that staging, transport, sharded arm or the condensed merge (its
+columns with the actor order, rcap = ``condensed_caps(log)``: ``--kernels
+linearize_condensed,linearize --paths "typing condensed"`` times K8
+beside K7). ``--cols`` keeps the paths' padded columns
 in one file: built and written when it is missing, read when it is
 there, so that several runs share their inputs and skip the parse; only
 the fan-ins the paths name are built.
@@ -25,6 +28,11 @@ whole sharded merge, ``parallel.sharding.sharded_merge_columns`` over
 four shards on the card (``Mesh(["cuda:0"] * 4)``; with ``--mesh
 cards``, over four distinct cards) with that path's arm: its launches
 by kernel, its times, no bound.
+
+On a condensed path with both ``linearize_condensed`` and ``linearize``
+named, ``linearize`` (K7) runs on the forest K8 ranks, and its row adds
+400 pairs of this tree's K8 against it (``linearize_condensed_vs_this``:
+K8's median and quartiles first, the share of pairs K8 wins).
 
 One JSON line a row: the launches of one call, the median CUDA-event ms
 of 20 single calls (host work included), the ``torch.profiler`` device
@@ -73,16 +81,19 @@ PATHS = FANINS + ("served",)
 
 
 def build_paths(device, wanted=PATHS) -> dict:
-    """{path: (padded columns, n_objs, n_props)} of the paths in
-    ``wanted`` (of ``PATHS``)."""
+    """{path: (padded columns, n_objs, n_props, rcap)} of the paths in
+    ``wanted`` (of ``PATHS``): a fan-in's columns with the actor order and
+    its ``condensed_caps``; the served subset's without (rcap 0)."""
     from automerge_tpu_torch import workload as W
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.merge import condensed_caps
     from automerge_tpu_torch.ops.oplog import OpLog, pad_columns
     from automerge_tpu_torch.storage.change import parse_change
 
     def spec(blobs):
         log = OpLog.from_changes([parse_change(b)[0] for b in blobs])
-        return log.padded_columns(), log.n_objs, len(log.props)
+        return (log.padded_columns(include_aorder=True), log.n_objs,
+                len(log.props), condensed_caps(log))
 
     paths = {}
     if "text" in wanted:
@@ -117,14 +128,14 @@ def build_paths(device, wanted=PATHS) -> dict:
         raise AssertionError("the served batch did not take the subset re-resolve")
     dirty = dirty_sets[-1]
     paths["served"] = (pad_columns(doc._subset_cols(doc._subset_rows(dirty), dirty),
-                                   len(dirty)), len(dirty), len(doc.log.props))
+                                   len(dirty)), len(dirty), len(doc.log.props), 0)
     return paths
 
 
 def save_paths(path: str, paths: dict) -> None:
     flat = {}
-    for name, (cols, n_objs, n_props) in paths.items():
-        flat[f"{name}/meta"] = np.array([n_objs, n_props], np.int64)
+    for name, (cols, n_objs, n_props, rcap) in paths.items():
+        flat[f"{name}/meta"] = np.array([n_objs, n_props, rcap], np.int64)
         flat.update({f"{name}/{k}": np.asarray(v) for k, v in cols.items()})
     np.savez(path, **flat)
 
@@ -137,22 +148,28 @@ def load_paths(path: str) -> dict:
             paths.setdefault(name, {})[k] = z[key]
     out = {}
     for name, cols in paths.items():
-        n_objs, n_props = (int(x) for x in cols.pop("meta"))
-        out[name] = (cols, n_objs, n_props)
+        n_objs, n_props, rcap = (int(x) for x in cols.pop("meta"))
+        out[name] = (cols, n_objs, n_props, rcap)
     return out
 
 
 def path_spec(paths: dict, path: str) -> tuple:
     """``chip_smoke.kernel_rows``' spec of ``path``: its fan-in's
-    (columns, n_objs, n_props), and a sharded arm's linearize after."""
+    (columns, n_objs, n_props), then a sharded arm's linearize, or for a
+    condensed path the columns with the actor order and rcap."""
     base, *arm = path.split()
     if base not in paths or (arm and base not in FANINS):
         raise ValueError(f"unknown path {path!r}")
-    if arm and arm[0] not in ("expand", "packed", "sharded"):
-        raise ValueError(f"unknown path {path!r} (condensed paths: chip_smoke.py)")
+    if arm and arm not in (["expand"], ["packed"], ["sharded"], ["sharded", "rows"],
+                           ["condensed"]):
+        raise ValueError(f"unknown path {path!r}")
+    cols, n_objs, n_props, rcap = paths[base]
+    if arm == ["condensed"]:
+        return cols, n_objs, n_props, rcap
+    cols = {k: v for k, v in cols.items() if k != "aorder"}
     if "sharded" in arm:
-        return (*paths[base], "rows" if arm[-1] == "rows" else "condensed")
-    return paths[base]
+        return cols, n_objs, n_props, "rows" if arm[-1] == "rows" else "condensed"
+    return cols, n_objs, n_props
 
 
 def load_tree_as(alias: str, tree: str):
@@ -254,6 +271,17 @@ def merge_rows(path: str, spec, device, mesh=None):
              f"{mesh.size} shards on {where}, {linearize} arm")]
 
 
+def beside_row(rows):
+    """On a condensed path: ``linearize`` (K7) on the forest that
+    ``linearize_condensed`` (K8, the last row) ranks, as a row of the
+    same form, so that the two can be timed against each other."""
+    from automerge_tpu_torch.kernels import linearize as L
+
+    args = rows[-1][3][:5]
+    return ("linearize", L.linearize, L.linearize_plain, args, (L.linearize(*args),),
+            None, "beside linearize_condensed, on its forest")
+
+
 def ab_row(other_pkg, other, name: str, args, out, fn) -> dict:
     """This tree's kernel against ``other``, the other tree's, in this
     process (see the module's note)."""
@@ -304,6 +332,10 @@ def main() -> int:
         rows = S.kernel_rows(path, spec, device)
         if "sharded_merge" in wanted and "sharded" in path:
             rows += merge_rows(path, spec, device, mesh)
+        k8 = None
+        if path.endswith("condensed") and "linearize" in wanted:
+            k8 = rows[-1]
+            rows.append(beside_row(rows))
         for name, kern, _plain, args, out, library, tag in rows:
             if name not in wanted:
                 continue
@@ -326,6 +358,10 @@ def main() -> int:
                              **ab_row(other_pkg, other, name, args, out, fn)}
             elif other_pkg:
                 row["ab"] = None  # not a function of the package
+            if k8 is not None and name == "linearize":
+                # this tree's K8 against K7 on the same inputs: K8 is "this"
+                row["linearize_condensed_vs_this"] = ab_pairs(
+                    lambda: k8[1](*k8[3]), fn, AB_PAIRS)
             print(json.dumps(row), flush=True)
     print(S.card_line(), flush=True)
     return 0

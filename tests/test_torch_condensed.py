@@ -34,6 +34,8 @@ from automerge_tpu_torch.ops.merge import (
 from automerge_tpu_torch.ops.oplog import OpLog, pad_columns
 from automerge_tpu_torch.storage.change import parse_change
 
+from .test_torch_random_docs import _history
+
 
 @pytest.fixture(autouse=True)
 def cold_jax_change_cache(monkeypatch):
@@ -167,6 +169,10 @@ WORKLOADS = {
     "map_only": _map_only,
     "bench_fanin": _bench_fanin,
     "typing_fanin": _typing_fanin,
+    # the seeded random documents: nested maps, lists and text, several
+    # text objects, concurrent inserts and deletes
+    **{f"history_{s}": functools.partial(lambda s: sum(_history(s), []), s)
+       for s in range(3)},
 }
 
 
@@ -314,3 +320,173 @@ def test_larger_rcap_gives_the_same_order(name):
     for r in (2 * rcap, 4 * rcap, tlog.condensed_run_count()):
         got = merge_kernel_condensed(r)(c)["elem_index"].numpy()
         np.testing.assert_array_equal(got, base, err_msg=f"rcap {r}")
+
+
+# -- the CUDA kernel's design, as a numpy model --------------------------------
+
+
+def _tour_model(first_child, next_sib, is_elem, elem_ref, obj_dense, aorder):
+    """``csrc/linearize_condensed.cu``'s condensed Euler tour in numpy:
+    (elem_index int32 [P], the tour's (succ, weight) over its nodes).
+
+    A run of first-child slots has one enter node (its id the run's
+    index, weight its length) and one exit node (ids R + x, weight 0) for
+    each of its slots that bears a sibling or heads it: the exit slots
+    fall through to the slot below until a sibling-bearing one, so the
+    exit node holding slot k is the last such slot at or before k. The
+    enter node goes to the tail's first child's run, else to the tail's
+    exit node; a sibling-bearing exit node to its sibling's run; a head's
+    to the exit node holding its parent's slot (none for parents < 0).
+    Every successor is local: no climb. The tour is then ranked by a
+    plain walk from each node that no successor names."""
+    fc = np.asarray(first_child, np.int64)
+    ns = np.asarray(next_sib, np.int64)
+    ie = np.asarray(is_elem, bool)
+    er = np.asarray(elem_ref, np.int64)
+    od = np.asarray(obj_dense, np.int64)
+    ao = np.asarray(aorder, np.int64)
+    P, N = len(ie), len(fc)
+    k = np.arange(P)
+    valid = ao < P
+    rc = np.clip(ao, 0, P - 1)
+    er_k = er[rc]
+    elem = valid & ie[rc]
+    sib = np.where(elem, ns[rc], 0)
+    erc = np.clip(er_k, 0, P - 1)
+    prev = np.concatenate([[P], ao[:-1]])
+    cont = elem & (er_k >= 0) & (er_k < P) & ie[erc] & (fc[erc] == rc) & (er_k == prev)
+    brk = valid & ~cont
+    flag = elem & (sib != -1)
+    xslot = brk | flag
+    run_of = np.cumsum(brk) - 1
+    xc = np.cumsum(xslot) - 1
+    start = np.maximum.accumulate(np.where(brk, k, 0))
+    kpos = np.full(P, -1)
+    kpos[rc[valid]] = k[valid]
+    R, M = int(brk.sum()), int(brk.sum() + xslot.sum())
+
+    def slot_of(rows):  # rows outside aorder read slot 0, as the reference
+        return np.maximum(kpos[np.clip(rows, 0, P - 1)], 0)
+
+    def enter_of(rows):
+        return np.maximum(run_of[slot_of(rows)], 0)
+
+    def exit_of(slots):
+        return R + np.maximum(xc[slots], 0)
+
+    succ = np.full(M, -1)
+    weight = np.zeros(M, np.int64)
+    tail = valid & ~np.append(cont[1:], False)
+    t = np.flatnonzero(tail & (run_of >= 0))
+    fct = fc[rc[t]]
+    succ[run_of[t]] = np.where(fct >= 0, enter_of(fct), exit_of(t))
+    weight[run_of[t]] = t - start[t] + 1
+    xs = np.flatnonzero(xslot)
+    par = er_k[xs]
+    succ[R + xc[xs]] = np.where(
+        flag[xs], np.where(sib[xs] >= 0, enter_of(sib[xs]), -1),
+        np.where(par < 0, -1, exit_of(slot_of(par))))
+
+    # rank: each list from its head, the weight from a node to the end
+    dist = np.zeros(max(M, 1), np.int64)
+    named = np.zeros(M, bool)
+    named[succ[succ >= 0]] = True
+    reached = 0
+    for h in np.flatnonzero(~named):
+        path = [h]
+        while succ[path[-1]] >= 0:
+            path.append(succ[path[-1]])
+        dist[path] = np.cumsum(weight[path][::-1])[::-1]
+        reached += len(path)
+    assert reached == M, "every node lies on a list from a head"
+
+    def t_row(rows):
+        ks = kpos[rows]
+        kk = np.maximum(ks, 0)
+        d = np.where(run_of[kk] >= 0, dist[np.maximum(run_of[kk], 0)], 0)
+        return np.where(ks >= 0, d - (kk - start[kk]), 0)
+
+    chain = fc[np.clip(P + od, 0, N - 1)]
+    out = np.where(ie & (chain >= 0), t_row(np.clip(chain, 0, P - 1)) - t_row(k), -1)
+    return out.astype(np.int32), (R, succ, weight)
+
+
+def _model_cases():
+    cases = [(name, functools.partial(_blobs_of, name)) for name in sorted(WORKLOADS)]
+    cases += [(f"history_{s}", functools.partial(lambda s: sum(_history(s), []), s))
+              for s in range(3, 6)]
+    cases.append(("records", _record_store_blobs))
+    return cases
+
+
+@functools.lru_cache(maxsize=None)
+def _record_store_blobs():
+    base, reps, _ = W.record_store(64, 8, 20)
+    return [base.raw_bytes] + [r.raw_bytes for r in reps]
+
+
+MODEL_CASES = dict(_model_cases())
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CASES))
+def test_tour_model_equals_the_plain_version(name):
+    """The condensed tour's successor rule and weights, ranked by a plain
+    walk, give ``linearize_condensed_plain``'s elem_index exactly."""
+    blobs = MODEL_CASES[name]()
+    log = OpLog.from_changes([parse_change(b)[0] for b in blobs])
+    c = columns_from_numpy(log.padded_columns(include_aorder=True), "cpu")
+    rcap = condensed_caps(log)
+    out = merge_kernel_condensed(rcap)(c)
+    args = _elem_index_args(c, out)
+    want = LC.linearize_condensed_plain(*args, rcap).numpy()
+    got, (R, succ, weight) = _tour_model(*(a.numpy() for a in args))
+    np.testing.assert_array_equal(got, want)
+    # enter nodes weigh their runs, exit nodes nothing; a sibling names a
+    # run head, so the sibling-bearing slots are at most R and the tour at
+    # most 3R nodes
+    assert int(weight.sum()) == int((c["aorder"] < len(got)).sum())
+    assert (weight[R:] == 0).all() and (weight[:R] > 0).all()
+    assert len(succ) <= 3 * R
+    assert LC.tour_size(*args[:4], args[5]) == (R, len(succ) - R)
+
+
+def _odd_forest(P, seed):
+    """A random forest over P element rows of three objects laid out in a
+    shuffled actor order, its chains mostly cut: runs of every length,
+    object roots as parents, siblings everywhere."""
+    rng = np.random.default_rng(seed)
+    elem_ref = np.full(P, -1, np.int32)
+    obj_dense = rng.integers(0, 3, P).astype(np.int32)
+    for r in range(1, P):
+        if rng.random() < 0.85:
+            p = int(rng.integers(max(0, r - 8), r))
+            elem_ref[r], obj_dense[r] = p, obj_dense[p]
+    action = np.ones(P, np.int32)
+    insert = np.ones(P, bool)
+    return action, insert, elem_ref, obj_dense
+
+
+@pytest.mark.parametrize("P,seed", [(1, 0), (2, 1), (37, 2), (500, 3), (2048, 4)])
+def test_tour_model_on_random_forests_in_actor_order(P, seed):
+    """Synthetic forests, their rows in an actor order that keeps some
+    chains (rows in order) and cuts others (a shuffled tail), padded."""
+    from automerge_tpu_torch.kernels.forest import forest_plain
+    import torch
+
+    action, insert, elem_ref, obj_dense = _odd_forest(P, seed)
+    Pp = P + 3  # three pad rows: no elements, pad slots at the end
+    pad = lambda a, v: np.concatenate([a, np.full(3, v, a.dtype)])  # noqa: E731
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    cols = (t(pad(action, 15)), t(pad(insert, False)), t(pad(elem_ref, -2)),
+            t(pad(obj_dense, 0)))
+    is_elem, _parent, first_child, next_sib = forest_plain(*cols)
+    rng = np.random.default_rng(seed + 100)
+    order = np.arange(P)
+    cut = P // 2
+    order[cut:] = rng.permutation(order[cut:])
+    aorder = t(np.concatenate([order, np.full(3, Pp)]).astype(np.int32))
+    args = (first_child, next_sib, is_elem, cols[2], cols[3], aorder)
+    runs = int(is_elem.sum())  # at most one run per element
+    want = LC.linearize_condensed_plain(*args, max(runs, 1)).numpy()
+    got, _ = _tour_model(*(a.numpy() for a in args))
+    np.testing.assert_array_equal(got, want)

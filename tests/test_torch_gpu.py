@@ -1,8 +1,9 @@
 """automerge_tpu_torch's CUDA kernels against their plain PyTorch versions,
 on the card. Marked ``gpu``: they skip where no CUDA device is present.
 
-They import neither JAX nor automerge_tpu, so they also run where only
-the port's dependencies are installed:
+They import no JAX (the seeded histories come from the JAX package's
+document API, ``automerge_tpu.api``, which imports none), so they also
+run where only the port's dependencies are installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
@@ -701,30 +702,68 @@ def _condensed_logs():
     ]
 
 
+def _condensed_args(log, device, rcap):
+    c = columns_from_numpy(log.padded_columns(include_aorder=True), device)
+    fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
+    return (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"], c["aorder"], rcap)
+
+
 def test_linearize_condensed_equals_plain_version(cuda):
     for name, log in _condensed_logs():
-        rcap = condensed_caps(log)
-        c = columns_from_numpy(log.padded_columns(include_aorder=True), cuda)
-        fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
-        args = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"], c["aorder"],
-                rcap)
+        args = _condensed_args(log, cuda, condensed_caps(log))
         reset_launches()
         got = LC.linearize_condensed(*args)
-        assert launch_counts()["linearize_condensed"] == 8 + 2 * LC.rounds(rcap), name
+        assert launch_counts()["linearize_condensed"] == LC.LAUNCHES, name
         _same(got, LC.linearize_condensed_plain(*args))
-        li = L.linearize(fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"])
-        _same(got, li)
+        _same(got, L.linearize(*args[:5]))
         if name == "records":
+            aorder = args[5]
             assert log.condensed_run_count() == 1
-            assert int((c["aorder"] < c["aorder"].numel()).sum()) == 0
+            assert int((aorder < aorder.numel()).sum()) == 0
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_linearize_condensed_on_seeded_histories(cuda, seed):
+    """Concurrent inserts and deletes in several text objects, lists and
+    objects inside lists: at rcap = the run count exactly, at the bucket
+    and far above it, the same order as the plain version's in
+    ``LAUNCHES`` launches."""
+    from .test_torch_histories import _history
+
+    base, rest = _history(seed)
+    log = OpLog.from_changes([parse_change(b)[0] for b in base + rest])
+    runs = log.condensed_run_count()
+    for rcap in (runs, condensed_caps(log), 64 * condensed_caps(log)):
+        args = _condensed_args(log, cuda, rcap)
+        reset_launches()
+        got = LC.linearize_condensed(*args)
+        assert launch_counts()["linearize_condensed"] == LC.LAUNCHES
+        _same(got, LC.linearize_condensed_plain(*args))
+
+
+def test_linearize_condensed_on_both_sides_of_the_levels_cut(cuda):
+    """Tours whose level-1 rulers the block ranks as they are (under
+    4 x LT_R3_TARGET nodes) and tours that levels 2 and 3 shrink first
+    (far over it): a typing log (few runs), the synthetic trace's (one run
+    an element, nearly), and the same past 2^17 rows."""
+    cut = 4 * L.R3_TARGET
+    seen = []
+    for log in (_typing_log(2000, 16, 100), _log(2000, 16, 100),
+                _log(20000, 8, 100), _log(100_000, 32, 100)):
+        args = _condensed_args(log, cuda, condensed_caps(log))
+        seen.append(sum(LC.tour_size(*args[:4], args[5])))
+        reset_launches()
+        got = LC.linearize_condensed(*args)
+        assert launch_counts()["linearize_condensed"] == LC.LAUNCHES
+        _same(got, LC.linearize_condensed_plain(*args))
+        _same(got, L.linearize(*args[:5]))
+    assert min(seen) < cut < max(seen), seen
 
 
 def test_linearize_condensed_raises_when_the_runs_exceed_rcap(cuda):
     log = _log(2000, 16, 100)
     runs = log.condensed_run_count()
-    c = columns_from_numpy(log.padded_columns(include_aorder=True), cuda)
-    fo = F.forest(c["action"], c["insert"], c["elem_ref"], c["obj_dense"])
-    args = (fo[2], fo[3], fo[0], c["elem_ref"], c["obj_dense"], c["aorder"])
+    args = _condensed_args(log, cuda, runs)[:6]
     with pytest.raises(ValueError, match=f"{runs} chain runs exceed rcap = {runs - 1}"):
         LC.linearize_condensed(*args, runs - 1)
     _same(LC.linearize_condensed(*args, runs), LC.linearize_condensed_plain(*args, runs))
@@ -738,7 +777,7 @@ def test_condensed_merge_on_card_equals_cpu_and_counts_launches(cuda):
     reset_launches()
     gpu = merge_kernel_condensed(rcap)(columns_from_numpy(cols, cuda))
     counts = launch_counts()
-    assert counts["linearize_condensed"] == 8 + 2 * LC.rounds(rcap)
+    assert counts["linearize_condensed"] == LC.LAUNCHES
     assert counts["succ_vis"] and counts["sort_winners"] and counts["forest"]
     assert counts["linearize"] == counts["scatter_winners"] == 0
     for k in ALL_OUTPUTS:

@@ -15,6 +15,7 @@ import chip_smoke
 from automerge_tpu_torch import workload as W
 from automerge_tpu_torch.convert import columns_from_numpy
 from automerge_tpu_torch.kernels import succ_vis as SV
+from automerge_tpu_torch.ops.merge import condensed_caps
 from automerge_tpu_torch.ops.oplog import OpLog
 from automerge_tpu_torch.storage.change import parse_change
 from automerge_tpu_torch.types import Action
@@ -29,9 +30,12 @@ SV_NAMES = ("action", "value_tag", "value_i32", "covered", "pred_src", "pred_tgt
 
 
 def _records_cols():
+    """A small record store's path as ``build_paths`` keeps a fan-in: its
+    columns with the actor order, n_objs, n_props and rcap."""
     base, reps, _ = W.record_store(64, 8, 20)
     log = OpLog.from_changes([parse_change(b.raw_bytes)[0] for b in [base] + reps])
-    return log.padded_columns(), log.n_objs, len(log.props)
+    return (log.padded_columns(include_aorder=True), log.n_objs, len(log.props),
+            condensed_caps(log))
 
 
 @pytest.fixture(scope="module")
@@ -51,11 +55,52 @@ def _paths(spec):
 ])
 def test_path_spec_takes_the_fanin_and_the_sharded_arm(records, path, caps):
     spec = PK.path_spec(_paths(records), path)
-    assert spec[:3] == records and tuple(spec[3:]) == caps
+    cols, n_objs, n_props, _ = records
+    assert spec[0] == {k: v for k, v in cols.items() if k != "aorder"}
+    assert spec[1:3] == (n_objs, n_props) and tuple(spec[3:]) == caps
 
 
-@pytest.mark.parametrize("path", ["text condensed", "served sharded", "wide",
-                                  "records sideways"])
+@pytest.mark.parametrize("path", ["text condensed", "typing condensed",
+                                  "records condensed"])
+def test_path_spec_takes_a_condensed_path_with_its_actor_order(records, path):
+    spec = PK.path_spec(_paths(records), path)
+    assert spec == records and "aorder" in spec[0]
+
+
+def test_condensed_rows_run_linearize_condensed_and_its_other_tree(records,
+                                                                   monkeypatch):
+    """A condensed path's kernel rows, as ``chip_smoke.kernel_rows``
+    makes them: the condensed merge's kernels, ``linearize_condensed``
+    last at the path's rcap, equal to its plain version and to another
+    checkout's on the CPU (where nothing launches: the launch checks are
+    the card's)."""
+    monkeypatch.setattr(chip_smoke, "check_call_launches", lambda *a: None)
+    alias = "profile_kernels_test_condensed_tree"
+    PK.load_tree_as(alias, str(ROOT))
+    rows = chip_smoke.kernel_rows("records condensed",
+                                  PK.path_spec(_paths(records), "records condensed"),
+                                  torch.device("cpu"))
+    assert [r[0] for r in rows][-1] == "linearize_condensed"
+    name, kern, plain, args, out, library, tag = rows[-1]
+    assert args[-1] == records[3] and tag == f"rcap={records[3]}"
+    assert PK.same(out, (plain(*args),))
+    assert PK.same(out, (PK.counterpart(alias, kern)(*args),))
+
+
+def test_condensed_path_puts_linearize_beside_it_on_its_forest(records, monkeypatch):
+    """``--kernels linearize_condensed,linearize`` on a condensed path: K7
+    runs on the forest K8 ranks, and both give the same order."""
+    monkeypatch.setattr(chip_smoke, "check_call_launches", lambda *a: None)
+    rows = chip_smoke.kernel_rows("records condensed",
+                                  PK.path_spec(_paths(records), "records condensed"),
+                                  torch.device("cpu"))
+    name, kern, plain, args, out, library, tag = PK.beside_row(rows)
+    assert name == "linearize" and args == rows[-1][3][:5] and library is None
+    assert PK.same(out, rows[-1][4]) and PK.same(out, (plain(*args),))
+
+
+@pytest.mark.parametrize("path", ["served condensed", "served sharded", "wide",
+                                  "records sideways", "text condensed rows"])
 def test_path_spec_refuses_what_it_cannot_build(records, path):
     with pytest.raises(ValueError, match="unknown path"):
         PK.path_spec(_paths(records), path)
@@ -66,8 +111,8 @@ def test_columns_file_round_trips(records, tmp_path):
     PK.save_paths(f, {"records": records, "served": records})
     back = PK.load_paths(f)
     assert set(back) == {"records", "served"}
-    for cols, n_objs, n_props in back.values():
-        assert (n_objs, n_props) == records[1:]
+    for cols, n_objs, n_props, rcap in back.values():
+        assert (n_objs, n_props, rcap) == records[1:]
         assert cols.keys() == records[0].keys()
         for k, v in records[0].items():
             assert cols[k].dtype == np.asarray(v).dtype
@@ -137,7 +182,7 @@ def test_sharded_merge_row_runs_the_whole_merge_and_its_other_tree(records):
     pkg = PK.load_tree_as(alias, str(ROOT))
     for arm in ("condensed", "rows"):
         ((name, kern, plain, args, out, library, tag),) = PK.merge_rows(
-            f"records sharded {arm}", (*records, arm), torch.device("cpu"))
+            f"records sharded {arm}", (*PK.path_spec(_paths(records), "records"), arm), torch.device("cpu"))
         assert name == "sharded_merge" and plain is None and library is None
         assert args[1].size == chip_smoke.MESH_SHARDS and args[-1] == arm
         other = PK.counterpart(alias, kern)
@@ -153,11 +198,11 @@ def test_sharded_merge_row_takes_a_mesh_of_distinct_devices(records):
 
     mesh = Mesh(["cpu:0", "cpu:1", "cpu:0", "cpu:1"])
     ((name, kern, _, args, out, _, tag),) = PK.merge_rows(
-        "records sharded rows", (*records, "rows"), torch.device("cpu"), mesh)
+        "records sharded rows", (*PK.path_spec(_paths(records), "records"), "rows"), torch.device("cpu"), mesh)
     assert name == "sharded_merge" and args[1] is mesh
     assert tag == "4 shards on 2 devices, rows arm"
     ((_, _, _, _, want, _, tag),) = PK.merge_rows(
-        "records sharded rows", (*records, "rows"), torch.device("cpu"))
+        "records sharded rows", (*PK.path_spec(_paths(records), "records"), "rows"), torch.device("cpu"))
     assert tag == "4 shards on one card, rows arm"
     assert PK.same(out, want)
 

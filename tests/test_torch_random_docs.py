@@ -15,21 +15,19 @@ rest on are what the ``sort_winners`` and ``radix_sort`` kernels compute
 on the card.
 """
 
-import functools
 import random
 
 import numpy as np
 import pytest
 
-from automerge_tpu.api import AutoDoc
 from automerge_tpu.ops import extract as JX
 from automerge_tpu.ops.device_doc import DeviceDoc as JDeviceDoc
 from automerge_tpu.ops.oplog import OpLog as JOpLog
 from automerge_tpu.storage.change import parse_change as j_parse_change
-from automerge_tpu.types import ActorId, ObjType, ScalarValue
+from automerge_tpu.types import ObjType
 from automerge_tpu_torch.ops.device_doc import DeviceDoc
 
-KEYS = ("a", "b", "c", "title", "n")
+from .test_torch_histories import KEYS, _history  # noqa: F401 (others import it here)
 
 
 @pytest.fixture(autouse=True)
@@ -37,104 +35,6 @@ def cold_jax_change_cache(monkeypatch):
     """Each test starts with the JAX package's per-change-hash extraction
     cache empty, so both packages number map keys alike (ROADMAP §3)."""
     monkeypatch.setattr(JX, "_CHANGE_COLS_CACHE", None)
-
-
-def _objects(doc, obj="_root"):
-    """(object id, type) of every object reachable from ``obj`` in an
-    AutoDoc, ``obj`` first."""
-    t = doc.object_type(obj) if obj != "_root" else ObjType.MAP
-    out = [(obj, t)]
-    if t in (ObjType.MAP, ObjType.TABLE):
-        children = [doc.get(obj, k) for k in doc.keys(obj)]
-    elif t == ObjType.LIST:
-        children = [doc.get(obj, i) for i in range(doc.length(obj))]
-    else:
-        children = []
-    for v in children:
-        if v is not None and v[0] == "obj":
-            out += _objects(doc, v[2])
-    return out
-
-
-def _edit(doc, rng, tag):
-    """One random edit of ``doc``."""
-    objs = _objects(doc)
-    obj, t = rng.choice(objs)
-    r = rng.random()
-    if t == ObjType.TEXT:
-        n = doc.length(obj)
-        if r < 0.15 and n > 2:
-            start = rng.randrange(n - 1)
-            doc.mark(obj, start, rng.randrange(start + 1, n + 1), rng.choice(("bold", "em")),
-                     ScalarValue("bool", True))
-        else:
-            pos = rng.randrange(n + 1)
-            doc.splice_text(obj, pos, rng.randrange(min(3, n - pos) + 1) if r < 0.5 else 0,
-                            "".join(rng.choice("xyz ") for _ in range(rng.randrange(1, 4))))
-    elif t == ObjType.LIST:
-        n = doc.length(obj)
-        if r < 0.25 and n:
-            doc.delete(obj, rng.randrange(n))
-        elif r < 0.4:
-            doc.insert_object(obj, rng.randrange(n + 1), rng.choice((ObjType.MAP, ObjType.LIST)))
-        elif r < 0.55 and n:
-            doc.put(obj, rng.randrange(n), ScalarValue("str", tag))
-        else:
-            doc.insert(obj, rng.randrange(n + 1), ScalarValue("int", rng.randrange(100)))
-    else:
-        key = rng.choice(KEYS)
-        cur = doc.get(obj, key)
-        if cur is not None and cur[0] == "counter" and r < 0.6:
-            doc.increment(obj, key, rng.randrange(1, 5))
-        elif r < 0.15 and cur is not None:
-            doc.delete(obj, key)
-        elif r < 0.25:
-            doc.put_object(obj, key, rng.choice((ObjType.MAP, ObjType.LIST, ObjType.TEXT)))
-        elif r < 0.35:
-            doc.put(obj, key, ScalarValue("counter", rng.randrange(10)))
-        else:
-            doc.put(obj, key, ScalarValue("str", f"{tag}{rng.randrange(10)}"))
-
-
-def _blobs(docs):
-    seen, out = set(), []
-    for d in docs:
-        for a in d.doc.history:
-            if a.stored.hash not in seen:
-                seen.add(a.stored.hash)
-                out.append(a.stored.raw_bytes)
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _history(seed):
-    """(base change bytes, every change's bytes in causal order) of one
-    seeded random document."""
-    rng = random.Random(seed)
-    base = AutoDoc(actor=ActorId(bytes([1]) * 16))
-    text = base.put_object("_root", "text", ObjType.TEXT)
-    base.splice_text(text, 0, 0, "the base text")
-    items = base.put_object("_root", "items", ObjType.LIST)
-    for i in range(4):
-        base.insert(items, i, ScalarValue("int", i))
-    inner = base.insert_object(items, 2, ObjType.MAP)
-    base.put(inner, "a", ScalarValue("str", "in a list"))
-    meta = base.put_object("_root", "meta", ObjType.MAP)
-    base.put(meta, "n", ScalarValue("counter", 0))
-    base.put("_root", "n", ScalarValue("counter", 5))
-    base.commit()
-    forks = [base.fork(actor=ActorId(bytes([10 + i]) * 16))
-             for i in range(rng.choice((5, 6)))]
-    for rnd in range(rng.choice((2, 3))):
-        for i, f in enumerate(forks):
-            for _ in range(rng.randrange(6, 14)):
-                _edit(f, rng, f"{i}.{rnd}:")
-            f.commit()
-        for f in forks:  # cross-merges: each fork takes one or two others
-            for g in rng.sample(forks, rng.choice((1, 2))):
-                if g is not f:
-                    f.merge(g)
-    return _blobs([base]), _blobs(forks)
 
 
 def _j_doc(blobs):
@@ -221,3 +121,46 @@ def test_served_batches_equal_jax_after_every_batch(seed, mode):
         assert _reads(doc) == _reads(jdoc), i
     assert doc.pending_changes() == 0
     assert _reads(doc) == _reads(DeviceDoc.merge(base + rest, device="cpu"))
+
+
+@pytest.mark.parametrize("devices", [["cpu"] * 2, ["cpu:0", "cpu:1"]],
+                         ids=["repeated", "distinct"])
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_served_mesh_document_equals_jax_after_every_batch(seed, devices,
+                                                           monkeypatch):
+    """The served document with ``enable_mesh(min_rows=0)``: its full
+    re-resolutions go through the sharded merge over a mesh of one device
+    repeated (the rounds entries) or of two distinct devices (the
+    exchange). After every shuffled batch it equals the JAX package's
+    single-device document (its mesh document permutes rows wrongly after
+    a splice, ROADMAP §3) on the ``READ_FETCH`` arrays and the reads."""
+    base, rest = _history(seed)
+    rng = random.Random(2000 + seed)
+    rest = [b for b in rest if b not in base]
+    rng.shuffle(rest)
+    doc = DeviceDoc.merge(base, device="cpu")
+    mesh = doc.enable_mesh(devices=devices, min_rows=0)
+    assert mesh.size == 2 and len(mesh.distinct) == len(set(devices))
+    inner, ran = DeviceDoc._mesh_resolve_inner, []
+
+    def spy(self):
+        ran.append(self.log.n)
+        return inner(self)
+
+    monkeypatch.setattr(DeviceDoc, "_mesh_resolve_inner", spy)
+    jdoc = _j_doc(base)
+    i = 0
+    while i < len(rest):
+        batch = rest[i:i + rng.randrange(1, 7)]
+        i += len(batch)
+        got = doc.apply_changes(batch)
+        assert got == jdoc.apply_changes([j_parse_change(b)[0] for b in batch]), i
+        n = doc.log.n
+        for k in DeviceDoc.READ_FETCH:
+            cut = doc.log.n_objs + 2 if k.startswith("obj_") else n
+            np.testing.assert_array_equal(np.asarray(doc.res[k])[:cut],
+                                          np.asarray(jdoc.res[k])[:cut],
+                                          err_msg=f"{i} {k}")
+        assert _reads(doc) == _reads(jdoc), i
+    assert ran, "no full re-resolve went through the mesh"
+    assert doc.pending_changes() == 0
