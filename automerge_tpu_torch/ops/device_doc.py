@@ -26,6 +26,7 @@ from ..storage.change import StoredChange, parse_change
 from ..types import (
     ACTOR_BITS, Action, ObjType, is_make_action, objtype_for_action,
 )
+from .extract import LazyValues
 from .merge import merge_columns, prepare_resolution
 from .oplog import (
     ELEM_HEAD, ELEM_MISSING, MAKE_ACTIONS, OpLog, TAG_COUNTER, _capacity,
@@ -936,9 +937,14 @@ class DeviceDoc:
     def text(self, obj: str) -> str:
         ok = self.log.import_id(obj)
         self._check_obj(ok)
+        values = self.log.values
+        if isinstance(values, LazyValues):  # the winners' strings in bulk
+            elems = np.asarray(self._all_elems(ok), np.int64)
+            win = np.asarray(self.winner)[elems]
+            return values.text(win[win >= 0], _OBJ_REPLACEMENT)
         parts = []
         for _, w in self._seq_elems(ok):
-            v = self.log.values[w]
+            v = values[w]
             parts.append(v.value if v.tag == "str" else _OBJ_REPLACEMENT)
         return "".join(parts)
 

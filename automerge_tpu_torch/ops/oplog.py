@@ -15,12 +15,15 @@ containing objects) are resolved to row indices host-side with vectorized
 searchsorted, so the device kernels are pure int32: comparisons are plain
 row-index comparisons.
 
-This is the per-op host path of ``automerge_tpu.ops.oplog`` (its
-``_collect_slow`` + ``_finalize``) and its incremental append
-(``append_changes``: new changes spliced into the resident columns by
-position arithmetic, with an ``AppendInfo`` saying what moved); the native
-and vectorised extraction paths and the compressed column image are not
-part of this package.
+``from_changes`` builds the columns with the native assembler
+(ops/assemble.py) from each change's decoded column bytes, and the
+incremental append (``append_changes``: new changes spliced into the
+resident columns by position arithmetic, with an ``AppendInfo`` saying
+what moved) extracts only the delta the same way; no op is visited in
+Python. ``fast=False`` on both takes the per-op path of
+``automerge_tpu.ops.oplog`` (its ``_collect_slow``) instead: the explicit
+oracle the tests hold the native path to, never a fallback. The
+compressed column image is not part of this package.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..storage.change import StoredChange
 from ..types import ACTOR_BITS, ActorId, ScalarValue, str_width
 
@@ -73,13 +77,8 @@ _TAG_FOR = {
 
 def join_rows(sorted_keys: np.ndarray, keys, missing: int) -> np.ndarray:
     """Row indices of ``keys`` in the sorted packed-id column
-    ``sorted_keys`` (``missing`` for absent keys)."""
-    keys = np.asarray(keys, np.int64)
-    n = len(sorted_keys)
-    pos = np.searchsorted(sorted_keys, keys)
-    posc = np.clip(pos, 0, max(n - 1, 0)).astype(np.int32)
-    hit = (sorted_keys[posc] == keys) if n else np.zeros(len(keys), bool)
-    return np.where(hit, posc, np.int32(missing)).astype(np.int32)
+    ``sorted_keys`` (``missing`` for absent keys), by the native join."""
+    return native.join_rows(sorted_keys, np.asarray(keys, np.int64), missing)
 
 
 def pack_id(ctr: int, rank: int) -> int:
@@ -95,7 +94,8 @@ class OpLog:
     op columns.
 
     Host-side (int64/object) state: ``id_key`` packed op ids, ``obj_key``
-    packed object ids, the ``values`` list, actor/prop tables. Device-facing
+    packed object ids, the ``values`` (an ``extract.LazyValues`` heap, a
+    list on the per-op path), actor/prop tables. Device-facing
     int32 columns: action/insert/prop/value_tag/value_i32/width plus
     resolved references ``elem_ref``, ``obj_dense``, ``pred_src``/
     ``pred_tgt`` (see padded_columns).
@@ -141,6 +141,7 @@ class OpLog:
         self.n_objs = 1
         # packed reference keys (elem per row: -1 map op, 0 HEAD; pred per
         # edge), kept by _finalize for the append path's re-resolution
+        # (an assembled log rebuilds them on its first append)
         self.elem_key = None
         self.pred_key = None
         self._hash_set = None
@@ -150,14 +151,39 @@ class OpLog:
     # -- construction --------------------------------------------------
 
     @classmethod
-    def from_changes(cls, changes: Iterable[StoredChange]) -> "OpLog":
+    def from_changes(cls, changes: Iterable[StoredChange],
+                     fast: bool = True) -> "OpLog":
         """Flatten changes (deduped by hash) into Lamport-ordered columns.
 
         Order-independent: visibility and RGA order depend only on op ids
         and pred links, never on application order — which is what makes the
         N-way fan-in merge a single batched pass instead of the reference's
         per-op seek/insert loop (automerge.rs:1258-1280).
+
+        ``fast`` (the default) assembles the log natively from the
+        changes' column bytes (``assemble.assemble_log``); a change set
+        with a negative key or pred counter, which the assembler does not
+        place, goes to the batch extraction (``_collect_fast``, native
+        too), decided by ``assemble.route`` before either runs. A counter
+        past the packed ids' range (2^43) raises ``AssembleError``, as the
+        per-op path overflows there. ``fast=False`` is the per-op oracle.
         """
+        log, deduped, rank_of = cls._start(changes)
+        if not fast:
+            return cls._collect(log, deduped, rank_of)
+        from . import assemble as A
+
+        way = A.route(deduped)
+        if way == A.ROUTE_OVERFLOW:
+            raise A.AssembleError("counter outside packed range")
+        if way == A.ROUTE_BATCH:
+            return cls._collect_fast(log, deduped, rank_of)
+        return A.assemble_log(log, deduped, rank_of)
+
+    @classmethod
+    def _start(cls, changes: Iterable[StoredChange]):
+        """(an empty log holding the deduped changes and their actors in
+        rank order, the deduped changes, actor bytes -> rank)."""
         log = cls()
         seen = set()
         deduped: List[StoredChange] = []
@@ -175,10 +201,11 @@ class OpLog:
         log.actors = [ActorId(a) for a in ranked]
         if len(ranked) >= (1 << ACTOR_BITS):
             raise ValueError("too many actors for packed id encoding")
-        return cls._collect(log, deduped, rank_of)
+        return log, deduped, rank_of
 
     @classmethod
     def _collect(cls, log, deduped, rank_of) -> "OpLog":
+        """The per-op oracle: every op visited in Python (``_flatten``)."""
         f = _flatten(deduped, rank_of)
         log.props = f["key_table"]
         log.mark_names = f["mark_table"]
@@ -186,6 +213,41 @@ class OpLog:
             log, f["id_key"], f["obj"], f["prop_ids"], f["elem"], f["action"],
             f["insert"], f["vtag"], f["value_int"], f["width"], f["expand"],
             f["mark_ids"], f["pred_src"], f["pred_key"], f["values"],
+        )
+
+    @classmethod
+    def _collect_fast(cls, log, deduped, rank_of) -> "OpLog":
+        """The batch extraction: the changes' cached columns
+        (``assemble.ranked_from_caches``, decoded natively once a change)
+        rank-translated and concatenated, then the shared Lamport sort and
+        reference joins (``_finalize``). Places what the assembler does
+        not: a negative key or pred counter, as a missing reference."""
+        from .assemble import ranked_from_caches
+
+        r = ranked_from_caches(deduped, rank_of)
+        a = r["a"]
+        N = a["n"]
+        mark_idx = (
+            a["mark_ids"] if a["mark_ids"] is not None else np.full(N, -1, np.int32)
+        )
+        log.props = list(a["key_table"])
+        log.mark_names = list(a["mark_table"])
+        return cls._finalize(
+            log,
+            r["id_key"],
+            r["obj"],
+            r["prop_ids"].astype(np.int32),
+            r["elem"],
+            a["action"],
+            a["insert"],
+            np.minimum(a["vcode"], TAG_UNKNOWN).astype(np.int32),
+            a["value_int"],
+            a["width"],
+            a["expand"],
+            mark_idx.astype(np.int32),
+            r["pred_src"],
+            r["pred_key"],
+            (a["vcode"], a["voff"], a["vlen"], a["vraw"]),
         )
 
     @classmethod
@@ -225,7 +287,13 @@ class OpLog:
         log.width = width[order]
         log.expand = expand[order]
         log.mark_name_idx = mark_idx[order]
-        log.values = [values[i] for i in order]
+        if isinstance(values, tuple):  # lazy heap: (code, off, len, raw)
+            from .extract import LazyValues
+
+            code, off, ln, raw = values
+            log.values = LazyValues(code[order], off[order], ln[order], raw)
+        else:
+            log.values = [values[i] for i in order]
 
         inv = np.empty(n, np.int32)  # old row -> new row
         inv[order] = np.arange(n, dtype=np.int32)
@@ -394,19 +462,48 @@ class OpLog:
         self._bufs[name] = nbuf
         return out
 
-    def append_changes(self, changes: Iterable[StoredChange]):
+    def _ensure_ref_keys(self) -> bool:
+        """Materialize the packed reference-key columns (``elem_key`` per
+        row, ``pred_key`` per edge) the append path splices and
+        re-resolves. Logs built by ``_finalize`` carry them; assembled
+        logs rebuild them from the resolved row refs, which is impossible
+        only when a ref is MISSING (a partial history): then False."""
+        if self.elem_key is None:
+            er = self.elem_ref
+            if self.n and np.any(er == ELEM_MISSING):
+                return False
+            safe = np.clip(er, 0, max(self.n - 1, 0))
+            self.elem_key = np.where(
+                er == ELEM_MAP,
+                np.int64(-1),
+                np.where(er == ELEM_HEAD, np.int64(0), self.id_key[safe]),
+            ).astype(np.int64)
+        if self.pred_key is None:
+            if len(self.pred_tgt) and np.any(self.pred_tgt < 0):
+                return False
+            self.pred_key = (
+                self.id_key[self.pred_tgt].astype(np.int64)
+                if len(self.pred_tgt)
+                else np.empty(0, np.int64)
+            )
+        return True
+
+    def append_changes(self, changes: Iterable[StoredChange], fast: bool = True):
         """Splice new changes into the existing columns WITHOUT re-collecting
-        prior replicas: flatten only the fresh changes, merge their rows
-        into the Lamport order with searchsorted position arithmetic,
-        re-resolve references that touch the delta, and report the dirty
-        object set.
+        prior replicas: extract only the fresh changes (``_extract_delta``:
+        natively, from their column caches), merge their rows into the
+        Lamport order with searchsorted position arithmetic, re-resolve
+        references that touch the delta, and report the dirty object set.
+        ``fast=False`` flattens the fresh changes op by op instead (the
+        per-op oracle).
 
         Returns an ``AppendInfo`` on success, or ``None`` when the log
-        cannot be updated in place (packed-id collisions, too many
-        actors): the caller then rebuilds via ``from_changes``. New actors are handled in place:
-        actor ranks are byte-ordered, so inserting actors remaps every
-        packed key through a MONOTONE rank map, which preserves the
-        existing sort order.
+        cannot be updated in place (packed-id collisions, too many actors,
+        an assembled partial history whose MISSING refs have no key to
+        re-resolve): the caller then rebuilds via ``from_changes``. New
+        actors are handled in place: actor ranks are byte-ordered, so
+        inserting actors remaps every packed key through a MONOTONE rank
+        map, which preserves the existing sort order.
         """
         known = self.hashes()
         fresh: List[StoredChange] = []
@@ -419,6 +516,8 @@ class OpLog:
         if not fresh:
             return AppendInfo(self.n, 0, np.empty(0, np.int64), None, True,
                               np.empty(0, np.int64), None, False)
+        if not self._ensure_ref_keys():
+            return None
 
         # -- actor universe (monotone rank remap keeps old order sorted) --
         old_bytes = [a.bytes for a in self.actors]
@@ -449,8 +548,8 @@ class OpLog:
             def remap_packed(key):
                 return np.asarray(key, np.int64)
 
-        # -- flatten ONLY the fresh changes -------------------------------
-        r = _flatten(fresh, rank_of)
+        # -- extract ONLY the fresh changes -------------------------------
+        r = self._extract_delta(fresh, rank_of) if fast else _flatten(fresh, rank_of)
         k = len(r["id_key"])
 
         n = self.n
@@ -584,16 +683,9 @@ class OpLog:
         od_new = np.searchsorted(new_table, r["obj"][order]).astype(np.int32)
         od_all = sp("obj_dense", od_old.astype(np.int32, copy=False), od_new)
 
-        # -- values (a Python list; fromiter keeps each ScalarValue, a
-        # tuple, one object instead of a row of two) ---------------------
-        new_vals = [r["values"][i] for i in order]
-        if tail:
-            values = list(self.values) + new_vals
-        else:
-            arr = np.empty(m, object)
-            arr[row_map] = np.fromiter(self.values, object, count=n)
-            arr[new_rows] = np.fromiter(new_vals, object, count=k)
-            values = arr.tolist()
+        # -- values heap ----------------------------------------------------
+        values = self._splice_values(r["values"], order, row_map, new_rows,
+                                     tail, m)
 
         # -- dirty objects (NEW dense numbering) ---------------------------
         parts = [od_new, np.searchsorted(new_table, make_new)]
@@ -639,6 +731,77 @@ class OpLog:
         return AppendInfo(n, k, new_rows, row_map, tail, dirty, obj_remap,
                           actors_changed, n_pred_old=q,
                           rere_elem_rows=rere_rows, rere_pred_edges=rere_pred)
+
+    def _extract_delta(self, fresh, rank_of) -> dict:
+        """The fresh changes' columns in ``_flatten``'s shape, extracted
+        natively from their column caches (``assemble.ranked_from_caches``);
+        ``values`` is the lazy heap (code, off, len, raw). A counter past
+        the packed ids' range raises, as in ``from_changes``."""
+        from . import assemble as A
+
+        if A.route(fresh) == A.ROUTE_OVERFLOW:
+            raise A.AssembleError("counter outside packed range")
+        r = A.ranked_from_caches(fresh, rank_of)
+        a = r["a"]
+        k = a["n"]
+        return {
+            "id_key": r["id_key"],
+            "obj": r["obj"],
+            "prop_ids": r["prop_ids"],
+            "elem": r["elem"],
+            "action": a["action"],
+            "insert": a["insert"],
+            "vtag": np.minimum(a["vcode"], TAG_UNKNOWN).astype(np.int32),
+            "value_int": a["value_int"],
+            "width": a["width"],
+            "expand": a["expand"],
+            "mark_ids": (a["mark_ids"] if a["mark_ids"] is not None
+                         else np.full(k, -1, np.int32)),
+            "pred_src": r["pred_src"],
+            "pred_key": r["pred_key"],
+            "values": (a["vcode"], a["voff"], a["vlen"], a["vraw"]),
+            "key_table": a["key_table"],
+            "mark_table": a["mark_table"],
+        }
+
+    def _splice_values(self, delta, order, row_map, new_rows, tail, m):
+        """The values spliced like the columns. A lazy heap and a lazy
+        delta ((code, off, len, raw)) splice as index columns plus an
+        append-only raw heap; any other pair (the per-op oracle's lists)
+        as an object list."""
+        from .extract import LazyValues
+
+        vals = self.values
+        if isinstance(vals, LazyValues) and isinstance(delta, tuple):
+            d_code, d_off, d_ln, d_raw = delta
+            base = len(vals.raw)
+            code = self._splice_col("vcode", vals.code, d_code[order],
+                                    row_map, new_rows, tail, m)
+            off = self._splice_col("voff", vals.off, d_off[order] + base,
+                                   row_map, new_rows, tail, m)
+            ln = self._splice_col("vlen", vals.ln, d_ln[order],
+                                  row_map, new_rows, tail, m)
+            # append-only raw heap: a bytearray grows geometrically, so a
+            # delta stream costs O(delta) amortized instead of re-copying
+            # the resident bytes each append (offsets of old rows never
+            # move, so sharing the buffer with earlier LazyValues is safe)
+            raw = vals.raw
+            if not isinstance(raw, bytearray):
+                raw = bytearray(raw)
+            raw += d_raw
+            return LazyValues(code, off, ln, raw, cap=vals.cap)
+        if isinstance(delta, tuple):
+            delta = LazyValues(*delta)
+        k = len(order)
+        new_vals = [delta[int(i)] for i in order]
+        old = vals if isinstance(vals, list) else [vals[i] for i in range(len(vals))]
+        if tail:
+            return old + new_vals
+        # fromiter keeps each ScalarValue, a tuple, one object
+        arr = np.empty(m, object)
+        arr[row_map] = np.fromiter(old, object, count=len(old))
+        arr[new_rows] = np.fromiter(new_vals, object, count=k)
+        return arr.tolist()
 
     def _commit_actors(self, all_bytes, actors_changed, remap_packed, old_id):
         if not actors_changed:

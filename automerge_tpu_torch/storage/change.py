@@ -20,6 +20,12 @@ indices 1.. are the other actors in lexicographic byte order. Op columns (by
 spec): obj actor/counter (1, 2), key actor/counter/string (17, 19, 21),
 insert (52), action (66), value meta/raw (86, 87), pred group/actor/counter
 (112, 113, 115), expand (148), mark name (165).
+
+Parsing keeps the op column bytes and decodes no op: one native pass
+(``native.change_check``) counts the ops and raises where the per-op
+decoder (``decode_change_ops``) and the actor bounds check would, and
+``ops`` is a ``LazyOps`` that decodes on first access. The log extractor
+(ops/extract.py, ops/assemble.py) reads the column bytes directly.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
+from .. import native
 from ..types import Key, OpId, ScalarValue, is_head, is_root
 from ..utils.codecs import (
     BooleanEncoder,
@@ -100,6 +107,10 @@ class StoredChange:
     raw_bytes: Optional[bytes] = None  # whole chunk incl. header
     # Raw op-column bytes (spec -> bytes) as built or parsed.
     op_col_data: Optional[dict] = None
+    # Decoded chunk-local column arrays (ops/assemble.ChangeCols), kept on
+    # the change after its first extraction so that later logs built from
+    # it do not decode it again.
+    cached_cols: Optional[object] = field(default=None, repr=False, compare=False)
 
     @property
     def actors(self) -> List[bytes]:
@@ -259,6 +270,37 @@ def _pad(lst: list, n: int) -> list:
     return lst
 
 
+class LazyOps:
+    """List-like view over a change's ops, decoded from the retained column
+    bytes on first element access. ``len`` is always O(1); the log
+    extraction reads ``op_col_data`` directly and never materializes
+    ChangeOp objects."""
+
+    __slots__ = ("_col_data", "_n", "_ops")
+
+    def __init__(self, col_data: dict, n: int):
+        self._col_data = col_data
+        self._n = n
+        self._ops = None
+
+    def _mat(self) -> List[ChangeOp]:
+        if self._ops is None:
+            self._ops = decode_change_ops(self._col_data)
+        return self._ops
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __bool__(self) -> bool:
+        return self._n > 0
+
+    def __iter__(self):
+        return iter(self._mat())
+
+    def __getitem__(self, i):
+        return self._mat()[i]
+
+
 def build_change(change: StoredChange) -> StoredChange:
     """Encode ``change`` into chunk bytes, filling ``hash``/``raw_bytes``."""
     data = bytearray()
@@ -331,11 +373,7 @@ def parse_change_data(data: bytes, chunk_hash_: bytes, raw: bytes) -> StoredChan
     col_data = C.slice_column_data(data, metas, pos)
     pos += C.total_column_len(metas)
     extra = bytes(data[pos:])
-    ops = decode_change_ops(col_data)
-    _saved_col_data = dict(col_data)
-    n_actors = 1 + len(others)
-    for i, op in enumerate(ops):
-        _check_actor_bounds(op, i, n_actors)
+    n_ops = native.change_check(col_data, 1 + len(others))
     return StoredChange(
         dependencies=deps,
         actor=actor,
@@ -344,24 +382,12 @@ def parse_change_data(data: bytes, chunk_hash_: bytes, raw: bytes) -> StoredChan
         start_op=start_op,
         timestamp=timestamp,
         message=message or None,
-        ops=ops,
+        ops=LazyOps(col_data, n_ops),
         extra_bytes=extra,
         hash=chunk_hash_,
         raw_bytes=raw,
-        op_col_data=_saved_col_data,
+        op_col_data=col_data,
     )
-
-
-def _check_actor_bounds(op: ChangeOp, i: int, n_actors: int) -> None:
-    refs = []
-    if op.obj != ROOT_STORED:
-        refs.append(op.obj[1])
-    if op.key.elem is not None and op.key.elem != HEAD_STORED:
-        refs.append(op.key.elem[1])
-    refs.extend(p[1] for p in op.pred)
-    for a in refs:
-        if a < 0 or a >= n_actors:
-            raise ValueError(f"op {i} references missing actor index {a}")
 
 
 def parse_change(buf: bytes, pos: int = 0) -> tuple[StoredChange, int]:

@@ -12,14 +12,22 @@ Phases, each raising on failure (nothing is caught):
 
  1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
     no CUDA device is an error;
- 2. build the kernels from automerge_tpu_torch/csrc with nvcc (sm_90a);
+ 2. build the kernels from automerge_tpu_torch/csrc with nvcc (sm_90a)
+    and the native host library from automerge_tpu_torch/native with g++
+    (its seconds printed);
  3. the main paths, each with every kernel's launch count set to 0 just
     before it and read just after:
     a. text fan-in (BASELINE width: a 260,000-edit base, 1024 x 250):
-       parse, OpLog, DeviceDoc.merge on the card (run-native staging:
-       expand_runs decodes the run tables) and text(); the text length must
-       equal the generator's count; scatter_winners must run (the group
-       table passes the scatter gate), sort_winners must not; then, on the
+       parse (the column bytes kept, checked in one native pass, no op
+       decoded), OpLog (the native assembler), DeviceDoc.merge on the card
+       (run-native staging: expand_runs decodes the run tables) and
+       text(); the text length must equal the generator's count;
+       scatter_winners must run (the group table passes the scatter gate),
+       sort_winners must not; then, outside the timed window, the per-op
+       oracle's log of the same bytes (OpLog.from_changes(fast=False),
+       its op decode and its flatten timed beside parse and oplog) must
+       equal the native log on every column, props, mark names and value;
+       then, on the
        same OpLog, merge_columns with staging="expand" and "dense": all 13
        outputs equal across the three stagings (h2d bytes, host encode and
        decode seconds, launches printed for each; the "expand" staging,
@@ -29,7 +37,7 @@ Phases, each raising on failure (nothing is caught):
        (conflicts as > 1), the same text, and its flat vector's bytes
        printed against the dict readback's;
     b. record-store fan-in (65,536 records x 8 fields, 1024 x 250): the
-       same phases, then keys of the records map and map_entries of every
+       same phases (the oracle's log too), then keys of the records map and map_entries of every
        visible record; the generator's counts (visible records, the votes
        sum, keys with concurrent values) must hold; sort_winners must run,
        scatter_winners must not; the three stagings and the packed
@@ -38,8 +46,10 @@ Phases, each raising on failure (nothing is caught):
     c. the record store served: the base merged on the card (its launches
        read on their own), then DeviceDoc.apply_batches of the replicas in
        64 batches of 16, with the counts set to 0 just before; every batch
-       must launch expand_runs (run-native staging, K1); every READ_FETCH
-       array must equal (b)'s exactly; then the same 64 batches from the
+       must launch expand_runs (run-native staging, K1) and splice through
+       the native delta extraction (OpLog._extract_delta); every READ_FETCH
+       array must equal (b)'s exactly, and the final log a from_changes
+       rebuild of its changes from their bytes; then the same 64 batches from the
        same base with staging="dense" (no expand_runs; its base merge's
        launches again read on their own, the counts set to 0 just before
        the batches), equal to (b) too, p50 and max per batch printed
@@ -637,6 +647,7 @@ def text_fanin(name: str, card: str, device, make_trace=None):
     report_path(f"{name} fan-in", doc.log, phases, t_end - t0, counts, card)
     if len(text) != expect_len:
         raise AssertionError(f"{name} length {len(text)} != expected {expect_len}")
+    check_native_log(f"{name} fan-in", doc.log, blobs)
     check_launches(f"{name} fan-in", counts, RUN_NATIVE + ("scatter_winners",),
                    ("sort_winners",) + TRANSPORT_ONLY)
     print(f"{name}: {len(text)} characters, as the generator counted", flush=True)
@@ -670,6 +681,66 @@ def report_path(name, log, phases, e2e, counts, card) -> None:
     print(f"{name} launches {json.dumps(counts)}", flush=True)
 
 
+def check_native_log(name: str, log, blobs) -> None:
+    """The per-op oracle's log of the same change bytes
+    (OpLog.from_changes(fast=False): every op decoded and flattened in
+    Python) equals the native ``log`` on every column, props, mark names
+    and value; its seconds printed beside the native path's."""
+    from automerge_tpu_torch.ops.oplog import OpLog
+    from automerge_tpu_torch.storage.change import parse_change
+
+    t0 = time.perf_counter()
+    changes = [parse_change(b)[0] for b in blobs]
+    t1 = time.perf_counter()
+    for ch in changes:
+        list(ch.ops)  # the per-op decode the parser used to do
+    t2 = time.perf_counter()
+    oracle = OpLog.from_changes(changes, fast=False)
+    t3 = time.perf_counter()
+    check_logs_equal(f"{name} oracle", log, oracle)
+    print(f"{name} oracle (per-op): parse {t1 - t0:.6f} s + op decode "
+          f"{t2 - t1:.6f} s, oplog (flatten) {t3 - t2:.6f} s; equal to the "
+          f"native log on every column, props, mark names and value", flush=True)
+    # the two native builders of the log, in turns, each from a fresh parse
+    # (so each decodes the column caches): the assembler (from_changes's
+    # route here) and the batch extraction forced
+    builders = {"assembler": lambda chs: OpLog.from_changes(chs),
+                "batch extraction": lambda chs: OpLog._collect_fast(*OpLog._start(chs))}
+    times = {k: [] for k in builders}
+    for k in ("assembler", "batch extraction", "batch extraction", "assembler"):
+        fresh = [parse_change(b)[0] for b in blobs]
+        t0 = time.perf_counter()
+        built = builders[k](fresh)
+        times[k].append(time.perf_counter() - t0)
+        check_logs_equal(f"{name} {k}", built, oracle)
+    print(f"{name} oplog builders, in turns: " + "; ".join(
+        f"{k} {', '.join(f'{t:.6f}' for t in v)} s" for k, v in times.items())
+        + "; each equal to the oracle's log", flush=True)
+
+
+LOG_COLUMNS = ("id_key", "obj_key", "obj_table", "obj_dense", "prop", "elem_ref",
+               "action", "insert", "value_tag", "value_int", "width", "expand",
+               "mark_name_idx", "pred_src", "pred_tgt")
+
+
+def check_logs_equal(name: str, got, want) -> None:
+    import numpy as np
+
+    if (got.n, got.n_objs) != (want.n, want.n_objs):
+        raise AssertionError(f"{name}: {got.n} rows, {got.n_objs} objects, not "
+                             f"{want.n}, {want.n_objs}")
+    for k in ("props", "mark_names", "actors"):
+        if list(getattr(got, k)) != list(getattr(want, k)):
+            raise AssertionError(f"{name}: {k} differ")
+    for k in LOG_COLUMNS:
+        g, w = np.asarray(getattr(got, k)), np.asarray(getattr(want, k))
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"{name}: column {k} differs")
+    for i in range(got.n):
+        if tuple(got.values[i]) != tuple(want.values[i]):
+            raise AssertionError(f"{name}: value of row {i} differs")
+
+
 def record_paths(card: str, device):
     """(b) the record-store fan-in and (c) the record store served:
     (fan-in log, the last served batch's subset, launch counts of each,
@@ -679,7 +750,8 @@ def record_paths(card: str, device):
     from automerge_tpu_torch import kernels
     from automerge_tpu_torch import workload as W
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
-    from automerge_tpu_torch.ops.oplog import pad_columns
+    from automerge_tpu_torch.ops.oplog import OpLog, pad_columns
+    from automerge_tpu_torch.storage.change import parse_change
 
     base, reps, expect, t_gen, t_enc = record_workload()
     print(f"record workload: {1 + len(reps)} changes, "
@@ -699,6 +771,7 @@ def record_paths(card: str, device):
     report_path("record fan-in", doc.log, phases, t_end - t0, fanin_counts, card)
     if got != expect:
         raise AssertionError(f"record fan-in read {got}, generator counted {expect}")
+    check_native_log("record fan-in", doc.log, [base] + reps)
     check_launches("record fan-in", fanin_counts, RUN_NATIVE + ("sort_winners",),
                    ("scatter_winners",) + TRANSPORT_ONLY)
     print(f"record fan-in: {json.dumps(got)}, as the generator counted", flush=True)
@@ -715,6 +788,7 @@ def record_paths(card: str, device):
     t0 = time.perf_counter()
     served = DeviceDoc.merge([base], device=device)
     t_base = time.perf_counter() - t0
+    n_base = served.log.n
     base_counts = kernels.launch_counts()
     print(f"record served base launches {json.dumps(base_counts)}", flush=True)
     check_launches("record served base", base_counts, RUN_NATIVE + ("sort_winners",),
@@ -724,8 +798,10 @@ def record_paths(card: str, device):
     # launches
     dirty_sets = []
     batch_decodes = []
+    deltas = []  # rows of each native delta extraction
     dispatch = DeviceDoc._dispatch_async
     step = DeviceDoc._pipeline_step
+    extract_delta = OpLog._extract_delta
 
     def noting_dispatch(self, dirty, phases=None):
         handle = dispatch(self, dirty, phases)
@@ -739,9 +815,15 @@ def record_paths(card: str, device):
         batch_decodes.append(kernels.launch_counts()["expand_runs"] - before)
         return out
 
+    def noting_delta(self, fresh, rank_of):
+        r = extract_delta(self, fresh, rank_of)
+        deltas.append(len(r["id_key"]))
+        return r
+
     phases = {}
     DeviceDoc._dispatch_async = noting_dispatch
     DeviceDoc._pipeline_step = counting_step
+    OpLog._extract_delta = noting_delta
     try:
         kernels.reset_launches()
         t1 = time.perf_counter()
@@ -751,6 +833,7 @@ def record_paths(card: str, device):
     finally:
         DeviceDoc._dispatch_async = dispatch
         DeviceDoc._pipeline_step = step
+        OpLog._extract_delta = extract_delta
     seconds = phases.pop("batches")
     print(f"record served: base merge {t_base:.3f} s, {len(batches)} batches of "
           f"{RECORD_BATCH}: {t_end - t1:.3f} s, per batch p50 "
@@ -766,7 +849,19 @@ def record_paths(card: str, device):
                    ("scatter_winners",) + TRANSPORT_ONLY)
     if len(batch_decodes) != len(batches) or min(batch_decodes) < 1:
         raise AssertionError(f"a served batch launched no expand_runs: {batch_decodes}")
+    if len(deltas) != len(batches) or sum(deltas) != served.log.n - n_base:
+        raise AssertionError(f"the served batches did not all splice through the "
+                             f"native delta: {len(deltas)} extractions of "
+                             f"{sum(deltas)} rows")
+    print(f"record served: {len(deltas)} native delta extractions, "
+          f"{sum(deltas)} rows", flush=True)
     check_served_equal("record served", served, doc, expect)
+    t0 = time.perf_counter()
+    rebuilt = OpLog.from_changes([parse_change(c.raw_bytes)[0]
+                                  for c in served.log.changes])
+    check_logs_equal("record served rebuild", served.log, rebuilt)
+    print(f"record served: the spliced log equals a from_changes rebuild of its "
+          f"changes ({time.perf_counter() - t0:.3f} s)", flush=True)
 
     # the same batches from the same base, staged dense
     kernels.reset_launches()
@@ -1890,6 +1985,14 @@ def main() -> int:
     built = _build.build()
     print(f"build: {built:.2f} s compiling ({time.perf_counter() - t0:.2f} s "
           f"with cache check), {_build.library_path().name}", flush=True)
+    from automerge_tpu_torch import native
+
+    t0 = time.perf_counter()
+    built = native.build()
+    native.load()
+    print(f"native build: {built:.2f} s compiling with g++ "
+          f"({' '.join(native.GXX_FLAGS)}; {time.perf_counter() - t0:.2f} s with "
+          f"cache check and load), {native.library_path().name}", flush=True)
 
     if sys.argv[1:] == ["--cards"]:
         cards_paths(card, device)

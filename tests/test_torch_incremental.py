@@ -27,6 +27,8 @@ from automerge_tpu_torch.ops.device_doc import DeviceDoc
 from automerge_tpu_torch.storage.change import ChangeOp, StoredChange, build_change
 from automerge_tpu_torch.types import Key, ScalarValue
 
+from .test_torch_extract import SpliceOracle
+
 MODES = ("apply_changes", "apply_batches", "pipelined")
 
 
@@ -215,6 +217,23 @@ def test_served_document_equals_jax_after_every_batch(scenario, mode, branches):
         _assert_same(doc, jdoc, scenario, f"step {i}")
     if scenario == "records":  # the low actor was ranked in, remapping ids
         assert doc.log.actors[0].bytes == bytes(16)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_served_splice_equals_the_oracle_splice_and_a_rebuild(scenario, mode,
+                                                             monkeypatch):
+    """After every step the served log, spliced through the native delta
+    (``_extract_delta``), equals the per-op oracle's splice of the same
+    changes and a fresh ``OpLog.from_changes`` of them (every column,
+    ``props``, ``mark_names`` and value)."""
+    start, steps = SCENARIOS[scenario]()
+    doc = DeviceDoc.merge(start, device="cpu")
+    oracle = SpliceOracle(monkeypatch, doc)
+    for i, (blobs, kw, _, _) in enumerate(steps):
+        _apply(doc, blobs, kw, mode)
+        oracle.check(doc, f"step {i}")
+    assert oracle.deltas > 0
 
 
 def test_changes_wait_for_their_dependencies():

@@ -89,13 +89,59 @@ mdoc = DeviceDoc.merge([c.raw_bytes for c in changes[:-1]], device="cpu")
 mdoc.enable_mesh(devices=["cpu"] * 2, min_rows=0)
 mdoc.apply_changes([changes[-1].raw_bytes])
 assert mesh_runs == [1] and mdoc.text(base.text_exid) == doc.text(base.text_exid)
+from automerge_tpu_torch import native
+from automerge_tpu_torch.ops import assemble, extract
+from automerge_tpu_torch.storage.change import LazyOps, parse_change
+ch = parse_change(changes[1].raw_bytes)[0]
+assert isinstance(ch.ops, LazyOps) and len(ch.ops) == len(changes[1].ops)
+assert assemble.route(log.changes) == assemble.ROUTE_ASSEMBLE
+assert isinstance(log.values, extract.LazyValues)
+maps = open("/proc/self/maps").read()
+assert str(native.library_path()) in maps
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "automerge_tpu") or m.startswith(("jax.", "automerge_tpu."))
 )
+bad += sorted({line.split()[-1] for line in maps.splitlines()
+               if "automerge_tpu/native/" in line or "_codecs-" in line})
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
 """
+
+_NO_GXX_RUN = r"""
+import sys, tempfile
+from pathlib import Path
+from automerge_tpu_torch import native
+native.BUILD_DIR = Path(tempfile.mkdtemp())
+from automerge_tpu_torch import workload as W
+from automerge_tpu_torch.ops.oplog import OpLog
+from automerge_tpu_torch.storage.change import parse_change
+from automerge_tpu_torch.ops.device_doc import DeviceDoc
+base, reps, _ = W.record_store(16, 2, 20)
+for name, call in (("from_changes", lambda: OpLog.from_changes([base] + reps)),
+                   ("parse_change", lambda: parse_change(base.raw_bytes)),
+                   ("merge", lambda: DeviceDoc.merge([base.raw_bytes], device="cpu"))):
+    try:
+        call()
+    except native.NativeUnavailable as e:
+        print(name, "raised", str(e).splitlines()[0])
+    else:
+        print(name, "returned")
+        sys.exit(1)
+assert not list(native.BUILD_DIR.iterdir())
+"""
+
+
+def test_no_native_library_no_log(tmp_path):
+    """Without g++ (PATH holds none) and with an empty build directory,
+    ``OpLog.from_changes``, ``parse_change`` and ``DeviceDoc.merge`` raise
+    ``NativeUnavailable``: there is no pure-Python fallback."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PATH"] = str(tmp_path)
+    r = subprocess.run([sys.executable, "-c", _NO_GXX_RUN], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.count("raised g++ not found") == 3, r.stdout
 
 
 def _forbidden(name: str) -> bool:

@@ -27,6 +27,7 @@ from automerge_tpu.storage.change import parse_change as j_parse_change
 from automerge_tpu.types import ObjType
 from automerge_tpu_torch.ops.device_doc import DeviceDoc
 
+from .test_torch_extract import SpliceOracle
 from .test_torch_histories import KEYS, _history  # noqa: F401 (others import it here)
 
 
@@ -121,6 +122,30 @@ def test_served_batches_equal_jax_after_every_batch(seed, mode):
         assert _reads(doc) == _reads(jdoc), i
     assert doc.pending_changes() == 0
     assert _reads(doc) == _reads(DeviceDoc.merge(base + rest, device="cpu"))
+
+
+@pytest.mark.parametrize("mode", ["apply_changes", "apply_batches", "pipelined"])
+@pytest.mark.parametrize("seed", SEEDS[:4])
+def test_served_splice_equals_the_oracle_splice_and_a_rebuild(seed, mode,
+                                                             monkeypatch):
+    """The served document's log after every shuffled batch: spliced
+    through the native delta (``_extract_delta``), it equals the per-op
+    oracle's splice of the same changes (``append_changes(fast=False)``)
+    and a fresh ``OpLog.from_changes`` of its changes, on every column,
+    ``props``, ``mark_names`` and value."""
+    base, rest = _history(seed)
+    rng = random.Random(3000 + seed)
+    rest = [b for b in rest if b not in base]
+    rng.shuffle(rest)
+    doc = DeviceDoc.merge(base, device="cpu")
+    oracle = SpliceOracle(monkeypatch, doc)
+    i = 0
+    while i < len(rest):
+        batch = rest[i:i + rng.randrange(1, 7)]
+        i += len(batch)
+        _apply(doc, batch, mode)
+        oracle.check(doc, f"batch ending {i}")
+    assert oracle.deltas > 0 and doc.pending_changes() == 0
 
 
 @pytest.mark.parametrize("devices", [["cpu"] * 2, ["cpu:0", "cpu:1"]],
