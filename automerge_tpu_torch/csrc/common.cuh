@@ -36,3 +36,28 @@ static inline int amt_blocks(long long n) {
 __device__ __forceinline__ int amt_clamp(int i, int n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
+
+// The blocks of a grid-stride launch over `work` items, one a thread:
+// enough for all of them, at most `per_sm` blocks on each of `sms` SMs
+// (the wrapper reads the card's SM count).
+static inline int amt_grid(long long work, int sms, int per_sm) {
+  long long cap = (long long)(sms > 0 ? sms : 1) * per_sm;
+  long long want = (work + AMT_THREADS - 1) / AMT_THREADS;
+  return (int)(want < 1 ? 1 : (want < cap ? want : cap));
+}
+
+__host__ __device__ __forceinline__ bool amt_aligned(const void* p, unsigned n) {
+  return ((uintptr_t)p & (n - 1)) == 0;
+}
+
+// A load that evicts first (ld.global.cs): for values read once and dead
+// after, so that L2 keeps what the next kernels read. A host C++ compiler
+// (scripts/check_cuda_syntax.py) has no __ldcs and sees a plain load.
+template <class T>
+__device__ __forceinline__ T amt_load_first(const T* p) {
+#ifdef __CUDACC__
+  return __ldcs(p);
+#else
+  return *p;
+#endif
+}

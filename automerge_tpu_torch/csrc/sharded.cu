@@ -7,12 +7,20 @@
 // loops then run over R2 slots with linearize.cu's range entries:
 //   cond_init   (:283-285) the climb's start state per chain;
 //   cond_succ   (:300-306) each chain's successor chain and length;
-//   cond_expand (:320-334) element ranks of a row slice from the chain
+//   cond_expand (:320-334) element ranks of a row range from the chain
 //               ranks and in-chain offsets.
 // Gathers clamp, as XLA's do. int32 arithmetic wraps (uint32 here).
 //
 // Bound: bytes, each input read once and each output written once (the
 // tables are gathered at data-dependent slots, counted once each).
+//
+// cond_expand is called once per device over all the rows that device's
+// shards hold (the whole [0, P) on a mesh of one card), writing straight
+// into the replicated result, one row a thread. cdist (R2 <= 524,288
+// int32) and start_chain are gathers that sit in L2. (On an H100 at the
+// text fan-in, four rows a thread with 16-byte loads measured 1.05-1.15x
+// and a grid-stride loop over 8 blocks an SM 1.06x this kernel's device
+// time, PERF.md §6.)
 #include "common.cuh"
 
 __global__ void cc_init(const int* __restrict__ centry,
@@ -46,6 +54,7 @@ __global__ void cc_succ(const int* __restrict__ tail_ans,
   cdist[c] = clen[c];
 }
 
+// rank[k] for the rows r0 + k, k < count
 __global__ void cc_expand(const int* __restrict__ chain_id,
                           const int* __restrict__ offset,
                           const int* __restrict__ obj_dense,

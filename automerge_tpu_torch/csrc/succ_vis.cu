@@ -43,10 +43,6 @@ __device__ __forceinline__ bool sv_alive(int a, int tag, int s, int i) {
   return is_counter ? s == 0 : (int)((unsigned)s + (unsigned)i) == 0;
 }
 
-__device__ __forceinline__ bool sv_aligned(const void* p, unsigned n) {
-  return ((uintptr_t)p & (n - 1)) == 0;
-}
-
 // COUNTS = false: the row pass of amt_succ_vis (zero the counts, visible
 // before the edges). COUNTS = true: amt_visibility, the whole rule over
 // given succ/inc (read, not written).
@@ -59,10 +55,10 @@ __global__ void sv_rows(const int* __restrict__ action,
                         bool* __restrict__ visible) {
   long long r0 = 4LL * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   if (r0 >= P) return;
-  bool wide = r0 + 4 <= P && sv_aligned(action, 16) && sv_aligned(succ, 16) &&
-              sv_aligned(inc, 16) && sv_aligned(covered, 4) &&
-              sv_aligned(visible, 4) &&
-              (COUNTS ? sv_aligned(value_tag, 16) : sv_aligned(counter_inc, 16));
+  bool wide = r0 + 4 <= P && amt_aligned(action, 16) && amt_aligned(succ, 16) &&
+              amt_aligned(inc, 16) && amt_aligned(covered, 4) &&
+              amt_aligned(visible, 4) &&
+              (COUNTS ? amt_aligned(value_tag, 16) : amt_aligned(counter_inc, 16));
   if (wide) {
     int4 a = *reinterpret_cast<const int4*>(action + r0);
     unsigned cov = *reinterpret_cast<const unsigned*>(covered + r0);

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -56,3 +57,14 @@ def stream(t: torch.Tensor) -> Stream:
     if _raw_stream is not None:
         return Stream(_raw_stream(dev.index), dev)
     return Stream(torch.cuda.current_stream(dev).cuda_stream, dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SM count of ``t``'s card (read once a card): grid-stride
+    kernels size their grids by it."""
+    return _sms(t.device.index)

@@ -3,8 +3,9 @@
 Replace the elementwise parts of ``automerge_tpu/parallel/sharding.py``
 ``_sharded_linearize_condensed`` (:255-335); the CUDA kernels are
 ``csrc/sharded.cu``, one thread per chain slot (``cond_init``,
-``cond_succ``) or per row of a shard's slice (``cond_expand``). The
-doubling loops between them are ``linearize.linearize_thread`` and
+``cond_succ``) or per row (``cond_expand``, called once per device
+over all its shards' rows, into the replicated result). The doubling
+loops between them are ``linearize.linearize_thread`` and
 ``linearize.linearize_rank`` over the R2 chain slots. Bound by bytes:
 each input read once (the gathered tables at the slots this data
 reaches), each output written once.
@@ -108,12 +109,14 @@ cond_succ.launches = 0
 
 
 def cond_expand(chain_id, offset, obj_dense, insert, action, start_chain, cdist,
-                r0: int, count: int):
+                r0: int, count: int, out=None):
     """elem_index int32 [count] of the rows [r0, r0+count) from the rows'
     int32 [P] chain_id/offset/obj_dense/action and bool [P] insert, the
     objects' first chains ``start_chain`` (int32 [n_objs2]) and the
-    ranked chain distances ``cdist`` (int32 [R2]). CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    ranked chain distances ``cdist`` (int32 [R2]); written into ``out``
+    (an int32 [count] view, e.g. a device's slice of the replicated
+    result) when given, and returned. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     P = chain_id.shape[0] if isinstance(chain_id, torch.Tensor) else -1
     for name, t, dt in (
         ("chain_id", chain_id, torch.int32), ("offset", offset, torch.int32),
@@ -130,12 +133,18 @@ def cond_expand(chain_id, offset, obj_dense, insert, action, start_chain, cdist,
                          f"{n_objs2}, {R2}")
     if not (0 <= r0 and 0 <= count and r0 + count <= P):
         raise ValueError(f"rows [{r0}, {r0 + count}) outside [0, {P})")
-    if not on_cuda(chain_id=chain_id, offset=offset, obj_dense=obj_dense,
-                   insert=insert, action=action, start_chain=start_chain,
-                   cdist=cdist):
-        return cond_expand_plain(chain_id, offset, obj_dense, insert, action,
-                                 start_chain, cdist, r0, count)
-    out = torch.empty(count, dtype=torch.int32, device=cdist.device)
+    named = dict(chain_id=chain_id, offset=offset, obj_dense=obj_dense,
+                 insert=insert, action=action, start_chain=start_chain,
+                 cdist=cdist)
+    if out is not None:
+        expect(out, "out", torch.int32, (count,))
+        named["out"] = out
+    if not on_cuda(**named):
+        res = cond_expand_plain(chain_id, offset, obj_dense, insert, action,
+                                start_chain, cdist, r0, count)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(count, dtype=torch.int32, device=cdist.device)
     cond_expand.launches += _build.launch(
         "amt_cond_expand", _EXPAND_SIG, ptr(chain_id), ptr(offset),
         ptr(obj_dense), ptr(insert), ptr(action), ptr(start_chain), n_objs2,

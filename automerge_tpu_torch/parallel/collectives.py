@@ -18,9 +18,11 @@ collectives turn the first into the second:
 - ``all_gather`` (``jax.lax.all_gather(x, tiled=True)``): the shards'
   slices copied, in shard order, into one full-size tensor on each
   distinct device;
-- ``psum`` / ``pmax`` (``jax.lax.psum`` / ``pmax``): the shards' tables
-  copied into one [n, L] stack on each distinct device and folded there
-  by the ``mesh_reduce`` kernel (int32 sums wrap).
+- ``psum`` / ``pmax`` (``jax.lax.psum`` / ``pmax``, at most ``CAP``
+  shards): the shards' tables folded on each distinct device by one
+  ``mesh_reduce`` launch (int32 sums wrap), the tables on that device
+  read where they lie and only the other devices' copied in first (on a
+  mesh of one device, nothing).
 
 A doubling loop of the sharded merge gathers its state every round
 without ``all_gather``'s allocation: ``all_gather_into`` copies in only
@@ -29,7 +31,7 @@ a mesh of one device, where a kernel writes the whole state, nothing is
 copied at all (``note_gather``).
 
 ``stats`` counts each collective's calls, the bytes it delivered into
-the gathered or stacked buffers (``bytes``, the reference's volume,
+the gathered buffers or the fold (``bytes``, the reference's volume,
 whoever wrote them) and the bytes ``copy_`` actually moved (``copied``),
 by kind; ``gathers`` lists every all_gather in call order as (per-shard
 length, bytes delivered). ``reset_stats()`` zeroes both.
@@ -42,7 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..device import resolve_device
-from ..kernels.collectives import mesh_reduce
+from ..kernels.collectives import CAP, fold
 
 KINDS = ("all_gather", "psum", "pmax")
 
@@ -170,16 +172,28 @@ def all_gather_into(mesh: Mesh, full: Dict[torch.device, torch.Tensor],
 
 
 def _reduce(kind: str, op: str, mesh: Mesh, parts: Sequence[torch.Tensor]):
+    """One ``fold`` a distinct device over the shards' tables, in shard
+    order: the tables of the shards on that device as they are, the
+    others' copied into one [m, ...] staging buffer there first. The
+    tables are checked here, once, not again by the fold."""
     shape = parts[0].shape
-    L = parts[0].numel()
-    out = {}
+    if len(parts) != mesh.size or mesh.size > CAP or any(
+            p.dtype != torch.int32 or p.shape != shape or not p.is_contiguous()
+            for p in parts):
+        raise ValueError(f"{kind}: expected {mesh.size} (at most {CAP}) contiguous "
+                         "int32 tables of one shape, one a shard")
+    nbytes = parts[0].numel() * 4
+    out, copied = {}, 0
     for d in mesh.distinct:
-        stack = torch.empty(mesh.size, L, dtype=torch.int32, device=d)
-        for i, p in enumerate(parts):
-            stack[i].copy_(p.reshape(L))
-        out[d] = mesh_reduce(stack, op).reshape(shape)
-    nbytes = len(mesh.distinct) * mesh.size * L * 4
-    _note(kind, nbytes, nbytes)
+        remote = [i for i, dev in enumerate(mesh.devices) if dev != d]
+        tables = list(parts)
+        if remote:
+            stage = torch.empty((len(remote),) + shape, dtype=torch.int32, device=d)
+            for row, i in zip(stage, remote):
+                tables[i] = row.copy_(parts[i])
+            copied += len(remote) * nbytes
+        out[d] = fold(tables, op)
+    _note(kind, len(mesh.distinct) * mesh.size * nbytes, copied)
     return out
 
 

@@ -21,20 +21,24 @@ each distinct device, and the phases run as follows.
    forest's first-child chains into R chains (``condense_host``), the
    ancestor climb and the Wyllie ranking run over R2 chain slots, each
    round a shard advancing its slice and an ``all_gather`` of O(R)
-   values, then each shard expands its row slice to element ranks and
-   one ``all_gather`` of O(P) values ends it. ``linearize="rows"`` runs
-   the reference's other arm instead (its arm without the native
-   library): the same loops over the E = P + 1 element nodes, padded to
-   n (P/n + 1), so each round gathers O(P). Where every shard sits on one
-   device (``Mesh(["cuda:0"] * 4)``, a CPU mesh), the shards' slices tile
-   the state and a loop is one call of its rounds entry (``rounds``
-   launches, no copy); over distinct devices each device advances its
-   shards' slices in its own buffers and only the others' are copied in.
+   values, then the shards' rows are expanded to element ranks and one
+   ``all_gather`` of O(P) values ends it (one launch per device, into
+   the replicated result: nothing is copied on one device).
+   ``linearize="rows"`` runs the reference's other arm instead (its arm
+   without the native library): the same loops over the E = P + 1
+   element nodes, padded to n (P/n + 1), so each round gathers O(P).
+   Where every shard sits on one device (``Mesh(["cuda:0"] * 4)``, a
+   CPU mesh), the shards' slices tile the state and a loop is one call
+   of its rounds entry (``rounds`` launches, no copy); over distinct
+   devices each device advances its shards' slices in its own buffers
+   and only the others' are copied in.
 
 Replicated phases run once per distinct device of the mesh (their values
 are the same on every shard); row-sliced phases launch once per shard,
-on its device. On a CUDA mesh every step launches its kernel or raises:
-there is no fallback to one device.
+on its device, but for the condensed expansion, once per run of shards
+on a device; psum and pmax fold once per distinct device. On a CUDA
+mesh every step launches its kernel or raises: there is no fallback to
+one device.
 """
 
 from __future__ import annotations
@@ -172,8 +176,8 @@ def _sharded_linearize(mesh, cols, out, Pl):
 def _sharded_linearize_condensed(mesh, cols, cond, Pl, Rl):
     """Document order over the chain-condensed forest
     (``_sharded_linearize_condensed``, :255): the climb and the ranking
-    over R2 chain slots (O(R) per all_gather), then each shard expands
-    its rows and one all_gather of O(P) values."""
+    over R2 chain slots (O(R) per all_gather), then the rows' expansion
+    and one all_gather of O(P) values (``_expand``)."""
     R2 = Rl * mesh.size
     rounds = L.ceil_log2(R2) + 1
     init = {d: cond_init(cond[d]["centry"], cond[d]["cpar"]) for d in mesh.distinct}
@@ -183,11 +187,36 @@ def _sharded_linearize_condensed(mesh, cols, cond, Pl, Rl):
                          cond[d]["clen"]) for d in mesh.distinct}
     state = tuple({d: succ[d][k] for d in mesh.distinct} for k in range(2))
     cdist, _ = _doubling(mesh, RANK, state, Rl, rounds)
-    ranks = C.per_shard(mesh, lambda i, d: cond_expand(
-        cond[d]["chain_id"], cond[d]["offset"], cols[d]["obj_dense"],
-        cols[d]["insert"], cols[d]["action"], cond[d]["start_chain"], cdist[d],
-        i * Pl, Pl))
-    return C.all_gather(mesh, ranks)
+    return _expand(mesh, cols, cond, cdist, Pl)
+
+
+def _expand(mesh, cols, cond, cdist, Pl):
+    """The element ranks of every row, replicated: the shards' expansions
+    and the reference's one all_gather of them (:320-334). Where every
+    shard sits on one device, one ``cond_expand`` over all P rows writes
+    the replicated result and the gather moves nothing; over distinct
+    devices each run of shards on one device is one launch into that
+    device's full buffer at its offset, and ``all_gather_into`` copies
+    in the other devices' slices."""
+
+    def expand(d, r0, count, out=None):
+        return cond_expand(cond[d]["chain_id"], cond[d]["offset"],
+                           cols[d]["obj_dense"], cols[d]["insert"],
+                           cols[d]["action"], cond[d]["start_chain"], cdist[d],
+                           r0, count, out=out)
+
+    if len(mesh.distinct) == 1:
+        (d,) = mesh.distinct
+        elem = expand(d, 0, mesh.size * Pl)
+        C.note_gather(mesh, Pl, elem.element_size())
+        return {d: elem}
+    full = {d: torch.empty(mesh.size * Pl, dtype=torch.int32, device=d)
+            for d in mesh.distinct}
+    for d, first, count in mesh.runs:
+        r0, n = first * Pl, count * Pl
+        expand(d, r0, n, out=full[d][r0:r0 + n])
+    C.all_gather_into(mesh, full, Pl)
+    return full
 
 
 def _sharded_merge(mesh, cols, preds, Pl, n_objs2, n_props, cond=None, Rl=0):

@@ -109,8 +109,11 @@ Phases, each raising on failure (nothing is caught):
     merge's at the typing fan-in's (linearize
     beside linearize_condensed on one log); the sharded merge's at one
     shard's shapes of "text sharded", "text sharded rows" and "records
-    sharded" (mesh_reduce at the psum of the counts and the pmax of the
-    winners, its library time torch.stack(...).sum(0) / .amax(0); the
+    sharded" (mesh_reduce folding the four shards' tables where they lie
+    at the psum of the counts and the pmax of the winners, its library
+    time torch.stack(parts).sum(0, dtype=torch.int32) / .amax(0) from the
+    same tables; cond_expand over all P rows in one launch, as a mesh of
+    one card runs it; the
     range kernels at one round of one shard's slice, the rounds entries
     at the whole loop over all nodes, timed on the device too, with a
     round's share of their time and bound); sort_winners also on synthetic
@@ -300,8 +303,10 @@ def sharded_work(name: str, args, out, distinct):
     from automerge_tpu_torch.types import Action
 
     if name == "mesh_reduce":
-        stack, _op = args
-        return nbytes(stack, *out), stack.numel()
+        parts = args[0]
+        parts = list(parts) if not isinstance(parts, torch.Tensor) else [parts]
+        # every table read once, the result written once
+        return nbytes(*parts, *out), sum(t.numel() for t in parts)
     if name == "succ_partial":
         action, _value_i32, _covered, pred_src, pred_tgt = args
         P = action.numel()
@@ -527,6 +532,25 @@ def check_launches(path: str, counts: dict, must: tuple, must_not: tuple) -> Non
 def check_call_launches(name: str, launched: int, want: int) -> None:
     if launched != want:
         raise AssertionError(f"{name}: {launched} launches a call, not {want}")
+
+
+def check_collective_launches(name: str, counts: dict, mesh, scatter: bool,
+                              linearize: str, stats=None) -> None:
+    """A sharded merge's folds and expansions: one ``mesh_reduce`` a
+    distinct card for each psum and pmax (three psums and a pmax past the
+    scatter gate, the counts' psum alone below it), one ``cond_expand`` a
+    run of shards on a card in the condensed arm; on one card (``stats``:
+    the collectives' counts) psum and pmax copy nothing."""
+    k = len(mesh.distinct)
+    check_call_launches(f"{name} mesh_reduce", counts["mesh_reduce"],
+                        (4 if scatter else 1) * k)
+    check_call_launches(f"{name} cond_expand", counts["cond_expand"],
+                        len(mesh.runs) if linearize == "condensed" else 0)
+    if stats is not None and k == 1:
+        copied = {kind: stats[kind]["copied"] for kind in ("psum", "pmax")}
+        if any(copied.values()):
+            raise AssertionError(f"{name}: the folds copied bytes on one card: "
+                                 f"{copied}")
 
 
 SHARED = ("succ_vis", "forest", "radix_sort", "linearize")
@@ -1100,6 +1124,7 @@ def sharded_path(name, card, cols, n_objs: int, n_props: int, mesh, single,
         # one call of `rounds` launches, or a launch a run a round
         check_call_launches(f"{name} {loop}", counts[loop],
                             rounds * (1 if one_card else len(mesh.runs)))
+    check_collective_launches(name, counts, mesh, scatter, linearize, stats)
     for k in ALL_OUTPUTS:
         if out[k].shape != want[k].shape or not np.array_equal(out[k], want[k]):
             raise AssertionError(f"{name}: {k} differs from the single-device merge's")
@@ -1218,6 +1243,7 @@ def mesh_doc_path(card, device, log, text_obj):
 
     from automerge_tpu_torch import kernels
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.parallel import Mesh
 
     changes = list(log.changes)
     docs, counts = {}, {}
@@ -1241,6 +1267,8 @@ def mesh_doc_path(card, device, log, text_obj):
     check_launches("text mesh doc", counts["mesh"],
                    SHARDED_ALL + SHARDED_CONDENSED + ONE_CARD_LOOPS + SHARDED_SCATTER,
                    NOT_SHARDED + CARDS_LOOPS + ("sort_winners",))
+    check_collective_launches("text mesh doc", counts["mesh"],
+                              Mesh([device] * MESH_SHARDS), True, "condensed")
     check_launches("text mesh doc single", counts["single"],
                    RUN_NATIVE + ("scatter_winners",),
                    SHARDED_ALL[:3] + SHARDED_CONDENSED + ONE_CARD_LOOPS
@@ -1592,11 +1620,12 @@ def condensed_kernels(cols, n_objs: int, n_props: int, device, rcap: int):
 def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
     """The sharded merge's kernels on one path's padded columns at one
     shard's shapes (the mesh of ``MESH_SHARDS``), as it runs them:
-    succ_partial on shard 0's pred slice, mesh_reduce on the four shards'
-    stacked accumulators (and, past the scatter gate, on their win
-    tables), visibility, the row-range winners at shard 0, then the
-    ``linearize`` arm's kernels: a doubling round at one shard's slice of
-    the state (the loops run to their end in between)."""
+    succ_partial on shard 0's pred slice, mesh_reduce folding the four
+    shards' accumulators where they lie (and, past the scatter gate,
+    their win tables), visibility, the row-range winners at shard 0, then
+    the ``linearize`` arm's kernels: a doubling round at one shard's slice
+    of the state (the loops run to their end in between), and the
+    condensed expansion over all rows in one launch."""
     from automerge_tpu_torch.convert import columns_from_numpy
     from automerge_tpu_torch.kernels import collectives as CK
     from automerge_tpu_torch.kernels import forest as F
@@ -1623,11 +1652,10 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
                         SV.succ_partial.launches - before, n * SP_LAUNCHES)
     rows = [("succ_partial", SV.succ_partial, SV.succ_partial_plain, succ_in(0),
              (accs[0],), None, f"shard 0, {SP_LAUNCHES} launch a call")]
-    stack = torch.stack([a.reshape(-1) for a in accs])
-    acc = CK.mesh_reduce(stack, "sum")
-    rows.append(("mesh_reduce", CK.mesh_reduce, CK.mesh_reduce_plain, (stack, "sum"),
-                 (acc,), lambda: torch.stack(accs).sum(0), f"psum [{n}, 3P]"))
-    acc = acc.reshape(3, P)
+    acc = CK.mesh_reduce(accs, "sum")
+    rows.append(("mesh_reduce", CK.mesh_reduce, CK.mesh_reduce_plain, (accs, "sum"),
+                 (acc,), lambda: torch.stack(accs).sum(0, dtype=torch.int32),
+                 f"psum {n} x [3, P]"))
     vis_in = (c["action"], c["value_tag"], c["covered"], acc[0], acc[1])
     visible = SV.visibility(*vis_in)
     rows.append(("visibility", SV.visibility, SV.visibility_plain, vis_in,
@@ -1644,12 +1672,11 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
                      SW.winners_partial_plain, part_in(0), (tables[0],), None,
                      "shard 0"))
         wins = [t[0] for t in tables]
-        win_stack = torch.stack(wins)
-        win = CK.mesh_reduce(win_stack, "max")
+        win = CK.mesh_reduce(wins, "max")
         rows.append(("mesh_reduce", CK.mesh_reduce, CK.mesh_reduce_plain,
-                     (win_stack, "max"), (win,), lambda: torch.stack(wins).amax(0),
-                     f"pmax [{n}, G]"))
-        cnt = CK.mesh_reduce(torch.stack([t[1] for t in tables]), "sum")
+                     (wins, "max"), (win,), lambda: torch.stack(wins).amax(0),
+                     f"pmax {n} x [G]"))
+        cnt = CK.mesh_reduce([t[1] for t in tables], "sum")
         wg_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
                  c["width"], win, cnt, 0, Pl, *geom)
         rows.append(("winners_gather", SW.winners_gather, SW.winners_gather_plain,
@@ -1708,9 +1735,9 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
                  f"R2={R2}"))
     cdist = doubling(rank, cs, Rl, rounds, f"R2={R2}")[0]
     ce_in = (cond["chain_id"], cond["offset"], c["obj_dense"], c["insert"],
-             c["action"], cond["start_chain"], cdist, 0, Pl)
+             c["action"], cond["start_chain"], cdist, 0, P)
     rows.append(("cond_expand", SH.cond_expand, SH.cond_expand_plain, ce_in,
-                 (SH.cond_expand(*ce_in),), None, "shard 0"))
+                 (SH.cond_expand(*ce_in),), None, f"all {P} rows, one launch"))
     return rows
 
 
@@ -1753,7 +1780,8 @@ REPLACES = {
 DEVICE_TIMED = ("expand_runs", "linearize", "linearize_condensed",
                 "scatter_winners", "forest",
                 "radix_sort", "succ_vis", "succ_partial", "visibility",
-                "linearize_thread_rounds", "linearize_rank_rounds")
+                "linearize_thread_rounds", "linearize_rank_rounds",
+                "mesh_reduce", "cond_expand")
 
 
 def bound(name: str, args, out) -> tuple:

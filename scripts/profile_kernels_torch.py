@@ -29,6 +29,12 @@ four shards on the card (``Mesh(["cuda:0"] * 4)``; with ``--mesh
 cards``, over four distinct cards) with that path's arm: its launches
 by kernel, its times, no bound.
 
+On a sharded path a ``mesh_reduce`` row is the whole collective it
+serves (``parallel.collectives.psum`` / ``pmax`` of the four shards'
+tables on the card, from the tables to the result), its bound the
+fold's; with ``--ab`` the other tree's whole collective (its
+allocations and copies included) is timed beside it.
+
 On a condensed path with both ``linearize_condensed`` and ``linearize``
 named, ``linearize`` (K7) runs on the forest K8 ranks, and its row adds
 400 pairs of this tree's K8 against it (``linearize_condensed_vs_this``:
@@ -271,6 +277,19 @@ def merge_rows(path: str, spec, device, mesh=None):
              f"{mesh.size} shards on {where}, {linearize} arm")]
 
 
+def whole_collective(args, device, tag: str):
+    """A ``mesh_reduce`` row's (tables, op) as the collective they serve:
+    (``psum`` or ``pmax``, its arguments over ``MESH_SHARDS`` shards on
+    the card, its output, tag)."""
+    from automerge_tpu_torch.parallel import collectives as C
+    from automerge_tpu_torch.parallel import default_mesh
+
+    parts, op = args
+    fn = C.psum if op == "sum" else C.pmax
+    cargs = (default_mesh(devices=[device] * len(parts)), parts)
+    return fn, cargs, fn(*cargs), f"{tag}, the whole {fn.__name__}"
+
+
 def beside_row(rows):
     """On a condensed path: ``linearize`` (K7) on the forest that
     ``linearize_condensed`` (K8, the last row) ranks, as a row of the
@@ -339,9 +358,11 @@ def main() -> int:
         for name, kern, _plain, args, out, library, tag in rows:
             if name not in wanted:
                 continue
-            fn = lambda: kern(*args)  # noqa: E731
             out = out if isinstance(out, (tuple, dict)) else (out,)
             ms, by = S.bound(name, args, out) if name in S.REPLACES else (None, None)
+            if name == "mesh_reduce":
+                kern, args, out, tag = whole_collective(args, device, tag)
+            fn = lambda: kern(*args)  # noqa: E731
             row = {"label": a.label, "path": path, "tag": tag, "fn": name,
                    "P": len(spec[0]["action"]),
                    "launches": launches(kernels, name, fn),

@@ -813,6 +813,89 @@ def test_mesh_reduce_equals_plain_version(cuda, op, shape):
     _same(got, CK.mesh_reduce_plain(stack, op))
 
 
+def _on_card_at(a, device, offset):
+    """``a`` on the card as a view ``offset`` elements into a buffer of
+    its own (offset 1 of int32: 4 bytes off 16-byte alignment)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=device)
+    buf[offset:] = t.to(device)
+    return buf[offset:]
+
+
+def _int32_tables(n, L, seed):
+    """n int32 [L] tables of any int32, the first columns the extremes
+    and values whose sum wraps (2^31 - 1 beside 1, -2^31 beside -1)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-(1 << 31), 1 << 31, (n, L), dtype=np.int64).astype(np.int32)
+    special = np.array([(1 << 31) - 1, 1, -(1 << 31), -1, 0], np.int32)
+    for s in range(n):
+        k = min(L, len(special))
+        a[s, :k] = np.roll(special, s)[:k]
+    return a
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "4-byte-offset"])
+@pytest.mark.parametrize("L", [1, 3, 4, 5, 1_548_288])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+def test_mesh_reduce_of_parts_equals_plain_version(cuda, n, L, offset):
+    """The fold of n tables where they lie, in one launch: equal to the
+    plain version and to numpy's wrapping int32 sum and max, with the
+    tables 16-byte aligned (four columns a thread) or views 4 bytes off
+    (the scalar path); nothing is allocated on the card but the result."""
+    from automerge_tpu_torch.kernels import collectives as CK
+
+    a = _int32_tables(n, L, n * 7 + L)
+    parts = [_on_card_at(row, cuda, offset) for row in a]
+    for op in CK.OPS:
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+        reset_launches()
+        got = CK.mesh_reduce(parts, op)
+        assert launch_counts()["mesh_reduce"] == 1
+        assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] == allocated + 1
+        _same(got, CK.mesh_reduce_plain(parts, op))
+        want = a.max(0) if op == "max" else a.sum(0, dtype=np.int32)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _expand_inputs(P, R2, n_objs2, seed, device, offset):
+    """cond_expand's inputs on the card, each a view ``offset`` elements
+    in: chain ids, offsets and object ids partly out of range or
+    negative, insert and pad rows mixed, distances of any int32."""
+    rng = np.random.default_rng(seed)
+    action = rng.integers(0, 16, P).astype(np.int32)
+    action[rng.random(P) < 0.2] = 15
+    cols = (rng.integers(-1, R2 + 3, P).astype(np.int32),
+            rng.integers(-5, 50, P).astype(np.int32),
+            rng.integers(0, n_objs2 + 2, P).astype(np.int32),
+            rng.random(P) < 0.7, action,
+            rng.integers(-1, R2, n_objs2).astype(np.int32),
+            rng.integers(-(1 << 31), 1 << 31, R2, dtype=np.int64).astype(np.int32))
+    return tuple(_on_card_at(c, device, offset) for c in cols)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd-offset"])
+@pytest.mark.parametrize("P", [1, 5, 4097, 516_096])
+def test_cond_expand_equals_plain_version(cuda, P, offset):
+    """The expansion over the whole row range in one launch, and over
+    ranges starting at odd rows and mid-range, into a fresh tensor and
+    into an ``out`` view at 0 or 4 bytes off 16-byte alignment: equal to
+    the plain version."""
+    from automerge_tpu_torch.kernels import sharded as SH
+
+    args = _expand_inputs(P, 1 << 12, 97, P, cuda, offset)
+    starts = (0, min(1, P), min(3, P), P // 2)
+    for r0, count in {(0, P), (starts[1], P - starts[1]), (starts[2], max(P - 7, 0)),
+                      (starts[3], P - starts[3])}:
+        want = SH.cond_expand_plain(*args, r0, count)
+        reset_launches()
+        _same(SH.cond_expand(*args, r0, count), want)
+        assert launch_counts()["cond_expand"] == (1 if count else 0)
+        out = _on_card_at(np.full(count, -7, np.int32), cuda, 1 - offset)
+        assert SH.cond_expand(*args, r0, count, out=out) is out
+        _same(out, want)
+
+
 def test_kernels_launch_on_their_tensors_card_whatever_is_current(cuda):
     """A wrapper given tensors on one card launches there while another
     card is the current device, as a mesh's shards on distinct cards do."""
@@ -986,6 +1069,37 @@ def test_sharded_merge_on_card_equals_single_device(cuda, linearize, transport):
         assert counts["scatter_winners"] == 0
         assert (counts["sort_winners"] > 0) == (not scatter)
         assert (counts["expand_runs"] > 0) == (transport == "packed")
+        for k in ALL_OUTPUTS:
+            m = len(single[k])
+            np.testing.assert_array_equal(got[k][:m], single[k], err_msg=f"{name} {k}")
+
+
+@pytest.mark.parametrize("linearize", ["condensed", "rows"])
+def test_sharded_merge_on_one_card_folds_in_place_and_expands_once(cuda, linearize):
+    """On four shards of one card a sharded merge folds each psum and
+    pmax in one ``mesh_reduce`` launch, copying nothing (4 launches past
+    the scatter gate, the counts' psum alone below it), and the condensed
+    arm expands all rows in one ``cond_expand`` launch; its outputs equal
+    the single-device merge's."""
+    from automerge_tpu_torch.parallel import collectives as C
+    from automerge_tpu_torch.parallel import default_mesh, sharded_merge_columns
+
+    mesh = default_mesh(devices=[cuda] * 4)
+    base, reps, _ = _record_store()
+    for name, log in (("text", _log(*SIZES[0])),
+                      ("records", OpLog.from_changes(
+                          [parse_change(b)[0] for b in [base] + reps]))):
+        cols = log.padded_columns()
+        kw = dict(n_objs=log.n_objs, n_props=len(log.props))
+        single = merge_columns(cols, device=cuda, **kw)
+        C.reset_stats()
+        reset_launches()
+        got = sharded_merge_columns(cols, mesh, linearize=linearize, **kw)
+        counts = launch_counts()
+        assert counts["mesh_reduce"] == (4 if name == "text" else 1), (name, counts)
+        assert counts["cond_expand"] == (1 if linearize == "condensed" else 0)
+        assert C.stats["psum"]["copied"] == C.stats["pmax"]["copied"] == 0
+        assert C.stats["psum"]["calls"] == (3 if name == "text" else 1)
         for k in ALL_OUTPUTS:
             m = len(single[k])
             np.testing.assert_array_equal(got[k][:m], single[k], err_msg=f"{name} {k}")
