@@ -55,8 +55,8 @@
 //
 // The sharded merge (automerge_tpu/parallel/sharding.py) drives the
 // reference's loops round by round instead; its range entries below keep
-// them: li_init, li_thread (one threading round), li_rank_init, li_rank
-// (one Wyllie round) and li_final. Every round reads only the previous
+// them: li_init, li_thread (one threading round), li_rank (one Wyllie
+// round) and li_final. Every round reads only the previous
 // round's state (the reference's loop body is a pure function of it), so
 // the state lives in ping-pong buffers: an in-place `jump = jump[jump]`
 // would race.
@@ -77,6 +77,15 @@
 // arguments, so no pack or unpack launch); the records hold the raw
 // values, out-of-range links included, so the outputs are those of the
 // per-round loop bit for bit.
+//
+// The reference builds the rank state between the loops ({dist, nxt}
+// from the first children and the threading loop's answers,
+// sharding.py:232-236). The row arm's rank loop starts from those answers
+// instead (amt_linearize_rank_from_thread, and amt_linearize_rank_first
+// for the first round over distinct cards): its first round reads fc_e
+// and ans through the RankFromThread layout, at i and at j, as many loads
+// as the state's, so the init's launch, its [2, E] allocation and its 8E
+// bytes written and read again are gone.
 #include "tour.cuh"
 
 __global__ void li_init(const int* __restrict__ first_child,
@@ -129,33 +138,6 @@ __global__ void li_thread(const int* __restrict__ ans0,
   jump1[k] = jump0[j];
 }
 
-__global__ void li_rank_init(const int* __restrict__ fc_e,
-                             const int* __restrict__ ans, int P, int Epad,
-                             int* __restrict__ dist, int* __restrict__ nxt) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Epad) return;
-  if (i > P) {  // padding: dist 0, nxt the sentinel
-    nxt[i] = P;
-    dist[i] = 0;
-    return;
-  }
-  int s = fc_e[i] != -1 ? fc_e[i] : ans[i];
-  nxt[i] = (s < 0 || i == P) ? P : s;
-  dist[i] = i == P ? 0 : 1;
-}
-
-__global__ void li_rank(const int* __restrict__ dist0,
-                        const int* __restrict__ nxt0, int E, int i0,
-                        int count, int* __restrict__ dist1,
-                        int* __restrict__ nxt1) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= count) return;
-  int i = i0 + k;
-  int j = amt_clamp(nxt0[i], E);
-  dist1[k] = (int)((unsigned)dist0[i] + (unsigned)dist0[j]);
-  nxt1[k] = nxt0[j];
-}
-
 // the rounds entries' state layouts: a node's thread state as {ans, jump,
 // done, 0} and its rank state as {dist, nxt}, read from and written to
 // separate arrays (the first and last rounds) or records (between)
@@ -184,6 +166,24 @@ struct RankArrays {
     return make_int2(dist[i], nxt[i]);
   }
 };
+// the rank state that the reference builds between the two loops
+// (sharding.py:232-236), read straight from the threading loop's answers:
+// node i < P steps to its first child, else to A(i) (the sentinel P where
+// that is negative) at distance 1; the sentinel and the padding past it
+// end the list at distance 0. The first round of the row arm's rank loop
+// reads it, so no state is built or written between the loops, and the
+// round's loads are those of the arrays: fc_e (and ans) at i and at j.
+struct RankFromThread {
+  const int* __restrict__ fc_e;
+  const int* __restrict__ ans;
+  int P;
+  __device__ __forceinline__ int2 get(int i) const {
+    if (i >= P) return make_int2(0, P);
+    int s = fc_e[i];
+    if (s == -1) s = ans[i];
+    return make_int2(1, s < 0 ? P : s);
+  }
+};
 struct RankArraysOut {
   int* __restrict__ dist;
   int* __restrict__ nxt;
@@ -203,6 +203,20 @@ struct RecordsOut {
   __device__ __forceinline__ void put(int i, T s) const { rec[i] = s; }
 };
 
+// one Wyllie round over the nodes [i0, i0+count) of the E-node state, read
+// through its layout (the arrays, or the threading loop's answers for the
+// first round); the outputs are written from index 0
+template <class In>
+__global__ void li_rank(In in, int E, int i0, int count,
+                        int* __restrict__ dist1, int* __restrict__ nxt1) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= count) return;
+  int2 s = in.get(i0 + k);
+  int2 t = in.get(amt_clamp(s.y, E));
+  dist1[k] = (int)((unsigned)s.x + (unsigned)t.x);
+  nxt1[k] = t.y;
+}
+
 // one threading round over all E nodes (li_thread's arithmetic): a
 // node's own state, coalesced, and the state at j, one record
 template <class In, class Out>
@@ -215,7 +229,7 @@ __global__ void li_thread_round(In in, Out out, int E) {
   out.put(i, make_int4(take ? t.x : s.x, t.y, (s.z || take) ? 1 : 0, 0));
 }
 
-// one Wyllie round over all E nodes (li_rank's arithmetic)
+// one Wyllie round over all E nodes (li_rank's)
 template <class In, class Out>
 __global__ void li_rank_round(In in, Out out, int E) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -626,24 +640,28 @@ AMT_API int amt_linearize_thread(const int* ans0, const bool* done0,
   return (int)cudaGetLastError();
 }
 
-// dist/nxt: int32 [Epad] from the threaded answers ans [Epad]
-AMT_API int amt_linearize_rank_init(const int* fc_e, const int* ans, int P,
-                                    int Epad, int* dist, int* nxt,
-                                    cudaStream_t stream, int* launched) {
-  if (Epad <= 0) return (int)cudaGetLastError();
-  li_rank_init<<<amt_blocks(Epad), AMT_THREADS, 0, stream>>>(fc_e, ans, P,
-                                                             Epad, dist, nxt);
-  AMT_LAUNCHED;
-  return (int)cudaGetLastError();
-}
-
 // one ranking round over the nodes [i0, i0+count) of the E-node state
 AMT_API int amt_linearize_rank(const int* dist0, const int* nxt0, int E,
                                int i0, int count, int* dist1, int* nxt1,
                                cudaStream_t stream, int* launched) {
   if (count <= 0) return (int)cudaGetLastError();
-  li_rank<<<amt_blocks(count), AMT_THREADS, 0, stream>>>(dist0, nxt0, E, i0,
-                                                         count, dist1, nxt1);
+  li_rank<<<amt_blocks(count), AMT_THREADS, 0, stream>>>(
+      RankArrays{dist0, nxt0}, E, i0, count, dist1, nxt1);
+  AMT_LAUNCHED;
+  return (int)cudaGetLastError();
+}
+
+// the rank loop's first round over the nodes [i0, i0+count) of the E-node
+// state, read from the threading loop's answers (RankFromThread): fc_e/ans
+// int32 [E] of P rows, E >= P + 1
+AMT_API int amt_linearize_rank_first(const int* fc_e, const int* ans, int P,
+                                     int E, int i0, int count, int* dist1,
+                                     int* nxt1, cudaStream_t stream,
+                                     int* launched) {
+  if (P < 0 || P >= E) return (int)cudaErrorInvalidValue;
+  if (count <= 0) return (int)cudaGetLastError();
+  li_rank<<<amt_blocks(count), AMT_THREADS, 0, stream>>>(
+      RankFromThread{fc_e, ans, P}, E, i0, count, dist1, nxt1);
   AMT_LAUNCHED;
   return (int)cudaGetLastError();
 }
@@ -685,6 +703,30 @@ AMT_API int amt_linearize_thread_rounds(const int* ans, const bool* done,
   return (int)cudaGetLastError();
 }
 
+// `rounds` Wyllie rounds over all E nodes from the state layout `in`
+template <class In>
+static int li_rank_loop(In in, int E, int rounds, int* records,
+                        long long record_words, int* dist1, int* nxt1,
+                        cudaStream_t stream, int* launched) {
+  if (E < 0 || E >= (1 << 30) || rounds < 1) return (int)cudaErrorInvalidValue;
+  if (record_words < li_record_words(2, E, rounds))
+    return (int)cudaErrorInvalidValue;
+  if (E == 0) return (int)cudaGetLastError();
+  int blocks = amt_blocks(E);
+  if (rounds == 1) {  // the range kernel over [0, E)
+    li_rank<<<blocks, AMT_THREADS, 0, stream>>>(in, E, 0, E, dist1, nxt1);
+    AMT_LAUNCHED;
+    return (int)cudaGetLastError();
+  }
+  li_rounds<int2>(in, RankArraysOut{dist1, nxt1}, (int2*)records, E, rounds,
+                  [&](auto src, auto dst) {
+                    li_rank_round<decltype(src), decltype(dst)>
+                        <<<blocks, AMT_THREADS, 0, stream>>>(src, dst, E);
+                    AMT_LAUNCHED;
+                  });
+  return (int)cudaGetLastError();
+}
+
 // `rounds` Wyllie rounds over all E nodes (E < 2^30): dist/nxt int32 [E]
 // in, never written; dist1/nxt1 out; records: li_record_words(2, E,
 // rounds) int32 words, 8-byte aligned
@@ -693,25 +735,22 @@ AMT_API int amt_linearize_rank_rounds(const int* dist, const int* nxt, int E,
                                       long long record_words, int* dist1,
                                       int* nxt1, cudaStream_t stream,
                                       int* launched) {
-  if (E < 0 || E >= (1 << 30) || rounds < 1) return (int)cudaErrorInvalidValue;
-  if (record_words < li_record_words(2, E, rounds))
-    return (int)cudaErrorInvalidValue;
-  if (E == 0) return (int)cudaGetLastError();
-  int blocks = amt_blocks(E);
-  if (rounds == 1) {  // the range kernel over [0, E)
-    li_rank<<<blocks, AMT_THREADS, 0, stream>>>(dist, nxt, E, 0, E, dist1,
-                                                nxt1);
-    AMT_LAUNCHED;
-    return (int)cudaGetLastError();
-  }
-  li_rounds<int2>(RankArrays{dist, nxt}, RankArraysOut{dist1, nxt1},
-                  (int2*)records, E, rounds,
-                  [&](auto src, auto dst) {
-                    li_rank_round<decltype(src), decltype(dst)>
-                        <<<blocks, AMT_THREADS, 0, stream>>>(src, dst, E);
-                    AMT_LAUNCHED;
-                  });
-  return (int)cudaGetLastError();
+  return li_rank_loop(RankArrays{dist, nxt}, E, rounds, records, record_words,
+                      dist1, nxt1, stream, launched);
+}
+
+// the same from the threading loop's answers fc_e/ans (int32 [E], never
+// written) of P rows, E >= P + 1: the first round reads them through
+// RankFromThread, as amt_linearize_rank_rounds would read the state the
+// reference builds from them; no launch, allocation or write before it
+AMT_API int amt_linearize_rank_from_thread(const int* fc_e, const int* ans,
+                                           int P, int E, int rounds,
+                                           int* records, long long record_words,
+                                           int* dist1, int* nxt1,
+                                           cudaStream_t stream, int* launched) {
+  if (P < 0 || P >= E) return (int)cudaErrorInvalidValue;
+  return li_rank_loop(RankFromThread{fc_e, ans, P}, E, rounds, records,
+                      record_words, dist1, nxt1, stream, launched);
 }
 
 // elem_index of the rows [r0, r0+count): int32 [count]

@@ -19,8 +19,10 @@ The sharded merge's kernels (``automerge_tpu/parallel/sharding.py``, K11):
 | --- | --- |
 | ``succ_vis.succ_partial``, ``succ_vis.visibility`` | ``succ_resolution`` on a pred slice :340, ``visibility`` :345 |
 | ``scatter_winners.winners_partial``, ``winners_gather`` | ``_sharded_winners`` :99-163 |
-| ``linearize.linearize_init``, ``linearize_thread``, ``linearize_rank_init``, ``linearize_rank``, ``linearize_final`` | ``_sharded_linearize`` :166-252 (and the condensed arm's loops :287-317) |
+| ``linearize.linearize_init``, ``linearize_thread``, ``linearize_rank``, ``linearize_final`` | ``_sharded_linearize`` :166-252 (and the condensed arm's loops :287-317) |
+| ``linearize.linearize_rank_first`` | the rank init :232-236 with the first ``_rank`` round :238 |
 | ``linearize.linearize_thread_rounds``, ``linearize_rank_rounds`` | the loops ``_thread`` :218 and ``_rank`` :238 (and :287, :308) whole, where every shard is on one device |
+| ``linearize.linearize_rank_from_thread`` | the rank init :232-236 with the loop ``_rank`` :238 whole, where every shard is on one device |
 | ``sharded.cond_init``, ``cond_succ``, ``cond_expand`` | ``_sharded_linearize_condensed`` :283-285, :300-306, :320-334 |
 | ``collectives.mesh_reduce`` | ``jax.lax.psum`` / ``pmax`` :138-139, :154-162, :341-342 |
 
@@ -41,8 +43,8 @@ def wrappers():
     from .forest import forest
     from .linearize import (
         linearize, linearize_final, linearize_init, linearize_rank,
-        linearize_rank_init, linearize_rank_rounds, linearize_thread,
-        linearize_thread_rounds,
+        linearize_rank_first, linearize_rank_from_thread, linearize_rank_rounds,
+        linearize_thread, linearize_thread_rounds,
     )
     from .linearize_condensed import linearize_condensed
     from .radix_sort import radix_sort
@@ -68,11 +70,12 @@ def wrappers():
         "winners_gather": winners_gather,
         "linearize_init": linearize_init,
         "linearize_thread": linearize_thread,
-        "linearize_rank_init": linearize_rank_init,
         "linearize_rank": linearize_rank,
+        "linearize_rank_first": linearize_rank_first,
         "linearize_final": linearize_final,
         "linearize_thread_rounds": linearize_thread_rounds,
         "linearize_rank_rounds": linearize_rank_rounds,
+        "linearize_rank_from_thread": linearize_rank_from_thread,
         "cond_init": cond_init,
         "cond_succ": cond_succ,
         "cond_expand": cond_expand,

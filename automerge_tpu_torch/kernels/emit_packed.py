@@ -5,19 +5,24 @@ Replaces ``automerge_tpu/ops/merge.py`` ``_emit`` (:1181) with
 after another; ``visible`` and ``conflicts > 1`` bit-packed 32 rows to a
 word (bit b of word w is row 32w + b), every other output as int32, the
 per-object stats cut to ``obj_cap``. The CUDA kernel is
-``csrc/emit_packed.cu``: one launch for all outputs, one thread per row,
-a warp's ``__ballot_sync`` forming each word. Bound by bytes: each output
-read once, the flat vector written once.
+``csrc/emit_packed.cu``: one launch for all outputs, each segment its own
+range of blocks, a thread forming a whole word of a bit output or
+storing 16 bytes of a copied one. A call checks its outputs and lays
+out their plan (segment kinds, thresholds, lengths, offsets, block
+starts, flat length) in one loop over at most 16 outputs, then makes
+one C call. Bound by bytes: each output read once, the flat vector
+written once.
 """
 
 from __future__ import annotations
 
-import ctypes
+import array
+from typing import NamedTuple
 
 import torch
 
 from . import _build
-from ._args import on_cuda, stream
+from ._args import stream
 
 # name -> the bit is "value > threshold" (None: the bool value itself)
 BIT_OUTPUTS = {"visible": None, "conflicts": 1}
@@ -25,9 +30,8 @@ OBJ_STATS = ("obj_vis_len", "obj_text_width")
 MAX_OUTPUTS = 16  # csrc/emit_packed.cu AMT_EMIT_MAX
 
 _BITS_BOOL, _BITS_GT, _COPY_I32, _COPY_BOOL = range(4)
-_INTS = ctypes.POINTER(ctypes.c_int)
-_SIG = [ctypes.POINTER(ctypes.c_void_p), _INTS, _INTS, _INTS, _build.I_,
-        _build.P_, _build.P_]
+THREADS = 256  # a block's threads (csrc/common.cuh AMT_THREADS)
+_SIG = [_build.P_, _build.P_, _build.I_, _build.LL_, _build.P_, _build.P_]
 
 
 def _bitpack_plain(v):
@@ -63,46 +67,83 @@ def emit_packed_plain(core, fetch, obj_cap: int):
     return torch.cat(outs)
 
 
-def _flat_length(core, fetch, obj_cap: int) -> int:
-    """Length of the flat vector: ceil(n/32) words per bit output, n
-    values per other output."""
-    return sum((v.numel() + 31) // 32 if k in BIT_OUTPUTS else v.numel()
-               for k, v in _segments(core, fetch, obj_cap))
+class Plan(NamedTuple):
+    """The layout of one flat vector. ``meta`` holds, per segment, its
+    kind, threshold, rows, offset in the vector and first block, then
+    the grid's blocks, as the C entry reads them."""
+    meta: array.array
+    flat_length: int
+
+
+# a bit output's (dtype, kind, threshold); any other's kind by its dtype
+_BIT_KINDS = {"visible": (torch.bool, _BITS_BOOL, 0),
+              "conflicts": (torch.int32, _BITS_GT, BIT_OUTPUTS["conflicts"])}
+_COPY_KINDS = {torch.int32: _COPY_I32, torch.bool: _COPY_BOOL}
+
+
+def _kind(k: str, dtype: torch.dtype) -> tuple:
+    """(kind, threshold) of the output ``k`` of ``dtype``."""
+    bit = _BIT_KINDS.get(k)
+    if bit is None:
+        kind = _COPY_KINDS.get(dtype)
+        if kind is None:
+            raise TypeError(f"emit_packed: {k} is {dtype}, expected int32 or bool")
+        return kind, 0
+    if dtype != bit[0]:
+        raise TypeError(f"emit_packed: {k} is {dtype}, expected {bit[0]}")
+    return bit[1:]
+
+
+def plan(fetch, obj_cap: int, srcs) -> Plan:
+    """The plan of the outputs ``fetch`` names, ``srcs`` (in fetch
+    order, the stats cut to ``obj_cap``), each checked: int32 or bool as
+    its kind wants, contiguous, on the first one's device."""
+    if not 0 < len(fetch) <= MAX_OUTPUTS:
+        raise ValueError(f"emit_packed: {len(fetch)} outputs, 1 to {MAX_OUTPUTS}")
+    meta = array.array("i")
+    off = blocks = 0
+    dev = srcs[0].device
+    for k, v in zip(fetch, srcs):
+        kind, thresh = _kind(k, v.dtype)
+        if v.device != dev:
+            raise ValueError(f"emit_packed: {k} on {v.device}, {fetch[0]} on {dev}")
+        if not v.is_contiguous():
+            raise ValueError(f"emit_packed: {k} is not contiguous")
+        n = v.numel()
+        if k in OBJ_STATS and n > obj_cap:
+            n = obj_cap
+        meta.extend((kind, thresh, n, off, blocks))
+        # a word a thread of a bit output; four values a thread of a
+        # copied one, one more for those before its first aligned word
+        if kind <= _BITS_GT:
+            words = threads = (n + 31) >> 5
+        else:
+            words, threads = n, (n + 3 >> 2) + 1 if n else 0
+        off += words
+        blocks += (threads + THREADS - 1) // THREADS
+    if off >= 1 << 31:
+        raise ValueError(f"emit_packed: {off} values exceed the int32 offsets")
+    meta.append(blocks)
+    return Plan(meta, off)
 
 
 def emit_packed(core, fetch, obj_cap: int):
     """The flat int32 vector of the outputs ``fetch`` names in ``core``
-    (a dict of int32/bool tensors; ``visible`` bool, ``conflicts`` int32).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    segs = _segments(core, tuple(fetch), obj_cap)
-    if not 0 < len(segs) <= MAX_OUTPUTS:
-        raise ValueError(f"emit_packed: {len(segs)} outputs, 1 to {MAX_OUTPUTS}")
-    kinds = []
-    for k, v in segs:
-        if v.dtype not in (torch.int32, torch.bool):
-            raise TypeError(f"emit_packed: {k} is {v.dtype}, expected int32 or bool")
-        if k in BIT_OUTPUTS:
-            want = torch.bool if BIT_OUTPUTS[k] is None else torch.int32
-            if v.dtype != want:
-                raise TypeError(f"emit_packed: {k} is {v.dtype}, expected {want}")
-            kinds.append(_BITS_BOOL if BIT_OUTPUTS[k] is None else _BITS_GT)
-        else:
-            kinds.append(_COPY_BOOL if v.dtype == torch.bool else _COPY_I32)
-        if not v.is_contiguous():
-            raise ValueError(f"emit_packed: {k} is not contiguous")
-    if not on_cuda(**dict(segs)):
+    (a dict of contiguous int32/bool tensors; ``visible`` bool,
+    ``conflicts`` int32). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    srcs = [core[k] for k in fetch]
+    p = plan(fetch, obj_cap, srcs)
+    dev = srcs[0].device
+    if dev.type != "cuda":
+        if dev.type != "cpu":
+            raise ValueError(f"unsupported device {dev}")
         return emit_packed_plain(core, fetch, obj_cap)
-    dev = segs[0][1].device
-    out = torch.empty(_flat_length(core, fetch, obj_cap), dtype=torch.int32,
-                      device=dev)
-    n = len(segs)
-    srcs = (ctypes.c_void_p * n)(*[v.data_ptr() for _, v in segs])
-    threshs = [BIT_OUTPUTS.get(k) or 0 for k, _ in segs]
+    out = torch.empty(p.flat_length, dtype=torch.int32, device=dev)
+    ptrs = array.array("Q", [v.data_ptr() for v in srcs])
     emit_packed.launches += _build.launch(
-        "amt_emit_packed", _SIG, srcs, (ctypes.c_int * n)(*kinds),
-        (ctypes.c_int * n)(*threshs),
-        (ctypes.c_int * n)(*[v.numel() for _, v in segs]), n,
-        out.data_ptr(), stream(out))
+        "amt_emit_packed", _SIG, ptrs.buffer_info()[0], p.meta.buffer_info()[0],
+        len(srcs), p.flat_length, out.data_ptr(), stream(out))
     return out
 
 

@@ -18,13 +18,18 @@ The sharded merge (``parallel/sharding.py``) drives the reference's loops
 round by round: ``linearize_init`` (the threading state over Epad nodes,
 padded past the sentinel with fixed points), ``linearize_thread`` and
 ``linearize_rank`` (one round over a slice of the nodes, reading the
-full gathered state), ``linearize_rank_init`` and ``linearize_final``.
-Its condensed arm runs the same loops over the chain tables. Where every
+full gathered state) and ``linearize_final``. Its rank loop starts from
+the thread loop's answers: ``linearize_rank_first`` is its first round,
+reading ``fc_e`` and ``ans`` where the reference builds the ranking state
+between the loops (``linearize_rank_init_plain``, kept as the plain
+version's first step). Its condensed arm runs the same loops over the
+chain tables (the rank loop from ``cond_succ``'s state). Where every
 shard of the mesh sits on one device, a loop is one call of
-``linearize_thread_rounds`` / ``linearize_rank_rounds``: all its rounds
-over all E nodes in one C call, ``rounds`` launches, the state carried in
-records ({ans, jump, done, 0}, {dist, nxt}) between them. Bound by bytes:
-a round's load of the state at the node each jumps to.
+``linearize_thread_rounds`` / ``linearize_rank_from_thread`` (condensed:
+``linearize_rank_rounds``): all its rounds over all E nodes in one C
+call, ``rounds`` launches, the state carried in records ({ans, jump,
+done, 0}, {dist, nxt}) between them. Bound by bytes: a round's load of
+the state at the node each jumps to.
 """
 
 from __future__ import annotations
@@ -41,11 +46,12 @@ _P, _I = _build.P_, _build.I_
 _SIG = [_P] * 5 + [_I, _build.U_, _I, _P, _build.LL_, _P, _P]
 _INIT_SIG = [_P] * 4 + [_I, _I] + [_P] * 4 + [_P]
 _ROUND_SIG = [_P] * 3 + [_I] * 3 + [_P] * 3 + [_P]
-_RANK_INIT_SIG = [_P] * 2 + [_I, _I] + [_P] * 2 + [_P]
 _RANK_SIG = [_P] * 2 + [_I] * 3 + [_P] * 2 + [_P]
+_RANK_FIRST_SIG = [_P] * 2 + [_I] * 4 + [_P] * 2 + [_P]
 _FINAL_SIG = [_P] * 4 + [_I] * 3 + [_P] + [_P]
 _THREAD_ROUNDS_SIG = [_P] * 3 + [_I] * 2 + [_P, _build.LL_] + [_P] * 3 + [_P]
 _RANK_ROUNDS_SIG = [_P] * 2 + [_I] * 2 + [_P, _build.LL_] + [_P] * 2 + [_P]
+_RANK_FROM_THREAD_SIG = [_P] * 2 + [_I] * 3 + [_P, _build.LL_] + [_P] * 2 + [_P]
 # the node range of the rounds entries (their C entries refuse more)
 MAX_ROUNDS_NODES = 1 << 30
 
@@ -307,6 +313,13 @@ def linearize_rank_plain(dist, nxt, i0: int, count: int):
     return dist[sl] + dist[j], nxt[j]
 
 
+def linearize_rank_first_plain(fc_e, ans, P: int, i0: int, count: int):
+    """Plain PyTorch version of the rank loop's first round over the nodes
+    [i0, i0+count), from the thread loop's answers: the ranking state
+    built, then one Wyllie round."""
+    return linearize_rank_plain(*linearize_rank_init_plain(fc_e, ans, P), i0, count)
+
+
 def linearize_final_plain(first_child, is_elem, obj_dense, dist, r0: int,
                           count: int):
     """Plain PyTorch version of elem_index for the rows [r0, r0+count):
@@ -451,27 +464,6 @@ def linearize_thread(ans, done, jump, i0: int, count: int, out=None):
 linearize_thread.launches = 0
 
 
-def linearize_rank_init(fc_e, ans, P: int):
-    """(dist, nxt) int32 [Epad]: the ranking state from the threaded
-    answers ``ans`` and first children ``fc_e`` (int32 [Epad]) of P rows.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    Epad = ans.shape[0] if isinstance(ans, torch.Tensor) else -1
-    expect(fc_e, "fc_e", torch.int32, (Epad,))
-    expect(ans, "ans", torch.int32, (Epad,))
-    if Epad < P + 1:
-        raise ValueError(f"Epad {Epad} < P + 1 = {P + 1}")
-    if not on_cuda(fc_e=fc_e, ans=ans):
-        return linearize_rank_init_plain(fc_e, ans, P)
-    state = torch.empty(2, Epad, dtype=torch.int32, device=ans.device)
-    linearize_rank_init.launches += _build.launch(
-        "amt_linearize_rank_init", _RANK_INIT_SIG, ptr(fc_e), ptr(ans), P, Epad,
-        ptr(state[0]), ptr(state[1]), stream(ans))
-    return state[0], state[1]
-
-
-linearize_rank_init.launches = 0
-
-
 def linearize_rank(dist, nxt, i0: int, count: int, out=None):
     """One Wyllie round over the nodes [i0, i0+count) of the E-node state
     (dist/nxt int32 [E]): (dist, nxt) of those nodes, [count] each,
@@ -492,6 +484,46 @@ def linearize_rank(dist, nxt, i0: int, count: int, out=None):
         "amt_linearize_rank", _RANK_SIG, ptr(dist), ptr(nxt), E, i0, count,
         ptr(out[0]), ptr(out[1]), stream(dist))
     return tuple(out)
+
+
+linearize_rank.launches = 0
+
+
+def _check_start(fc_e, ans, P: int) -> int:
+    """E, the node count of the thread loop's answers ``fc_e``/``ans``
+    (int32 [E], E >= P + 1) that a rank loop starts from."""
+    E = ans.shape[0] if isinstance(ans, torch.Tensor) else -1
+    expect(fc_e, "fc_e", torch.int32, (E,))
+    expect(ans, "ans", torch.int32, (E,))
+    if not 0 <= P < E:
+        raise ValueError(f"{E} nodes, fewer than P + 1 = {P + 1}")
+    return E
+
+
+def linearize_rank_first(fc_e, ans, P: int, i0: int, count: int, out=None):
+    """The rank loop's first round over the nodes [i0, i0+count), read
+    straight from the thread loop's answers (``fc_e``, ``ans``: int32 [E]
+    of P rows) without building the ranking state: (dist, nxt) of those
+    nodes, as ``linearize_rank`` gives them from
+    ``linearize_rank_init_plain(fc_e, ans, P)``, [count] each, written
+    into ``out`` when it is given. CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    E = _check_start(fc_e, ans, P)
+    _check_range(E, i0, count)
+    if out is not None:
+        _check_out(out, (fc_e, ans), count, ("dist", "nxt"))
+    if not on_cuda(fc_e=fc_e, ans=ans):
+        got = linearize_rank_first_plain(fc_e, ans, P, i0, count)
+        return got if out is None else _plain_into(out, got)
+    if out is None:
+        out = tuple(torch.empty(2, count, dtype=torch.int32, device=ans.device))
+    linearize_rank_first.launches += _build.launch(
+        "amt_linearize_rank_first", _RANK_FIRST_SIG, ptr(fc_e), ptr(ans), P, E,
+        i0, count, ptr(out[0]), ptr(out[1]), stream(ans))
+    return tuple(out)
+
+
+linearize_rank_first.launches = 0
 
 
 def _check_rounds(E: int, rounds: int) -> None:
@@ -579,7 +611,37 @@ def linearize_rank_rounds(dist, nxt, rounds: int):
 linearize_rank_rounds.launches = 0
 
 
-linearize_rank.launches = 0
+def linearize_rank_from_thread_plain(fc_e, ans, P: int, rounds: int):
+    """Plain PyTorch version: the ranking state built from the thread
+    loop's answers, then ``rounds`` Wyllie rounds over all E nodes."""
+    return linearize_rank_rounds_plain(*linearize_rank_init_plain(fc_e, ans, P),
+                                       rounds)
+
+
+def linearize_rank_from_thread(fc_e, ans, P: int, rounds: int):
+    """The row arm's whole rank loop, started from the thread loop's
+    answers (``fc_e``, ``ans``: int32 [E] of P rows, never written):
+    (dist, nxt) after ``rounds`` Wyllie rounds over all E nodes, as
+    ``linearize_rank_rounds`` gives them from
+    ``linearize_rank_init_plain(fc_e, ans, P)``. Its first round reads
+    ``fc_e`` and ``ans`` in place of the state, so nothing is built
+    between the loops. CPU tensors take the plain version; CUDA tensors
+    launch ``rounds`` kernels from one C call."""
+    E = _check_start(fc_e, ans, P)
+    _check_rounds(E, rounds)
+    if not on_cuda(fc_e=fc_e, ans=ans):
+        return linearize_rank_from_thread_plain(fc_e, ans, P, rounds)
+    dev = ans.device
+    records = torch.empty(record_words(2, E, rounds), dtype=torch.int32, device=dev)
+    out = torch.empty(2, E, dtype=torch.int32, device=dev)
+    linearize_rank_from_thread.launches += _build.launch(
+        "amt_linearize_rank_from_thread", _RANK_FROM_THREAD_SIG, ptr(fc_e),
+        ptr(ans), P, E, rounds, ptr(records), records.numel(), ptr(out[0]),
+        ptr(out[1]), stream(ans))
+    return out[0], out[1]
+
+
+linearize_rank_from_thread.launches = 0
 
 
 def linearize_final(first_child, is_elem, obj_dense, dist, r0: int, count: int):

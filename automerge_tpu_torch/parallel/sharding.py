@@ -26,8 +26,10 @@ each distinct device, and the phases run as follows.
    the replicated result: nothing is copied on one device).
    ``linearize="rows"`` runs the reference's other arm instead (its arm
    without the native library): the same loops over the E = P + 1
-   element nodes, padded to n (P/n + 1), so each round gathers O(P).
-   Where every shard sits on one device (``Mesh(["cuda:0"] * 4)``, a
+   element nodes, padded to n (P/n + 1), so each round gathers O(P);
+   its rank loop's first round reads the thread loop's answers, where
+   the reference builds the ranking state between the loops. Where
+   every shard sits on one device (``Mesh(["cuda:0"] * 4)``, a
    CPU mesh), the shards' slices tile the state and a loop is one call
    of its rounds entry (``rounds`` launches, no copy); over distinct
    devices each device advances its shards' slices in its own buffers
@@ -115,15 +117,30 @@ THREAD = (L.linearize_thread, L.linearize_thread_rounds)
 RANK = (L.linearize_rank, L.linearize_rank_rounds)
 
 
+def rank_from_thread(P: int):
+    """The row arm's rank loop, started from the thread loop's answers
+    (state ``(fc_e, ans)`` of P rows) where the reference builds the
+    ranking state between the loops: (range kernel, rounds entry, first
+    round's range kernel). Its first round reads ``fc_e`` and ``ans`` in
+    place of the state; the later rounds are ``RANK``'s."""
+    return (L.linearize_rank,
+            lambda fc_e, ans, rounds: L.linearize_rank_from_thread(
+                fc_e, ans, P, rounds),
+            lambda fc_e, ans, i0, count, out: L.linearize_rank_first(
+                fc_e, ans, P, i0, count, out=out))
+
+
 def _doubling(mesh, loop, state, length: int, rounds: int):
-    """``rounds`` rounds of ``loop`` (``THREAD`` or ``RANK``): each round
-    every shard advances its slice of ``length`` nodes of the replicated
-    state, and an all_gather per array re-replicates it. Where every
-    shard sits on one device the slices tile the state: the loop's
-    rounds entry runs it whole in one call, and the gathers move
-    nothing; over distinct devices, ``_exchange``."""
+    """``rounds`` rounds of ``loop`` (``THREAD``, ``RANK`` or
+    ``rank_from_thread(P)``): each round every shard advances its slice
+    of ``length`` nodes of the replicated state, and an all_gather per
+    array re-replicates it. Where every shard sits on one device the
+    slices tile the state: the loop's rounds entry runs it whole in one
+    call, and the gathers move nothing; over distinct devices,
+    ``_exchange`` (with the loop's first round's range kernel, where it
+    has one)."""
     if len(mesh.distinct) > 1:
-        return _exchange(mesh, loop[0], state, length, rounds)
+        return _exchange(mesh, loop[0], state, length, rounds, *loop[2:])
     (d,) = mesh.distinct
     arrays = tuple(s[d] for s in state)
     out = loop[1](*arrays, rounds)
@@ -133,20 +150,22 @@ def _doubling(mesh, loop, state, length: int, rounds: int):
     return tuple({d: o} for o in out)
 
 
-def _exchange(mesh, step, state, length: int, rounds: int):
+def _exchange(mesh, step, state, length: int, rounds: int, first=None):
     """``rounds`` rounds of the range kernel ``step`` over the mesh's
-    devices: two full-size buffers per array on each device, allocated
-    once; each round every run of consecutive shards on one device is one
-    launch writing into that device's next buffer at its offset, and
-    ``all_gather_into`` copies in the other devices' slices."""
+    devices (the first round ``first``'s, when given): two full-size
+    buffers per array on each device, allocated once; each round every
+    run of consecutive shards on one device is one launch writing into
+    that device's next buffer at its offset, and ``all_gather_into``
+    copies in the other devices' slices."""
     bufs = [{d: tuple(torch.empty_like(s[d]) for s in state) for d in mesh.distinct}
             for _ in range(min(rounds, 2))]
     cur = {d: tuple(s[d] for s in state) for d in mesh.distinct}
     for r in range(rounds):
         nxt = bufs[r % 2]
-        for d, first, count in mesh.runs:
-            i0, n = first * length, count * length
-            step(*cur[d], i0, n, out=tuple(b[i0:i0 + n] for b in nxt[d]))
+        kernel = first if r == 0 and first is not None else step
+        for d, first_shard, count in mesh.runs:
+            i0, n = first_shard * length, count * length
+            kernel(*cur[d], i0, n, out=tuple(b[i0:i0 + n] for b in nxt[d]))
         for k in range(len(state)):
             C.all_gather_into(mesh, {d: nxt[d][k] for d in mesh.distinct}, length)
         cur = nxt
@@ -156,7 +175,9 @@ def _exchange(mesh, step, state, length: int, rounds: int):
 def _sharded_linearize(mesh, cols, out, Pl):
     """Document order over the element nodes (``_sharded_linearize``,
     :166): E = P + 1 does not divide over n, so the node space is padded
-    to Epad = n (Pl + 1) with fixed points of both loops."""
+    to Epad = n (Pl + 1) with fixed points of both loops. The rank loop
+    starts from the thread loop's answers (``rank_from_thread``): nothing
+    is built between the loops."""
     P = Pl * mesh.size
     El = Pl + 1
     rounds = L.rounds(P)
@@ -165,9 +186,8 @@ def _sharded_linearize(mesh, cols, out, Pl):
                                 mesh.size * El) for d in mesh.distinct}
     state = tuple({d: init[d][k] for d in mesh.distinct} for k in range(3))
     ans, _, _ = _doubling(mesh, THREAD, state, El, rounds)
-    rank = {d: L.linearize_rank_init(init[d][3], ans[d], P) for d in mesh.distinct}
-    state = tuple({d: rank[d][k] for d in mesh.distinct} for k in range(2))
-    dist, _ = _doubling(mesh, RANK, state, El, rounds)
+    fc_e = {d: init[d][3] for d in mesh.distinct}
+    dist, _ = _doubling(mesh, rank_from_thread(P), (fc_e, ans), El, rounds)
     return {d: L.linearize_final(out[d]["first_child"], out[d]["is_elem"],
                                  cols[d]["obj_dense"], dist[d], 0, P)
             for d in mesh.distinct}

@@ -108,16 +108,19 @@ Phases, each raising on failure (nothing is caught):
     merge's kernels at the three condensed paths' shapes and the dict
     merge's at the typing fan-in's (linearize
     beside linearize_condensed on one log); the sharded merge's at one
-    shard's shapes of "text sharded", "text sharded rows" and "records
-    sharded" (mesh_reduce folding the four shards' tables where they lie
-    at the psum of the counts and the pmax of the winners, its library
-    time torch.stack(parts).sum(0, dtype=torch.int32) / .amax(0) from the
-    same tables; cond_expand over all P rows in one launch, as a mesh of
-    one card runs it; the
-    range kernels at one round of one shard's slice, the rounds entries
-    at the whole loop over all nodes, timed on the device too, with a
-    round's share of their time and bound); sort_winners also on synthetic
-    columns with P > 2^20; the whole merge on the card
+    shard's shapes of "text sharded", "text sharded rows", "typing
+    sharded rows" and "records sharded" (mesh_reduce folding the four
+    shards' tables where they lie at the psum of the counts and the pmax
+    of the winners, its library time torch.stack(parts).sum(0,
+    dtype=torch.int32) / .amax(0) from the same tables; cond_expand over
+    all P rows in one launch, as a mesh of one card runs it; the range
+    kernels at one round of one shard's slice, the rounds entries at the
+    whole loop over all nodes, timed on the device too, with a round's
+    share of their time and bound; the row arm's rank loop from the
+    thread loop's answers, linearize_rank_from_thread and its first round
+    linearize_rank_first, held against the reference's rank init then
+    rounds); emit_packed timed on the device too; sort_winners also on
+    synthetic columns with P > 2^20; the whole merge on the card
     against the plain CPU path on all 13 outputs for that served subset
     and for a small fan-in; expand_runs at every stack and linearize,
     scatter_winners, forest, radix_sort, succ_vis, succ_partial and
@@ -143,6 +146,7 @@ Phases, each raising on failure (nothing is caught):
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -350,25 +354,47 @@ def sharded_work(name: str, args, out, distinct):
         # the slice's state, and the state at the distinct nodes it jumps to
         read = per_node * (count + distinct(j))
         return read + nbytes(*out), (4 if len(state) == 3 else 3) * count
-    if name in ("linearize_thread_rounds", "linearize_rank_rounds"):
+    if name == "linearize_rank_first":
+        # the first round from the thread loop's answers: fc_e at the
+        # slice's rows and at the distinct rows they step to, ans there
+        # too where fc_e is -1 (the sentinel and padding read nothing)
+        from automerge_tpu_torch.kernels import linearize as L
+
+        fc_e, ans, P, i0, count = args
+        nxt = L.linearize_rank_init_plain(fc_e, ans, P)[1][i0:i0 + count]
+        own = torch.arange(i0, i0 + count, device=ans.device)
+        j = torch.unique(nxt.long().clamp(0, ans.numel() - 1))
+
+        def read_at(nodes):
+            nodes = nodes[nodes < P]
+            return 4 * (nodes.numel() + int((fc_e[nodes] == -1).sum()))
+
+        return read_at(own) + read_at(j) + nbytes(*out), 5 * count
+    if name in ("linearize_thread_rounds", "linearize_rank_rounds",
+                "linearize_rank_from_thread"):
         # the whole loop: each round a full round over all E nodes of the
         # state it reads, run here by the plain version; the links run
-        # into chain ends, so a later round gathers at fewer distinct nodes
+        # into chain ends, so a later round gathers at fewer distinct nodes.
+        # The rank loop from the thread loop's answers: its first round
+        # reads them
         from automerge_tpu_torch.kernels import linearize as L
 
         *state, rounds = args
-        step = name[:-len("_rounds")]
-        plain = getattr(L, f"{step}_plain")
         E = state[0].numel()
         moved = ops = 0
+        if name == "linearize_rank_from_thread":
+            first = (*state, 0, E)
+            state = L.linearize_rank_first_plain(*first)
+            moved, ops = sharded_work("linearize_rank_first", first, state, distinct)
+            step, rounds = "linearize_rank", rounds - 1
+        else:
+            step = name[:-len("_rounds")]
+        plain = getattr(L, f"{step}_plain")
         for _ in range(rounds):
             nxt = plain(*state, 0, E)
             m, o = sharded_work(step, (*state, 0, E), nxt, distinct)
             moved, ops, state = moved + m, ops + o, nxt
         return moved, ops
-    if name == "linearize_rank_init":
-        fc_e, ans, _P = args
-        return nbytes(fc_e, ans, *out), 3 * ans.numel()
     if name == "linearize_final":
         _first_child, is_elem, obj_dense, dist, r0, count = args
         sl = slice(r0, r0 + count)
@@ -566,11 +592,30 @@ NOT_CONDENSED = ("linearize", "scatter_winners", "expand_runs") + TRANSPORT_ONLY
 MESH_SHARDS = 4
 SHARDED_ALL = ("succ_partial", "visibility", "mesh_reduce", "forest", "radix_sort")
 SHARDED_CONDENSED = ("cond_init", "cond_succ", "cond_expand")
-SHARDED_ROWS = ("linearize_init", "linearize_rank_init", "linearize_final")
-# the doubling loops: on a mesh of one card one rounds entry a loop, over
-# distinct cards a range launch a run of shards a round
-ONE_CARD_LOOPS = ("linearize_thread_rounds", "linearize_rank_rounds")
-CARDS_LOOPS = ("linearize_thread", "linearize_rank")
+SHARDED_ROWS = ("linearize_init", "linearize_final")
+# the doubling loops by arm: on a mesh of one card one rounds entry a
+# loop, over distinct cards a range launch a run of shards a round (the
+# row arm's rank loop starts from the thread loop's answers: its first
+# round is a kernel of its own)
+ONE_CARD = {"condensed": ("linearize_thread_rounds", "linearize_rank_rounds"),
+            "rows": ("linearize_thread_rounds", "linearize_rank_from_thread")}
+CARDS = {"condensed": ("linearize_thread", "linearize_rank"),
+         "rows": ("linearize_thread", "linearize_rank_first", "linearize_rank")}
+ONE_CARD_LOOPS = tuple(dict.fromkeys(k for v in ONE_CARD.values() for k in v))
+CARDS_LOOPS = tuple(dict.fromkeys(k for v in CARDS.values() for k in v))
+
+
+def loop_launches(linearize: str, one_card: bool, rounds: int, runs: int) -> dict:
+    """The launches of each doubling-loop kernel of the ``linearize`` arm
+    in one sharded merge: on one card ``rounds`` a rounds entry; over
+    distinct cards a range launch a run of shards a round, the row arm's
+    first rank round its own kernel."""
+    if one_card:
+        return dict.fromkeys(ONE_CARD[linearize], rounds)
+    want = dict.fromkeys(CARDS[linearize], rounds * runs)
+    if linearize == "rows":
+        want.update(linearize_rank_first=runs, linearize_rank=(rounds - 1) * runs)
+    return want
 SHARDED_SCATTER = ("winners_partial", "winners_gather")
 NOT_SHARDED = ("succ_vis", "scatter_winners", "linearize", "linearize_condensed",
                "emit_packed")
@@ -661,12 +706,14 @@ def text_fanin(name: str, card: str, device, make_trace=None):
           f"generate {t_gen:.3f} s, encode {t_enc:.3f} s", flush=True)
     kernels.reset_launches()
     phases = {}
-    t0 = time.perf_counter()
-    doc = DeviceDoc.merge(blobs, device=device, phases=phases)
-    t1 = time.perf_counter()
-    text = doc.text(text_obj)
-    t_end = time.perf_counter()
+    with gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        doc = DeviceDoc.merge(blobs, device=device, phases=phases)
+        t1 = time.perf_counter()
+        text = doc.text(text_obj)
+        t_end = time.perf_counter()
     phases["read"] = t_end - t1
+    phases["gc"] = sum(s for _, s in pauses)  # the collector's, in any phase
     counts = kernels.launch_counts()
     report_path(f"{name} fan-in", doc.log, phases, t_end - t0, counts, card)
     if len(text) != expect_len:
@@ -785,12 +832,14 @@ def record_paths(card: str, device):
     # (b) fan-in
     kernels.reset_launches()
     phases = {}
-    t0 = time.perf_counter()
-    doc = DeviceDoc.merge([base] + reps, device=device, phases=phases)
-    t1 = time.perf_counter()
-    got = W.record_counts(doc)
-    t_end = time.perf_counter()
+    with gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        doc = DeviceDoc.merge([base] + reps, device=device, phases=phases)
+        t1 = time.perf_counter()
+        got = W.record_counts(doc)
+        t_end = time.perf_counter()
     phases["read"] = t_end - t1
+    phases["gc"] = sum(s for _, s in pauses)  # the collector's, in any phase
     fanin_counts = kernels.launch_counts()
     report_path("record fan-in", doc.log, phases, t_end - t0, fanin_counts, card)
     if got != expect:
@@ -1109,21 +1158,20 @@ def sharded_path(name, card, cols, n_objs: int, n_props: int, mesh, single,
     arm = SHARDED_CONDENSED if linearize == "condensed" else SHARDED_ROWS
     other = tuple(k for k in SHARDED_CONDENSED + SHARDED_ROWS if k not in arm)
     one_card = len(mesh.distinct) == 1
-    loops, idle = ((ONE_CARD_LOOPS, CARDS_LOOPS) if one_card
-                   else (CARDS_LOOPS, ONE_CARD_LOOPS))
+    rounds = L.ceil_log2(R2) + 1 if linearize == "condensed" else L.rounds(P)
+    loops = loop_launches(linearize, one_card, rounds, len(mesh.runs))
+    idle = tuple(k for k in ONE_CARD_LOOPS + CARDS_LOOPS if k not in loops)
     winners = SHARDED_SCATTER if scatter else ("sort_winners",)
     not_winners = ("sort_winners",) if scatter else SHARDED_SCATTER
     decode = ("expand_runs", "unpack_flags")
     check_launches(name, counts,
-                   SHARDED_ALL + arm + loops + winners
+                   SHARDED_ALL + arm + tuple(loops) + winners
                    + (decode if transport == "packed" else ()),
                    NOT_SHARDED + other + idle + not_winners
                    + (decode if transport == "dict" else ()))
-    rounds = L.ceil_log2(R2) + 1 if linearize == "condensed" else L.rounds(P)
-    for loop in loops:
+    for loop, launched in loops.items():
         # one call of `rounds` launches, or a launch a run a round
-        check_call_launches(f"{name} {loop}", counts[loop],
-                            rounds * (1 if one_card else len(mesh.runs)))
+        check_call_launches(f"{name} {loop}", counts[loop], launched)
     check_collective_launches(name, counts, mesh, scatter, linearize, stats)
     for k in ALL_OUTPUTS:
         if out[k].shape != want[k].shape or not np.array_equal(out[k], want[k]):
@@ -1170,14 +1218,35 @@ def timed_doubling(mesh):
         PS._doubling = doubling
 
 
+@contextlib.contextmanager
+def gc_pauses():
+    """Within it, the collections of Python's garbage collector: yields
+    the list of (generation, seconds), one a collection."""
+    pauses, start = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            pauses.append((info["generation"], time.perf_counter() - start.pop()))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
 def exchange_path(card, device, log) -> dict:
     """(f) The distinct-card exchange of the doubling loops
     (``sharding._exchange``: each round a range launch per run of shards
     written into its card's own buffers, the other cards' slices copied
     in) driven on the one card over the text fan-in's row arm, where the
     mesh is one run: the launch counts set to 0 just before both loops
-    and read just after, the range kernels ``rounds`` launches each and
-    the rounds entries none, both loops equal to the rounds entries'."""
+    and read just after, the range kernels ``rounds`` launches a loop (the
+    rank loop's first round from the thread loop's answers,
+    ``linearize_rank_first``) and the rounds entries none, both loops
+    equal to the rounds entries'."""
     from automerge_tpu_torch import kernels
     from automerge_tpu_torch.convert import columns_from_numpy
     from automerge_tpu_torch.kernels import forest as F
@@ -1199,25 +1268,35 @@ def exchange_path(card, device, log) -> dict:
     torch.cuda.synchronize(device)
     C.reset_stats()
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    thread = PS._exchange(mesh, L.linearize_thread, tuple({d: t} for t in st[:3]),
-                          El, rounds)
-    rk = L.linearize_rank_init(st[3], thread[0][d], P)
-    rank = PS._exchange(mesh, L.linearize_rank, tuple({d: t} for t in rk), El,
-                        rounds)
-    torch.cuda.synchronize(device)
-    seconds = time.perf_counter() - t0
+    # the window is short and allocates: a young collection landing in it
+    # scanned the earlier phases' young objects (7-8 ms on an H100 host,
+    # longer than both loops), so they are collected first; a pause that
+    # still falls in the window is printed
+    gc.collect()
+    with gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        thread = PS._exchange(mesh, L.linearize_thread,
+                              tuple({d: t} for t in st[:3]), El, rounds)
+        loop = PS.rank_from_thread(P)
+        rank = PS._exchange(mesh, loop[0], ({d: st[3]}, thread[0]), El, rounds,
+                            loop[2])
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
     print(f"{name}: the row arm's two loops through the distinct-card exchange "
           f"on {MESH_SHARDS} shards of one card, {rounds} rounds each, Epad "
-          f"{MESH_SHARDS * El}: {seconds:.6f} s wall (host-synchronised, the "
-          f"rank init between) on {card}; collectives {json.dumps(C.stats)}; "
+          f"{MESH_SHARDS * El}: {seconds:.6f} s wall (host-synchronised, "
+          f"nothing between) on {card}, of which Python's garbage collector "
+          f"{sum(s for _, s in pauses):.6f} s (generations "
+          f"{[g for g, _ in pauses]}); collectives {json.dumps(C.stats)}; "
           f"launches {json.dumps(counts)}", flush=True)
-    check_launches(name, counts, CARDS_LOOPS, ONE_CARD_LOOPS)
-    for loop in CARDS_LOOPS:
-        check_call_launches(f"{name} {loop}", counts[loop], rounds)
+    loops = loop_launches("rows", False, rounds, len(mesh.runs))
+    check_launches(name, counts, tuple(loops), ONE_CARD_LOOPS)
+    for loop, want in loops.items():
+        check_call_launches(f"{name} {loop}", counts[loop], want)
     for got, want in ((thread, L.linearize_thread_rounds(*st[:3], rounds)),
-                      (rank, L.linearize_rank_rounds(*rk, rounds))):
+                      (rank, L.linearize_rank_from_thread(st[3], thread[0][d], P,
+                                                          rounds))):
         if not all(torch.equal(g[d], w) for g, w in zip(got, want)):
             raise AssertionError(f"{name}: differs from the rounds entries")
     print(f"{name}: both loops equal to the rounds entries'", flush=True)
@@ -1265,8 +1344,10 @@ def mesh_doc_path(card, device, log, text_obj):
               f"{json.dumps(counts[mode])}", flush=True)
         docs[mode] = doc
     check_launches("text mesh doc", counts["mesh"],
-                   SHARDED_ALL + SHARDED_CONDENSED + ONE_CARD_LOOPS + SHARDED_SCATTER,
-                   NOT_SHARDED + CARDS_LOOPS + ("sort_winners",))
+                   SHARDED_ALL + SHARDED_CONDENSED + ONE_CARD["condensed"]
+                   + SHARDED_SCATTER,
+                   NOT_SHARDED + CARDS_LOOPS + ("linearize_rank_from_thread",
+                                                "sort_winners"))
     check_collective_launches("text mesh doc", counts["mesh"],
                               Mesh([device] * MESH_SHARDS), True, "condensed")
     check_launches("text mesh doc single", counts["single"],
@@ -1703,6 +1784,9 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
               (L.linearize_thread_rounds, L.linearize_thread_rounds_plain))
     rank = ((L.linearize_rank, L.linearize_rank_plain),
             (L.linearize_rank_rounds, L.linearize_rank_rounds_plain))
+    rank_from_thread = ((L.linearize_rank_first, L.linearize_rank_first_plain),
+                        (L.linearize_rank_from_thread,
+                         L.linearize_rank_from_thread_plain))
 
     if linearize == "rows":
         El = Pl + 1
@@ -1711,11 +1795,17 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
         rows.append(("linearize_init", L.linearize_init, L.linearize_init_plain,
                      li_in, st, None, f"Epad={n * El}"))
         ans = doubling(thread, st[:3], El, L.rounds(P), f"El={El}")[0]
-        rk_in = (st[3], ans, P)
-        rk = L.linearize_rank_init(*rk_in)
-        rows.append(("linearize_rank_init", L.linearize_rank_init,
-                     L.linearize_rank_init_plain, rk_in, rk, None, ""))
-        dist = doubling(rank, rk, El, L.rounds(P), f"El={El}")[0]
+        # the rank loop from the thread loop's answers, held against the
+        # reference's init then rounds (the plain composition)
+        dist = doubling(rank_from_thread, (st[3], ans, P), El, L.rounds(P),
+                        f"El={El}")[0]
+        # a later round over distinct cards: the range round at shard 1's
+        # slice of the state the first round gives
+        first = L.linearize_rank_first(st[3], ans, P, 0, n * El)
+        rk_in = (*first, El, El)
+        rows.append(("linearize_rank", L.linearize_rank, L.linearize_rank_plain,
+                     rk_in, L.linearize_rank(*rk_in), None,
+                     f"El={El} shard 1, round 2"))
         fi_in = (fo[2], fo[0], c["obj_dense"], dist, 0, P)
         rows.append(("linearize_final", L.linearize_final, L.linearize_final_plain,
                      fi_in, (L.linearize_final(*fi_in),), None, ""))
@@ -1761,14 +1851,16 @@ REPLACES = {
                        "scatter_winners.cu"),
     "linearize_init": ("automerge_tpu/parallel/sharding.py:216", "linearize.cu"),
     "linearize_thread": ("automerge_tpu/parallel/sharding.py:218", "linearize.cu"),
-    "linearize_rank_init": ("automerge_tpu/parallel/sharding.py:232",
-                            "linearize.cu"),
     "linearize_rank": ("automerge_tpu/parallel/sharding.py:238", "linearize.cu"),
+    "linearize_rank_first": ("automerge_tpu/parallel/sharding.py:232",
+                             "linearize.cu"),
     "linearize_final": ("automerge_tpu/parallel/sharding.py:247", "linearize.cu"),
     "linearize_thread_rounds": ("automerge_tpu/parallel/sharding.py:218",
                                 "linearize.cu"),
     "linearize_rank_rounds": ("automerge_tpu/parallel/sharding.py:238",
                               "linearize.cu"),
+    "linearize_rank_from_thread": ("automerge_tpu/parallel/sharding.py:232",
+                                   "linearize.cu"),
     "cond_init": ("automerge_tpu/parallel/sharding.py:283", "sharded.cu"),
     "cond_succ": ("automerge_tpu/parallel/sharding.py:300", "sharded.cu"),
     "cond_expand": ("automerge_tpu/parallel/sharding.py:320", "sharded.cu"),
@@ -1781,7 +1873,11 @@ DEVICE_TIMED = ("expand_runs", "linearize", "linearize_condensed",
                 "scatter_winners", "forest",
                 "radix_sort", "succ_vis", "succ_partial", "visibility",
                 "linearize_thread_rounds", "linearize_rank_rounds",
-                "mesh_reduce", "cond_expand")
+                "linearize_rank_from_thread", "mesh_reduce", "cond_expand",
+                "emit_packed")
+# the whole doubling loops (a rounds entry): also a round's mean
+LOOP_ENTRIES = ("linearize_thread_rounds", "linearize_rank_rounds",
+                "linearize_rank_from_thread")
 
 
 def bound(name: str, args, out) -> tuple:
@@ -1814,7 +1910,7 @@ def measure(name, kern, plain, args, out, library, reps: int) -> dict:
         m["device_ms"], m["device_kernels"] = device_ms(lambda: kern(*args), reps)
         if library:
             m["library_device_ms"] = device_ms(library, reps)[0]
-    if name.endswith("_rounds"):  # a whole doubling loop: also a round's mean
+    if name in LOOP_ENTRIES:
         rounds = args[-1]
         m["rounds"] = rounds
         m["bound_ms_a_round"] = bound_ms / rounds
@@ -2062,6 +2158,7 @@ def main() -> int:
              "records condensed": spec(record_log, True),
              "text sharded": (*text_cols, "condensed"),
              "text sharded rows": (*text_cols, "rows"),
+             "typing sharded rows": (*spec(typing_log), "rows"),
              "records sharded": (*record_cols, "condensed")}
     report = kernel_report(paths, by_path, device, REPS)
     check_served_subset(last, device)

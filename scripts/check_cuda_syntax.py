@@ -34,6 +34,7 @@ SHIM = r"""// syntax-check shim: just enough of CUDA for g++ -fsyntax-only
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
+#define __grid_constant__
 struct int2 { int x, y; }; struct int4 { int x, y, z, w; }; struct uint4 { unsigned x, y, z, w; };
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }

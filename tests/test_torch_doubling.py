@@ -6,7 +6,11 @@ per-round exchange over distinct devices (``sharding._exchange``, here
 on a mesh of distinct CPU devices) against the reference's loop body
 chained round by round (``linearize_thread_plain`` /
 ``linearize_rank_plain`` over [0, E)), bit for bit on every output, with
-links out of range."""
+links out of range; and the row arm's rank loop started from the thread
+loop's answers (``linearize_rank_from_thread``, its first round
+``linearize_rank_first``, ``sharding.rank_from_thread``) against the
+reference's rank init (``linearize_rank_init_plain``) then the chained
+rounds."""
 
 import numpy as np
 import pytest
@@ -188,3 +192,88 @@ def test_range_kernel_writes_into_out(loop):
         assert torch.equal(b[:10], f[:10]) and torch.equal(b[22:], f[22:])
     with pytest.raises(ValueError):
         pair[0](*state, 10, 12, out=tuple(b[10:21] for b in buf))
+
+
+# -- the row arm's rank loop started from the thread loop's answers ----------
+
+
+def _answers(E, P, seed):
+    """The thread loop's (fc_e, ans) over E nodes of P rows: about half
+    the first children -1 (the node takes its answer), -1 answers, links
+    out of range, and the nodes past P (the sentinel, padding) holding
+    values as well, which the rank state ignores."""
+    rng = np.random.default_rng(seed)
+    fc_e = _links(rng, E)
+    fc_e[torch.from_numpy(rng.random(E) < 0.5)] = -1
+    return fc_e, _links(rng, E)
+
+
+# (E, P): the sentinel alone past the rows, padding nodes past it, no rows
+STARTS = [(1, 0), (2, 1), (5, 2), (9, 8), (4097, 4000), (4097, 1)]
+
+
+@pytest.mark.parametrize("E,P", STARTS)
+def test_rank_from_thread_equals_init_then_chained_rounds(E, P):
+    fc_e, ans = _answers(E, P, E + P)
+    before = (fc_e.clone(), ans.clone())
+    init = L.linearize_rank_init_plain(fc_e, ans, P)
+    for rounds in _rounds(E):
+        _same(L.linearize_rank_from_thread(fc_e, ans, P, rounds),
+              _chained(L.linearize_rank_plain, init, rounds))
+        _same((fc_e, ans), before)  # the answers are never written
+
+
+@pytest.mark.parametrize("E,P", STARTS)
+def test_rank_first_round_equals_init_then_one_round(E, P):
+    fc_e, ans = _answers(E, P, 3 * E + P)
+    init = L.linearize_rank_init_plain(fc_e, ans, P)
+    for i0, count in ((0, E), (E // 3, E - E // 3), (E - 1, 1), (E // 2, 0)):
+        _same(L.linearize_rank_first(fc_e, ans, P, i0, count),
+              L.linearize_rank_plain(*init, i0, count))
+    buf = tuple(torch.full((E,), 7, dtype=torch.int32) for _ in range(2))
+    i0, count = E // 3, E - E // 3
+    got = L.linearize_rank_first(fc_e, ans, P, i0, count,
+                                 out=tuple(b[i0:] for b in buf))
+    for b, g, w in zip(buf, got, L.linearize_rank_plain(*init, i0, count)):
+        assert torch.equal(g, w) and torch.equal(b[i0:], w)
+        assert torch.equal(b[:i0], torch.full((i0,), 7, dtype=torch.int32))
+
+
+def test_rank_from_thread_refuses_too_few_nodes():
+    fc_e, ans = _answers(5, 4, 0)
+    for P in (5, 6, -1):
+        with pytest.raises(ValueError):
+            L.linearize_rank_from_thread(fc_e, ans, P, 3)
+        with pytest.raises(ValueError):
+            L.linearize_rank_first(fc_e, ans, P, 0, 5)
+    with pytest.raises(ValueError):
+        L.linearize_rank_from_thread(fc_e, ans, 4, 0)
+    with pytest.raises(TypeError):
+        L.linearize_rank_from_thread(fc_e.long(), ans, 4, 3)
+
+
+@pytest.mark.parametrize("devices", [["cpu:0", "cpu:1"], ["cpu"] * 2,
+                                     ["cpu:0", "cpu:1", "cpu:1", "cpu:0"]])
+@pytest.mark.parametrize("E,P", [(8, 5), (4100, 4000)])
+def test_rank_loop_from_thread_over_a_mesh_equals_init_then_chained_rounds(
+        devices, E, P):
+    """``_doubling`` with ``rank_from_thread``: over distinct devices the
+    exchange's first round reads the answers, the later rounds the state;
+    over one device repeated, the rounds entry. Both equal the reference's
+    init and chained rounds, and record the rank loop's gathers."""
+    mesh = Mesh(devices)
+    length = E // mesh.size
+    fc_e, ans = _answers(E, P, E)
+    want = _chained(L.linearize_rank_plain, L.linearize_rank_init_plain(fc_e, ans, P),
+                    L.ceil_log2(E) + 1)
+    rep = tuple({d: t.clone() for d in mesh.distinct} for t in (fc_e, ans))
+    C.reset_stats()
+    reset = {k: getattr(L, k).launches for k in ("linearize_rank_first",
+                                                   "linearize_rank_from_thread")}
+    rounds = L.ceil_log2(E) + 1
+    got = PS._doubling(mesh, PS.rank_from_thread(P), rep, length, rounds)
+    for d in mesh.distinct:
+        _same(tuple(g[d] for g in got), want)
+        _same((rep[0][d], rep[1][d]), (fc_e, ans))
+    assert [n for n, _ in C.gathers] == [length] * 2 * rounds
+    assert reset == {k: getattr(L, k).launches for k in reset}  # CPU: no launch

@@ -350,8 +350,9 @@ def test_merge_on_card_equals_cpu_and_counts_launches(cuda):
         # the sharded merge's (parallel/sharding.py)
         "succ_partial": 0, "visibility": 0, "winners_partial": 0,
         "winners_gather": 0, "linearize_init": 0, "linearize_thread": 0,
-        "linearize_rank_init": 0, "linearize_rank": 0, "linearize_final": 0,
+        "linearize_rank": 0, "linearize_rank_first": 0, "linearize_final": 0,
         "linearize_thread_rounds": 0, "linearize_rank_rounds": 0,
+        "linearize_rank_from_thread": 0,
         "cond_init": 0, "cond_succ": 0, "cond_expand": 0, "mesh_reduce": 0,
     }
     cpu = merge_columns(log.columns(), device="cpu", **kw)
@@ -619,24 +620,50 @@ def test_unpack_flags_equals_plain_version(cuda, n):
     _same(got, E.unpack_flags_plain(flags))
 
 
-@pytest.mark.parametrize("P", [16, 48, 4096, 24_592])
-def test_emit_packed_equals_plain_version(cuda, P):
+def _emit_core(P, seed, device, offset=0):
+    """Outputs of every kind the packed transport takes, P rows (stats of
+    P + 2, next_sib of 2P + 3), on the card ``offset`` elements into
+    their buffers (``_on_card_at``)."""
+    rng = np.random.default_rng(seed)
+    core = {
+        "visible": rng.random(P) < 0.5,
+        "conflicts": rng.integers(-3, 5, P).astype(np.int32),
+        "winner": rng.integers(-1, P, P).astype(np.int32),
+        "is_elem": rng.random(P) < 0.3,
+        "next_sib": rng.integers(-1, P, 2 * P + 3).astype(np.int32),
+        "elem_index": rng.integers(-(1 << 31), 1 << 31, P, dtype=np.int64)
+        .astype(np.int32),
+        "obj_vis_len": rng.integers(0, 9, P + 2).astype(np.int32),
+        "obj_text_width": rng.integers(0, 9, P + 2).astype(np.int32),
+    }
+    return {k: _on_card_at(v, device, offset) for k, v in core.items()}
+
+
+EMIT_FETCHES = [
+    ("visible", "winner", "conflicts", "is_elem", "next_sib", "obj_vis_len"),
+    DeviceDoc.READ_FETCH,
+    ("obj_text_width", "is_elem", "conflicts", "visible", "winner"),
+    ("visible", "conflicts", "winner", "is_elem") * 4,  # the 16-output limit
+]
+
+
+# P: under a word, not a multiple of 32, the text fan-in's (516,096)
+@pytest.mark.parametrize("P", [1, 16, 48, 4096, 24_592, 24_577, 516_096])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_emit_packed_equals_plain_version(cuda, P, offset):
+    """Every output kind (bits of a bool, bits of conflicts > 1, int32 and
+    bool copies, the stats cut), sources aligned and 1 to 3 elements off
+    16-byte alignment (scatter_winners' winner and conflicts may sit 2
+    off), every fetch of one launch."""
     from automerge_tpu_torch.kernels import emit_packed as EP
 
-    rng = np.random.default_rng(P)
-    core = {
-        "visible": torch.from_numpy(rng.random(P) < 0.5).to(cuda),
-        "conflicts": torch.from_numpy(rng.integers(0, 4, P).astype(np.int32)).to(cuda),
-        "winner": torch.from_numpy(rng.integers(-1, P, P).astype(np.int32)).to(cuda),
-        "is_elem": torch.from_numpy(rng.random(P) < 0.3).to(cuda),
-        "next_sib": torch.from_numpy(rng.integers(-1, P, 2 * P + 3).astype(np.int32)).to(cuda),
-        "obj_vis_len": torch.from_numpy(rng.integers(0, 9, P + 2).astype(np.int32)).to(cuda),
-    }
-    fetch = ("visible", "winner", "conflicts", "is_elem", "next_sib", "obj_vis_len")
-    reset_launches()
-    got = EP.emit_packed(core, fetch, 18)
-    assert launch_counts()["emit_packed"] == 1
-    _same(got, EP.emit_packed_plain(core, fetch, 18))
+    core = _emit_core(P, P + offset, cuda, offset)
+    for fetch in EMIT_FETCHES:
+        for obj_cap in (18, P + 2):
+            reset_launches()
+            got = EP.emit_packed(core, fetch, obj_cap)
+            assert launch_counts()["emit_packed"] == 1
+            _same(got, EP.emit_packed_plain(core, fetch, obj_cap))
 
 
 @pytest.mark.parametrize("staging", ["run_native", "expand", "dense"])
@@ -795,8 +822,9 @@ SHARDED = ("succ_partial", "visibility", "mesh_reduce", "forest", "radix_sort")
 # call a loop (the range kernels over distinct cards)
 CONDENSED_ARM = ("cond_init", "linearize_thread_rounds", "cond_succ",
                  "linearize_rank_rounds", "cond_expand")
-ROWS_ARM = ("linearize_init", "linearize_thread_rounds", "linearize_rank_init",
-            "linearize_rank_rounds", "linearize_final")
+# the row arm's rank loop starts from the thread loop's answers: no init
+ROWS_ARM = ("linearize_init", "linearize_thread_rounds", "linearize_rank_from_thread",
+            "linearize_final")
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
@@ -958,10 +986,11 @@ def test_range_kernels_equal_plain_versions(cuda):
     for i0, count in ((0, Epad), (El, El), (Epad - 9, 9)):
         _same(L.linearize_thread(*st[:3], i0, count),
               L.linearize_thread_plain(*st[:3], i0, count))
-    rk = L.linearize_rank_init(st[3], st[0], P)
-    _same(rk, L.linearize_rank_init_plain(st[3], st[0], P))
+    rk = L.linearize_rank_init_plain(st[3], st[0], P)
     for i0, count in ((0, Epad), (El, El), (Epad - 9, 9)):
         _same(L.linearize_rank(*rk, i0, count), L.linearize_rank_plain(*rk, i0, count))
+        _same(L.linearize_rank_first(st[3], st[0], P, i0, count),
+              L.linearize_rank_first_plain(st[3], st[0], P, i0, count))
     # the range kernels writing into a next-round buffer at their offset
     buf = tuple(torch.zeros_like(t) for t in st[:3])
     got = L.linearize_thread(*st[:3], El, El, out=tuple(b[El:2 * El] for b in buf))
@@ -1027,6 +1056,42 @@ def test_rounds_entries_equal_plain_versions(cuda, E):
     _same(thread + rank, before)
 
 
+# (E, P): the text fan-in's row arm (Epad = 516,100 of P = 516,096), the
+# sentinel alone past the rows, padding past it
+@pytest.mark.parametrize("E,P", [(1, 0), (6, 5), (4097, 4000), (516_100, 516_096)])
+def test_rank_loop_from_thread_equals_init_then_rounds(cuda, E, P):
+    """The row arm's rank loop from the thread loop's answers (fc_e with
+    -1 where the node takes its answer, answers -1 or out of range) equals
+    the reference's init then the chained rounds, in exactly ``rounds``
+    launches, nothing allocated but its records and result; its first
+    round alone equals the init then one round."""
+    rng = np.random.default_rng(E)
+    ans = _rounds_state(E, E + 1)[0][0]
+    fc_e = _rounds_state(E, E + 2)[0][0]
+    fc_e[torch.from_numpy(rng.random(E) < 0.5)] = -1
+    fc_e, ans = fc_e.to(cuda), ans.to(cuda)
+    before = (fc_e.clone(), ans.clone())
+    init = L.linearize_rank_init_plain(fc_e, ans, P)
+    for rounds in sorted({1, 2, L.ceil_log2(E) + 1}):
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+        reset_launches()
+        got = L.linearize_rank_from_thread(fc_e, ans, P, rounds)
+        assert launch_counts()["linearize_rank_from_thread"] == rounds
+        assert launch_counts()["linearize_rank_rounds"] == 0
+        assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] \
+            == allocated + (1 if rounds == 1 else 2)
+        _same(got, L.linearize_rank_from_thread_plain(fc_e, ans, P, rounds))
+        _same(got, L.linearize_rank_rounds_plain(*init, rounds))
+    for i0, count in ((0, E), (E // 2, E - E // 2)):
+        reset_launches()
+        _same(L.linearize_rank_first(fc_e, ans, P, i0, count),
+              L.linearize_rank_plain(*init, i0, count))
+        assert launch_counts()["linearize_rank_first"] == 1
+    torch.cuda.synchronize()
+    _same((fc_e, ans), before)
+
+
 def _sharded_logs():
     base, reps, _ = _record_store()
     return [("text", _log(*SIZES[1])), ("typing", _typing_log(20000, 8, 100)),
@@ -1057,9 +1122,12 @@ def test_sharded_merge_on_card_equals_single_device(cuda, linearize, transport):
             rounds = L.ceil_log2(R2) + 1
         else:
             rounds = L.rounds(len(cols["action"]))
-        assert counts["linearize_thread_rounds"] == counts["linearize_rank_rounds"] \
-            == rounds, (name, rounds, counts)
+        rank = "linearize_rank_rounds" if linearize == "condensed" \
+            else "linearize_rank_from_thread"
+        assert counts["linearize_thread_rounds"] == counts[rank] == rounds, \
+            (name, rounds, counts)
         assert counts["linearize_thread"] == counts["linearize_rank"] == 0
+        assert counts["linearize_rank_first"] == 0
         arm = CONDENSED_ARM if linearize == "condensed" else ROWS_ARM
         scatter = name != "records"
         winners = ("winners_partial", "winners_gather") if scatter else ("sort_winners",)
@@ -1121,10 +1189,14 @@ def test_sharded_merge_over_distinct_cards(cuda):
         reset_launches()
         got = sharded_merge_columns(cols, mesh, linearize=linearize, **kw)
         counts = launch_counts()
-        # a range launch a card a round, the rounds entries idle
-        assert counts["linearize_thread"] == counts["linearize_rank"] > 0
+        # a range launch a card a round, the rounds entries idle; the row
+        # arm's first rank round from the thread loop's answers
+        first = counts["linearize_rank_first"]
+        assert first == (4 if linearize == "rows" else 0)
+        assert counts["linearize_thread"] == counts["linearize_rank"] + first > 0
         assert counts["linearize_thread"] % 4 == 0
-        assert counts["linearize_thread_rounds"] == counts["linearize_rank_rounds"] == 0
+        assert counts["linearize_thread_rounds"] == counts["linearize_rank_rounds"] \
+            == counts["linearize_rank_from_thread"] == 0
         for k in ALL_OUTPUTS:
             m = len(single[k])
             np.testing.assert_array_equal(got[k][:m], single[k],

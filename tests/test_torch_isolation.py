@@ -82,6 +82,14 @@ assert ans.tolist() == [9, 9, 9, -1] and done.all()
 dist, nxt = L.linearize_rank_rounds(torch.ones(4, dtype=torch.int32), links, 3)
 assert dist.tolist() == [8, 8, 8, 8]
 assert L.linearize_thread_rounds.launches == L.linearize_rank_rounds.launches == 0
+fc_e = torch.tensor([-1, -1, 3, -1], dtype=torch.int32)
+dist, nxt = L.linearize_rank_from_thread(fc_e, links, 3, 3)
+assert (dist.tolist(), nxt.tolist()) == ([3, 2, 1, 0], [3, 3, 3, 3])
+assert L.linearize_rank_first(fc_e, links, 3, 0, 4)[0].tolist() == [2, 2, 1, 0]
+assert L.linearize_rank_from_thread.launches == L.linearize_rank_first.launches == 0
+from automerge_tpu_torch.kernels import emit_packed as EP
+flat = EP.emit_packed({"visible": torch.tensor([True, False, True])}, ("visible",), 0)
+assert flat.tolist() == [5] and EP.emit_packed.launches == 0
 mesh_runs = []
 inner = DeviceDoc._mesh_resolve_inner
 DeviceDoc._mesh_resolve_inner = lambda self: mesh_runs.append(1) or inner(self)

@@ -260,3 +260,30 @@ def test_rounds_bound_shrinks_as_the_links_collapse(loop):
                         for k in range(rounds))
     assert moved < rounds * first[0]
     assert ops == rounds * first[1]
+
+
+def test_rank_loop_from_thread_bound_reads_the_answers_then_the_state():
+    """The row arm's rank loop from the thread loop's answers: its bound
+    is its first round's (fc_e at the nodes below P and at the distinct
+    ones they step to, ans where fc_e is -1) plus the later rounds' over
+    the state, as ``linearize_rank_rounds`` counts them."""
+    from automerge_tpu_torch.kernels import linearize as L
+
+    rng = np.random.default_rng(5)
+    E, P, rounds = 300, 290, 7
+    fc_e = torch.from_numpy(np.where(rng.random(E) < 0.5, -1,
+                                     rng.integers(0, P, E)).astype(np.int32))
+    ans = torch.from_numpy(rng.integers(-1, E + 3, E).astype(np.int32))
+    out = L.linearize_rank_from_thread(fc_e, ans, P, rounds)
+    first_in = (fc_e, ans, P, 0, E)
+    first = L.linearize_rank_first(*first_in)
+    moved, ops = chip_smoke.work("linearize_rank_first", first_in, first)
+    nxt = L.linearize_rank_init_plain(fc_e, ans, P)[1]
+    j = torch.unique(nxt.long().clamp(0, E - 1))
+    j = j[j < P]
+    own = 4 * (P + int((fc_e[:P] == -1).sum()))
+    assert moved == own + 4 * (j.numel() + int((fc_e[j] == -1).sum())) + 8 * E
+    later = _rounds_work("linearize_rank", L.linearize_rank_plain, first, rounds - 1)
+    assert chip_smoke.work("linearize_rank_from_thread", (fc_e, ans, P, rounds),
+                           out) == (moved + later[0], ops + later[1])
+
