@@ -15,7 +15,8 @@
 //
 // Design:
 //  - the n pointers travel by value in the kernel's parameters (MrParts,
-//    at most MR_CAP, the wrapper's CAP, which checks n): no pointer table
+//    at most MR_CAP, the wrapper's CAP; past it the wrapper folds in
+//    passes, groups of MR_CAP into partials): no pointer table
 //    and no [n, L] stack on the card;
 //  - four columns a thread, one 16-byte load from each table, all n loads
 //    issued before the fold (the template's kN >= n bounds the registers),

@@ -2,30 +2,53 @@
 
 The batched alternative to a host op store for N-way merges: build an
 OpLog from many replicas' changes, run ops/merge.py once on the card, then
-answer reads from the resolved columns. Mirrors the current-state half of
-the reference ReadDoc surface (reference: rust/automerge/src/read.rs:32-236)
-as ``automerge_tpu.ops.device_doc.DeviceDoc`` serves it, and its serving
-path: ``apply_changes`` / ``apply_batches`` splice new changes into the
-resident log and re-resolve only what they touch, on the device the
-document was resolved on; with ``enable_mesh``, a re-resolve of the whole
-log runs as the sharded merge over a mesh of shards instead
-(``parallel/sharding.py``). Historical views and patches are not part of
-this package.
+answer reads from the resolved columns. Mirrors the reference ReadDoc
+surface (reference: rust/automerge/src/read.rs:32-236) as
+``automerge_tpu.ops.device_doc.DeviceDoc`` serves it, including the
+historical reads: ``at(heads)`` re-resolves visibility under a clock mask
+(vectorized ``Clock::covers``, reference: clock.rs:71-77) on the base's
+device, sharing the log and the element order with the current state
+(element order depends only on the insert forest, never on the clock),
+and every read takes ``heads=``.
+
+Also a patch source: ``diff(before_heads, after_heads)`` emits
+path-qualified patches (``patches/patch.py``) straight from two
+clock-masked resolutions (reference: rust/automerge/src/automerge/diff.rs
+log_diff), and ``make_patches`` / ``hydrate`` materialize a state.
+
+And its serving path: ``apply_changes`` / ``apply_batches`` splice new
+changes into the resident log and re-resolve only what they touch, on the
+device the document was resolved on; with ``enable_mesh``, a re-resolve
+of the whole log runs as the sharded merge over a mesh of shards instead
+(``parallel/sharding.py``). Every append drops the cached views.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..core.marks import Mark
 from ..device import resolve_device
+from ..patches.patch import (
+    DeleteMap,
+    DeleteSeq,
+    FlagConflict,
+    IncrementPatch,
+    Insert,
+    Patch,
+    PutMap,
+    PutSeq,
+    SpliceText,
+)
 from ..storage.change import StoredChange, parse_change
 from ..types import (
     ACTOR_BITS, Action, ObjType, is_make_action, objtype_for_action,
 )
+from ..utils.ranges import filter_map_range
 from .extract import LazyValues
 from .merge import merge_columns, prepare_resolution
 from .oplog import (
@@ -87,23 +110,47 @@ class DeviceDoc:
         "visible", "winner", "conflicts", "elem_index",
         "obj_vis_len", "obj_text_width",
     )
+    # historical views reuse the base's element order
+    VIEW_FETCH = (
+        "visible", "winner", "conflicts", "obj_vis_len", "obj_text_width",
+    )
 
     def __init__(self, log: OpLog, res: Dict[str, np.ndarray], device=None,
-                 staging: str = "run_native"):
+                 staging: str = "run_native",
+                 covered: Optional[np.ndarray] = None,
+                 base: Optional["DeviceDoc"] = None):
+        """A document over ``log`` resolved as ``res``. With ``base``, a
+        historical view of that document under the clock mask
+        ``covered``: it shares the base's log, element order, object
+        index, device, staging and mesh state."""
         self.log = log
         self.res = res
+        if base is not None:
+            device, staging = base.device, base.staging
         # every re-resolve of this document runs where it was resolved,
         # its columns staged as they were (ops/merge.py prepare_resolution)
         self.device = resolve_device(device)
         self.staging = staging
-        # mesh residency (enable_mesh): off until asked for
-        self._mesh = None
-        self._mesh_min_rows = MESH_MIN_ROWS
+        # mesh residency (enable_mesh): off until asked for; views share
+        # the base's
+        self._mesh = None if base is None else base._mesh
+        self._mesh_min_rows = MESH_MIN_ROWS if base is None else base._mesh_min_rows
         n = log.n
+        self._base = self if base is None else base
+        self.covered = (np.ones(n, np.bool_) if covered is None
+                        else np.asarray(covered, np.bool_))
         self.visible = res["visible"][:n]
         self.winner = res["winner"][:n]
         self.conflicts = res["conflicts"][:n]
+        if base is not None:
+            self.elem_index = base.elem_index
+            self._obj_type = base._obj_type
+            self._rows_by_obj = base._rows_by_obj
+            self._obj_sorted = base._obj_sorted
+            self._recompute_counters()
+            return
         self.elem_index = res["elem_index"][:n]
+        self._views: Dict[tuple, "DeviceDoc"] = {}
         # object id -> object type, from make ops (+ root)
         self._obj_type: Dict[int, ObjType] = {0: ObjType.MAP}
         for r in np.flatnonzero(np.isin(log.action[:n], MAKE_ACTIONS)):
@@ -132,12 +179,17 @@ class DeviceDoc:
         self._recompute_counters()
 
     def _recompute_counters(self) -> None:
-        # exact int64 counter totals, host-side (the kernels keep int32
-        # counters that wrap; reference counters are i64, value.rs:369)
+        # exact int64 counter totals, host-side, gated by this view's clock
+        # (the kernels keep int32 counters that wrap; reference counters
+        # are i64, value.rs:369)
         log = self.log
         self.counter_val = np.asarray(log.value_int).copy()
         if len(log.pred_src):
-            mask = (log.action[log.pred_src] == Action.INCREMENT) & (log.pred_tgt >= 0)
+            mask = (
+                (log.action[log.pred_src] == Action.INCREMENT)
+                & (log.pred_tgt >= 0)
+                & self.covered[log.pred_src]
+            )
             np.add.at(
                 self.counter_val,
                 log.pred_tgt[mask],
@@ -196,7 +248,10 @@ class DeviceDoc:
         Changes whose dependencies are not yet present are buffered and
         integrated when the gap fills (``pending_changes``). Duplicate
         (re-delivered) changes are no-ops. ``incremental=False`` rebuilds
-        the log from all its changes instead of splicing."""
+        the log from all its changes instead of splicing. Only valid on
+        the base (current-state) document."""
+        if self._base is not self:
+            raise ValueError("apply_changes on a historical view; use the base doc")
         ready = self._take_ready(_parsed(changes))
         if not ready:
             return 0
@@ -224,7 +279,9 @@ class DeviceDoc:
         last step includes its own readback) and, on the card, the
         seconds of each stage of the steps summed over the batches. The
         device is not synchronised for it: a stage that waits for the
-        card holds the wait."""
+        card holds the wait. Only valid on the base document."""
+        if self._base is not self:
+            raise ValueError("apply_batches on a historical view; use the base doc")
         if phases is not None:
             phases.setdefault("batches", [])
         if self.device.type != "cpu":
@@ -366,6 +423,8 @@ class DeviceDoc:
                 for k, v in self._obj_type.items()
             }
             self._rank_of = new_rank
+        # a view's clock and resolution describe the old log
+        self._views.clear()
         if info.n_new == 0:
             if info.actors_changed:
                 self._all_elems_cache.clear()
@@ -781,9 +840,11 @@ class DeviceDoc:
         unless ``devices`` names others, e.g. ``["cuda:0"] * 4``).
         Logs under ``min_rows`` rows stay on the document's device.
         Raises when the cards are fewer than asked for or the mesh has one
-        shard. Returns the mesh."""
+        shard. Returns the mesh. Only valid on the base document."""
         from ..parallel import default_mesh
 
+        if self._base is not self:
+            raise ValueError("enable_mesh on a historical view; use the base doc")
         mesh = default_mesh(n_devices, devices)
         if mesh.size < 2:
             raise ValueError(f"enable_mesh needs two shards or more, got {mesh.size}")
@@ -846,6 +907,61 @@ class DeviceDoc:
         with _stage(phases, "scatter"):
             self._scatter_subset(handle["rows"], handle["dirty"], res_sub)
 
+    # -- historical views -----------------------------------------------------
+
+    def current_heads(self) -> List[bytes]:
+        """Change hashes no other change in the log depends on."""
+        base = self._base
+        deps = {d for ch in base.log.changes for d in ch.dependencies}
+        return sorted(h for h in base._hash_index if h not in deps)
+
+    def _clock_vec(self, heads: Sequence[bytes]) -> np.ndarray:
+        """Dense per-actor-rank max-op vector for the clock at ``heads``
+        (the ancestor traversal of change_graph.rs:128-142, host-side)."""
+        base = self._base
+        vec = np.zeros(len(base.log.actors), np.int64)
+        stack = list(heads)
+        seen = set()
+        while stack:
+            h = stack.pop()
+            if h in seen:
+                continue
+            seen.add(h)
+            ch = base._hash_index.get(h)
+            if ch is None:
+                raise KeyError(f"unknown head {h.hex()}")
+            rank = base._rank_of[bytes(ch.actor)]
+            if ch.max_op > vec[rank]:
+                vec[rank] = ch.max_op
+            stack.extend(ch.dependencies)
+        return vec
+
+    def at(self, heads: Optional[Sequence[bytes]], phases=None) -> "DeviceDoc":
+        """The document as of ``heads``: same log, same element order,
+        visibility re-resolved under the clock mask by one merge of the
+        whole log on the base's device (never over its mesh), cached per
+        heads set until the next append. ``phases`` (a dict) collects the
+        seconds of that merge's phases, as ``merge_columns``'."""
+        base = self._base
+        if heads is None:
+            return base
+        key = tuple(sorted(heads))
+        view = base._views.get(key)
+        if view is None:
+            log = base.log
+            covered = log.covered_mask(base._clock_vec(heads))
+            res = merge_columns(
+                log.padded_columns(covered=covered), fetch=self.VIEW_FETCH,
+                n_objs=log.n_objs, n_props=len(log.props), device=base.device,
+                staging=base.staging, phases=phases,
+            )
+            view = DeviceDoc(log, res, covered=covered, base=base)
+            base._views[key] = view
+        return view
+
+    def _view(self, heads) -> "DeviceDoc":
+        return self if heads is None else self.at(heads)
+
     # -- row selection ------------------------------------------------------
 
     def _obj_rows(self, obj_key: int) -> np.ndarray:
@@ -861,13 +977,15 @@ class DeviceDoc:
 
     def _all_elems(self, obj_key: int) -> List[int]:
         """ALL element rows of a sequence in document order — including
-        invisible and mark elements."""
-        cached = self._all_elems_cache.get(obj_key)
+        invisible and mark elements (order is clock-independent, so this
+        lives on the base)."""
+        base = self._base
+        cached = base._all_elems_cache.get(obj_key)
         if cached is None:
             cached = order_elem_rows(
-                self.log, self.elem_index, self._obj_rows(obj_key)
+                base.log, base.elem_index, base._obj_rows(obj_key)
             ).tolist()
-            self._all_elems_cache[obj_key] = cached
+            base._all_elems_cache[obj_key] = cached
         return cached
 
     def _seq_elems(self, obj_key: int) -> List[Tuple[int, int]]:
@@ -892,77 +1010,83 @@ class DeviceDoc:
             return ("counter", int(self.counter_val[row]))
         return ("scalar", self.log.values[row])
 
-    # -- reads --------------------------------------------------------------
+    # -- reads (``heads`` = None: the current state) ---------------------------
 
     def object_type(self, obj: str) -> ObjType:
         return self._check_obj(self.log.import_id(obj))
 
-    def keys(self, obj: str = "_root") -> List[str]:
-        ok = self.log.import_id(obj)
-        self._check_obj(ok)
+    def keys(self, obj: str = "_root", heads=None) -> List[str]:
+        view = self._view(heads)
+        log = view.log
+        ok = log.import_id(obj)
+        view._check_obj(ok)
         props = {
-            int(self.log.prop[r])
-            for r in self._obj_rows(ok)
-            if self.log.prop[r] >= 0 and self.winner[r] >= 0
+            int(log.prop[r])
+            for r in view._obj_rows(ok)
+            if log.prop[r] >= 0 and view.winner[r] >= 0
         }
-        return sorted(self.log.props[p] for p in props)
+        return sorted(log.props[p] for p in props)
 
-    def map_entries(self, obj: str = "_root") -> List[Tuple[str, object, str]]:
-        ok = self.log.import_id(obj)
-        self._check_obj(ok)
+    def map_entries(self, obj: str = "_root",
+                    heads=None) -> List[Tuple[str, object, str]]:
+        view = self._view(heads)
+        log = view.log
+        ok = log.import_id(obj)
+        view._check_obj(ok)
         best: Dict[int, int] = {}
-        for r in self._obj_rows(ok):
-            p = int(self.log.prop[r])
-            if p >= 0 and self.winner[r] >= 0:
-                best[p] = int(self.winner[r])
+        for r in view._obj_rows(ok):
+            p = int(log.prop[r])
+            if p >= 0 and view.winner[r] >= 0:
+                best[p] = int(view.winner[r])
         out = [
-            (
-                self.log.props[p],
-                self._render(w),
-                self.log.export_id(int(self.log.id_key[w])),
-            )
+            (log.props[p], view._render(w), log.export_id(int(log.id_key[w])))
             for p, w in best.items()
         ]
         out.sort(key=lambda kv: kv[0])
         return out
 
-    def list_items(self, obj: str) -> List[Tuple[object, str]]:
-        ok = self.log.import_id(obj)
-        self._check_obj(ok)
+    def list_items(self, obj: str, heads=None) -> List[Tuple[object, str]]:
+        view = self._view(heads)
+        log = view.log
+        ok = log.import_id(obj)
+        view._check_obj(ok)
         return [
-            (self._render(w), self.log.export_id(int(self.log.id_key[w])))
-            for _, w in self._seq_elems(ok)
+            (view._render(w), log.export_id(int(log.id_key[w])))
+            for _, w in view._seq_elems(ok)
         ]
 
-    def text(self, obj: str) -> str:
-        ok = self.log.import_id(obj)
-        self._check_obj(ok)
-        values = self.log.values
+    def text(self, obj: str, heads=None) -> str:
+        view = self._view(heads)
+        ok = view.log.import_id(obj)
+        view._check_obj(ok)
+        values = view.log.values
         if isinstance(values, LazyValues):  # the winners' strings in bulk
-            elems = np.asarray(self._all_elems(ok), np.int64)
-            win = np.asarray(self.winner)[elems]
+            elems = np.asarray(view._all_elems(ok), np.int64)
+            win = np.asarray(view.winner)[elems]
             return values.text(win[win >= 0], _OBJ_REPLACEMENT)
         parts = []
-        for _, w in self._seq_elems(ok):
+        for _, w in view._seq_elems(ok):
             v = values[w]
             parts.append(v.value if v.tag == "str" else _OBJ_REPLACEMENT)
         return "".join(parts)
 
-    def length(self, obj: str = "_root") -> int:
-        ok = self.log.import_id(obj)
-        t = self._check_obj(ok)
+    def length(self, obj: str = "_root", heads=None) -> int:
+        view = self._view(heads)
+        ok = view.log.import_id(obj)
+        t = view._check_obj(ok)
         if t in (ObjType.MAP, ObjType.TABLE):
-            return len(self.keys(obj))
-        dense = int(np.searchsorted(self.log.obj_table, ok))
+            return len(view.keys(obj))
+        dense = int(np.searchsorted(view.log.obj_table, ok))
         if t == ObjType.TEXT:
-            return int(self.res["obj_text_width"][dense])
-        return int(self.res["obj_vis_len"][dense])
+            return int(view.res["obj_text_width"][dense])
+        return int(view.res["obj_vis_len"][dense])
 
-    def get_all(self, obj: str, prop) -> List[Tuple[object, str]]:
-        ok = self.log.import_id(obj)
-        t = self._check_obj(ok)
-        rows = self._obj_rows(ok)
-        log = self.log
+    def get_all(self, obj: str, prop, heads=None) -> List[Tuple[object, str]]:
+        view = self._view(heads)
+        log = view.log
+        ok = log.import_id(obj)
+        t = view._check_obj(ok)
+        rows = view._obj_rows(ok)
         if isinstance(prop, str):
             if t not in (ObjType.MAP, ObjType.TABLE):
                 raise ValueError("map lookup requires a map object")
@@ -970,9 +1094,9 @@ class DeviceDoc:
                 p = log.props.index(prop)
             except ValueError:
                 return []
-            vis = [int(r) for r in rows if int(log.prop[r]) == p and self.visible[r]]
+            vis = [int(r) for r in rows if int(log.prop[r]) == p and view.visible[r]]
         else:
-            elems = self._seq_elems(ok)
+            elems = view._seq_elems(ok)
             if prop < 0:
                 return []
             if t == ObjType.TEXT:
@@ -994,7 +1118,7 @@ class DeviceDoc:
             vis = [
                 int(r)
                 for r in rows
-                if self.visible[r]
+                if view.visible[r]
                 and (
                     (log.insert[r] and int(r) == er)
                     or (not log.insert[r] and int(log.elem_ref[r]) == er)
@@ -1002,10 +1126,347 @@ class DeviceDoc:
             ]
         vis.sort()  # rows are in Lamport order; winner last
         return [
-            (self._render(r), log.export_id(int(log.id_key[r])))
+            (view._render(r), log.export_id(int(log.id_key[r])))
             for r in vis
         ]
 
-    def get(self, obj: str, prop):
-        vals = self.get_all(obj, prop)
+    def get(self, obj: str, prop, heads=None):
+        vals = self.get_all(obj, prop, heads)
         return vals[-1] if vals else None
+
+    def map_range(self, obj: str = "_root", start=None, end=None, heads=None):
+        """(key, value, id) for map keys in [start, end) (read.rs map_range)."""
+        return filter_map_range(self.map_entries(obj, heads=heads), start, end)
+
+    def list_range(self, obj: str, start: int = 0, end=None, heads=None):
+        """(index, value, id) for indices in [start, end) (read.rs list_range).
+        Renders only the requested rows of the materialized element order."""
+        view = self._view(heads)
+        log = view.log
+        ok = log.import_id(obj)
+        view._check_obj(ok)
+        elems = view._seq_elems(ok)
+        stop = len(elems) if end is None else min(end, len(elems))
+        return [
+            (i, view._render(elems[i][1]),
+             log.export_id(int(log.id_key[elems[i][1]])))
+            for i in range(max(start, 0), stop)
+        ]
+
+    def values(self, obj: str = "_root", heads=None):
+        """Winner (value, id) pairs (read.rs values)."""
+        view = self._view(heads)
+        t = view._check_obj(view.log.import_id(obj))
+        if t in (ObjType.MAP, ObjType.TABLE):
+            return [(val, vid) for _, val, vid in view.map_entries(obj)]
+        return view.list_items(obj)
+
+    def parents(self, obj: str, heads=None) -> List[Tuple[str, object]]:
+        """Path from ``obj`` up to the root (read.rs parents/parents_at):
+        walks the make ops' containing objects through the log columns,
+        resolving sequence indices at the given heads."""
+        view = self._view(heads)
+        log = view.log
+        key = log.import_id(obj)
+        view._check_obj(key)
+        path: List[Tuple[str, object]] = []
+        while key != 0:
+            row = log.row_of_id(key)
+            parent_key = int(log.obj_key[row])
+            parent_exid = log.export_id(parent_key)
+            p = int(log.prop[row])
+            if p >= 0:
+                path.append((parent_exid, log.props[p]))
+            else:
+                # element ordinal among VISIBLE elements (1 each); None
+                # when the element is invisible
+                er = row if log.insert[row] else int(log.elem_ref[row])
+                view._check_obj(parent_key)
+                idx = 0
+                found = None
+                for r in view._all_elems(parent_key):
+                    visible = int(view.winner[r]) >= 0
+                    if r == er:
+                        found = idx if visible else None
+                        break
+                    if visible:
+                        idx += 1
+                path.append((parent_exid, found))
+            key = parent_key
+        return path
+
+    # -- cursors (reference: cursor.rs, automerge.rs seek_opid) -------------
+
+    def get_cursor(self, obj: str, position: int, heads=None) -> str:
+        view = self._view(heads)
+        log = view.log
+        ok = log.import_id(obj)
+        t = view._check_obj(ok)
+        if t in (ObjType.MAP, ObjType.TABLE):
+            raise ValueError("cursors only apply to sequences")
+        at = 0
+        for r, w in view._seq_elems(ok):
+            at += int(log.width[w]) if t == ObjType.TEXT else 1
+            if position < at:
+                return log.export_id(int(log.id_key[r]))
+        raise ValueError(f"cursor position {position} out of bounds")
+
+    def get_cursor_position(self, obj: str, cursor: str, heads=None) -> int:
+        view = self._view(heads)
+        log = view.log
+        ok = log.import_id(obj)
+        t = view._check_obj(ok)
+        if t in (ObjType.MAP, ObjType.TABLE):
+            raise ValueError("cursors only apply to sequences")
+        target = log.import_id(cursor)
+        index = 0
+        for r in view._all_elems(ok):
+            if int(log.id_key[r]) == target:
+                return index
+            w = int(view.winner[r])
+            if w >= 0:
+                index += int(log.width[w]) if t == ObjType.TEXT else 1
+        raise ValueError(f"cursor {cursor!r} not found in {obj!r}")
+
+    # -- marks (reference: marks.rs MarkStateMachine, automerge.rs:1370) ----
+
+    def marks(self, obj: str, heads=None) -> List[Mark]:
+        view = self._view(heads)
+        log = view.log
+        ok = log.import_id(obj)
+        t = view._check_obj(ok)
+        if t in (ObjType.MAP, ObjType.TABLE):
+            raise ValueError("marks on a non-sequence object")
+        is_text = t == ObjType.TEXT
+        open_marks: List[Tuple[int, str, object]] = []  # (begin id_key, name, value)
+        index = 0
+        spans: Dict[str, List[Mark]] = {}
+        for r in view._all_elems(ok):
+            if int(log.action[r]) == Action.MARK:
+                # mark begin/end ops are covered-or-absent, never "visible"
+                if not view.covered[r]:
+                    continue
+                mi = int(log.mark_name_idx[r])
+                if mi >= 0:  # begin
+                    open_marks.append(
+                        (int(log.id_key[r]), log.mark_names[mi], log.values[r].to_py())
+                    )
+                    # packed id order == lamport order (rank = actor byte rank)
+                    open_marks.sort()
+                else:  # end: pairs with begin id (ctr-1, same actor)
+                    begin = int(log.id_key[r]) - (1 << ACTOR_BITS)
+                    open_marks = [e for e in open_marks if e[0] != begin]
+                continue
+            w = int(view.winner[r])
+            if w < 0:
+                continue
+            width = int(log.width[w]) if is_text else 1
+            current: Dict[str, object] = {}
+            for _, name, value in open_marks:  # lamport-ascending: last wins
+                current[name] = value
+            for name, value in current.items():
+                runs = spans.setdefault(name, [])
+                if runs and runs[-1].end == index and runs[-1].value == value:
+                    runs[-1].end = index + width
+                else:
+                    runs.append(Mark(index, index + width, name, value))
+            index += width
+        out = [
+            m
+            for runs in spans.values()
+            for m in runs
+            if m.value is not None  # null-valued spans are unmarks
+        ]
+        out.sort(key=lambda m: (m.start, m.name))
+        return out
+
+    # -- diff / patches -----------------------------------------------------
+
+    def diff(self, before_heads, after_heads=None) -> List[Patch]:
+        """Patches turning the state at ``before_heads`` into the state at
+        ``after_heads`` (None = this document's state); computed from two
+        clock-masked resolutions."""
+        vb = self.at(before_heads if before_heads is not None else [])
+        va = self._view(after_heads)
+        patches: List[Patch] = []
+        _diff_obj(vb, va, 0, [], patches)
+        return patches
+
+    def make_patches(self) -> List[Patch]:
+        """Patches materializing the whole current state (applying them to
+        an empty dict reproduces ``hydrate()``; reference:
+        automerge/current_state.rs)."""
+        return self.diff([])
+
+    # -- materialization ----------------------------------------------------
+
+    def hydrate(self, obj: str = "_root", heads=None):
+        view = self._view(heads)
+        return view._hydrate(view.log.import_id(obj))
+
+    def _hydrate(self, obj_key: int):
+        t = self._check_obj(obj_key)
+        if t in (ObjType.MAP, ObjType.TABLE):
+            return {
+                name: self._hydrate_val(val)
+                for name, val, _ in self.map_entries(self.log.export_id(obj_key))
+            }
+        if t == ObjType.TEXT:
+            return self.text(self.log.export_id(obj_key))
+        return [
+            self._hydrate_val(self._render(w)) for _, w in self._seq_elems(obj_key)
+        ]
+
+    def _hydrate_val(self, rendered):
+        kind = rendered[0]
+        if kind == "obj":
+            return self._hydrate(self.log.import_id(rendered[2]))
+        if kind == "counter":
+            return rendered[1]
+        return rendered[1].to_py()
+
+
+# -- the device differ (the host differ's walk over two resolutions) -----------
+
+
+def _patch_value(view: DeviceDoc, row: int):
+    """Patch value of a winning op: hydrated subtree / counter / scalar."""
+    a = int(view.log.action[row])
+    if is_make_action(a):
+        return view._hydrate(int(view.log.id_key[row]))
+    if a == Action.PUT and int(view.log.value_tag[row]) == TAG_COUNTER:
+        return int(view.counter_val[row])
+    return view.log.values[row].to_py()
+
+
+def _is_counter_row(log: OpLog, row: int) -> bool:
+    return int(log.action[row]) == Action.PUT and int(log.value_tag[row]) == TAG_COUNTER
+
+
+def _diff_obj(vb, va, obj_key, path, patches):
+    t = va._check_obj(obj_key)
+    exid = va.log.export_id(obj_key)
+    if t in (ObjType.MAP, ObjType.TABLE):
+        _diff_map(vb, va, obj_key, exid, path, patches)
+    elif t == ObjType.TEXT:
+        _diff_text(vb, va, obj_key, exid, path, patches)
+    else:
+        _diff_list(vb, va, obj_key, exid, path, patches)
+
+
+def _diff_map(vb, va, obj_key, exid, path, patches):
+    log = va.log
+    groups: Dict[int, int] = {}  # prop -> representative row
+    for r in va._obj_rows(obj_key):
+        p = int(log.prop[r])
+        if p >= 0 and p not in groups:
+            groups[p] = int(r)
+    for p in sorted(groups, key=lambda p: log.props[p]):
+        rep = groups[p]
+        key = log.props[p]
+        wb = int(vb.winner[rep])
+        wa = int(va.winner[rep])
+        if wa < 0:
+            if wb >= 0:
+                patches.append(Patch(exid, list(path), DeleteMap(key)))
+            continue
+        conflict = int(va.conflicts[rep]) > 1
+        if wb < 0 or wb != wa:
+            patches.append(
+                Patch(exid, list(path), PutMap(key, _patch_value(va, wa), conflict))
+            )
+        elif _is_counter_row(log, wa):
+            delta = int(va.counter_val[wa]) - int(vb.counter_val[wa])
+            if delta:
+                patches.append(Patch(exid, list(path), IncrementPatch(key, delta)))
+        elif conflict and int(vb.conflicts[rep]) <= 1:
+            patches.append(Patch(exid, list(path), FlagConflict(key)))
+        if is_make_action(int(log.action[wa])) and wb == wa:
+            _diff_obj(vb, va, int(log.id_key[wa]), path + [(exid, key)], patches)
+
+
+def _extend_delete(patches, exid, idx, n) -> bool:
+    """Grows the last patch by ``n`` when it deletes at ``idx`` of ``exid``."""
+    last = patches[-1] if patches else None
+    if (last is not None and last.obj == exid
+            and isinstance(last.action, DeleteSeq) and last.action.index == idx):
+        last.action.length += n
+        return True
+    return False
+
+
+def _diff_list(vb, va, obj_key, exid, path, patches):
+    log = va.log
+    idx = 0
+    pending_ins = None  # (index, [values])
+    for r in va._all_elems(obj_key):
+        wb = int(vb.winner[r])
+        wa = int(va.winner[r])
+        if wa < 0 and wb < 0:
+            continue
+        if wa >= 0 and wb < 0:
+            if pending_ins is None:
+                pending_ins = (idx, [])
+            pending_ins[1].append(_patch_value(va, wa))
+            idx += 1
+            continue
+        if pending_ins is not None:
+            patches.append(Patch(exid, list(path), Insert(*pending_ins)))
+            pending_ins = None
+        if wa < 0:
+            if not _extend_delete(patches, exid, idx, 1):
+                patches.append(Patch(exid, list(path), DeleteSeq(idx)))
+            continue
+        conflict = int(va.conflicts[r]) > 1
+        if wb != wa:
+            patches.append(
+                Patch(exid, list(path), PutSeq(idx, _patch_value(va, wa), conflict))
+            )
+        elif _is_counter_row(log, wa):
+            delta = int(va.counter_val[wa]) - int(vb.counter_val[wa])
+            if delta:
+                patches.append(Patch(exid, list(path), IncrementPatch(idx, delta)))
+        elif conflict and int(vb.conflicts[r]) <= 1:
+            patches.append(Patch(exid, list(path), FlagConflict(idx)))
+        if is_make_action(int(log.action[wa])) and wb == wa:
+            _diff_obj(vb, va, int(log.id_key[wa]), path + [(exid, idx)], patches)
+        idx += 1
+    if pending_ins is not None:
+        patches.append(Patch(exid, list(path), Insert(*pending_ins)))
+
+
+def _diff_text(vb, va, obj_key, exid, path, patches):
+    log = va.log
+    idx = 0
+    pending = None  # [index, str] for inserts
+    for r in va._all_elems(obj_key):
+        wb = int(vb.winner[r])
+        wa = int(va.winner[r])
+        if wa < 0 and wb < 0:
+            continue
+        sa = _char(log, wa) if wa >= 0 else None
+        sb = _char(log, wb) if wb >= 0 else None
+        if wa >= 0 and wb < 0:
+            if pending is None:
+                pending = [idx, ""]
+            pending[1] += sa
+            idx += len(sa)
+            continue
+        if pending is not None:
+            patches.append(Patch(exid, list(path), SpliceText(pending[0], pending[1])))
+            pending = None
+        if wa < 0:
+            if not _extend_delete(patches, exid, idx, len(sb)):
+                patches.append(Patch(exid, list(path), DeleteSeq(idx, len(sb))))
+            continue
+        if wb != wa and (sa != sb):
+            patches.append(Patch(exid, list(path), DeleteSeq(idx, len(sb))))
+            patches.append(Patch(exid, list(path), SpliceText(idx, sa)))
+        idx += len(sa)
+    if pending is not None:
+        patches.append(Patch(exid, list(path), SpliceText(pending[0], pending[1])))
+
+
+def _char(log: OpLog, row: int) -> str:
+    v = log.values[row]
+    return v.value if v.tag == "str" else _OBJ_REPLACEMENT

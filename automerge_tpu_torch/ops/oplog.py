@@ -412,6 +412,14 @@ class OpLog:
         cont = is_cont[vs] & (er[vs] == prev)
         return max(int((~cont).sum()), 1)
 
+    def covered_mask(self, clock_max_op: np.ndarray) -> np.ndarray:
+        """Vectorized ``Clock::covers`` (reference: clock.rs:71-77): row i is
+        covered iff its counter <= clock_max_op[actor rank]. ``clock_max_op``
+        is the dense per-rank max-op vector (0 = actor not in clock)."""
+        ctr = self.id_key >> ACTOR_BITS
+        rank = (self.id_key & ACTOR_MASK).astype(np.int64)
+        return ctr <= np.asarray(clock_max_op, np.int64)[rank]
+
     # -- host-side id helpers ---------------------------------------------
 
     def export_id(self, key: int) -> str:
@@ -429,6 +437,14 @@ class OpLog:
             if a.bytes == target:
                 return pack_id(int(ctr_s), rank)
         raise KeyError(f"unknown actor in id {exid!r}")
+
+    def row_of_id(self, key: int) -> int:
+        """The row of the op with packed id ``key`` (rows are sorted by
+        ``id_key``)."""
+        pos = int(np.searchsorted(self.id_key, key))
+        if pos < self.n and self.id_key[pos] == key:
+            return pos
+        raise KeyError(f"no op with id {self.export_id(key)}")
 
     # -- incremental append -------------------------------------------------
 

@@ -18,11 +18,11 @@ collectives turn the first into the second:
 - ``all_gather`` (``jax.lax.all_gather(x, tiled=True)``): the shards'
   slices copied, in shard order, into one full-size tensor on each
   distinct device;
-- ``psum`` / ``pmax`` (``jax.lax.psum`` / ``pmax``, at most ``CAP``
-  shards): the shards' tables folded on each distinct device by one
-  ``mesh_reduce`` launch (int32 sums wrap), the tables on that device
-  read where they lie and only the other devices' copied in first (on a
-  mesh of one device, nothing).
+- ``psum`` / ``pmax`` (``jax.lax.psum`` / ``pmax``, any mesh size): the
+  shards' tables folded on each distinct device by ``mesh_reduce`` (one
+  launch up to ``CAP`` shards, a pass a group of ``CAP`` past it; int32
+  sums wrap), the tables on that device read where they lie and only the
+  other devices' copied in first (on a mesh of one device, nothing).
 
 A doubling loop of the sharded merge gathers its state every round
 without ``all_gather``'s allocation: ``all_gather_into`` copies in only
@@ -44,7 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..device import resolve_device
-from ..kernels.collectives import CAP, fold
+from ..kernels.collectives import fold
 
 KINDS = ("all_gather", "psum", "pmax")
 
@@ -177,11 +177,11 @@ def _reduce(kind: str, op: str, mesh: Mesh, parts: Sequence[torch.Tensor]):
     others' copied into one [m, ...] staging buffer there first. The
     tables are checked here, once, not again by the fold."""
     shape = parts[0].shape
-    if len(parts) != mesh.size or mesh.size > CAP or any(
+    if len(parts) != mesh.size or any(
             p.dtype != torch.int32 or p.shape != shape or not p.is_contiguous()
             for p in parts):
-        raise ValueError(f"{kind}: expected {mesh.size} (at most {CAP}) contiguous "
-                         "int32 tables of one shape, one a shard")
+        raise ValueError(f"{kind}: expected {mesh.size} contiguous int32 tables "
+                         "of one shape, one a shard")
     nbytes = parts[0].numel() * 4
     out, copied = {}, 0
     for d in mesh.distinct:

@@ -209,6 +209,11 @@ class ScalarValue(NamedTuple):
     tag: str
     value: object = None
 
+    def to_py(self):
+        """The plain Python value (None for null), as ``hydrate`` and
+        patches carry it."""
+        return None if self.tag == "null" else self.value
+
 
 # ---------------------------------------------------------------------------
 # Keys

@@ -2,8 +2,10 @@
 merge of a text document, the fan-in of a record store and the record
 store served batch by batch, end to end through hand-written CUDA kernels,
 with the columns staged as run tables (run-native, the default), the
-packed transport, the chain-condensed document order, and the sharded
-merge over a mesh of four shards on the card.
+packed transport, the chain-condensed document order, the sharded merge
+over meshes of four and sixteen shards on the card, and historical views
+of the documents (``DeviceDoc.at``: the whole log resolved under a clock
+mask with false rows), their reads, ``diff`` and ``make_patches``.
 
     python3 chip_smoke.py            # full width, as below
     python3 chip_smoke.py --cards    # on four cards: phases 1, 2 and (g) only
@@ -35,14 +37,14 @@ Phases, each raising on failure (nothing is caught):
        log with transport="packed" (its own launch counts: expand_runs,
        unpack_flags, emit_packed), equal to the dict resolve on READ_FETCH
        (conflicts as > 1), the same text, and its flat vector's bytes
-       printed against the dict readback's;
+       printed against the dict readback's; then "text view" (h);
     b. record-store fan-in (65,536 records x 8 fields, 1024 x 250): the
        same phases (the oracle's log too), then keys of the records map and map_entries of every
        visible record; the generator's counts (visible records, the votes
        sum, keys with concurrent values) must hold; sort_winners must run,
        scatter_winners must not; the three stagings and the packed
        transport as in (a), the packed document's reads the generator's
-       counts;
+       counts; then "records view" (h);
     c. the record store served: the base merged on the card (its launches
        read on their own), then DeviceDoc.apply_batches of the replicas in
        64 batches of 16, with the counts set to 0 just before; every batch
@@ -53,7 +55,8 @@ Phases, each raising on failure (nothing is caught):
        same base with staging="dense" (no expand_runs; its base merge's
        launches again read on their own, the counts set to 0 just before
        the batches), equal to (b) too, p50 and max per batch printed
-       beside the run-native drain's;
+       beside the run-native drain's; a view of the resident base is
+       taken before the drain, and "served view" (h) after it;
     d. the input on which the JAX package's packed key merges two groups
        (two map puts, props 64 and 0, P = 16): packed equals dict, and so
        does merge_kernel_condensed(32) (the JAX package's
@@ -90,16 +93,41 @@ Phases, each raising on failure (nothing is caught):
        card, both applying that change (its full re-resolve: over the
        mesh in one), equal on READ_FETCH and the text; "text sharded 4
        cards" where the machine has four cards, else a line saying why
-       not;
+       not; and after "text sharded rows", "text sharded 16" and "text
+       sharded 16 rows": (a)'s merge over Mesh(["cuda:0"] * 16), past the
+       fold's one launch of at most 8 tables: each psum and pmax folds in
+       passes(16) = 3 mesh_reduce launches, all 13 outputs equal the
+       single-device merge's;
     g. with --cards, in place of (a)-(f) and 4-6 but the last line: the
        text fan-in's merge (a), then its sharded merge over four distinct
        cards and over four shards on one card, both linearize arms, each
        twice, each against the single-device merge as in (f);
+    h. historical views, each ``at`` with the launch counts set to 0 just
+       before and read just after, held to what its merge of the whole
+       log runs (expand_runs a stack, succ_vis 2, the winners, forest and
+       radix_sort, linearize 8, nothing else), its seconds and phases,
+       its covered rows and the run counts of its covered column and of
+       the packed transport's flags column printed: "text view" at H0
+       (the base's heads) and H1 (after the first 512 replicas' changes),
+       each view's text and length equal to a DeviceDoc.merge on the card
+       of exactly the changes its heads cover, H0's text the base
+       generator's, diff(H0, None) applied to hydrate(heads=H0) and
+       make_patches() applied to {} both hydrate(), the H1 view's columns
+       resolved again with the packed transport ("text view packed":
+       unpack_flags on a flags column whose covered bit varies) equal to
+       the view; "records view", the same on (b)'s document with the
+       records map's entries and hydrate against the merge of the changes
+       its heads cover; "served view", (c)'s document at H0 after its
+       drain, a new view (the drain dropped the one taken before it, and
+       remapped the actor ranks) equal to "records view"'s H0 view;
  4. every kernel against its plain PyTorch version on the same CUDA
     tensors (exact equality: all integer arithmetic) at the shapes of
     each path that runs it: the text fan-in, the record fan-in and the
     last served batch's subset columns (whose prop ids are the whole
-    log's); expand_runs at every stack of run tables the run-native
+    log's); at the H1 text view's columns ("text view": expand_runs at its
+    run-native stacks and succ_vis on its covered mask; "text view
+    packed": expand_runs, unpack_flags and emit_packed of VIEW_FETCH);
+    expand_runs at every stack of run tables the run-native
     staging makes on those three (row stacks, and the record fan-in's
     pred-edge stack: the text's pred columns stay dense), at the stacks
     of the eager-expansion staging on both fan-ins (the delta form, with
@@ -109,8 +137,9 @@ Phases, each raising on failure (nothing is caught):
     merge's at the typing fan-in's (linearize
     beside linearize_condensed on one log); the sharded merge's at one
     shard's shapes of "text sharded", "text sharded rows", "typing
-    sharded rows" and "records sharded" (mesh_reduce folding the four
-    shards' tables where they lie at the psum of the counts and the pmax
+    sharded rows", "records sharded" and "text sharded 16" (mesh_reduce
+    folding the four or sixteen shards' tables where they lie, sixteen in
+    three launches at the psum of the counts and the pmax
     of the winners, its library time torch.stack(parts).sum(0,
     dtype=torch.int32) / .amax(0) from the same tables; cond_expand over
     all P rows in one launch, as a mesh of one card runs it; the range
@@ -562,14 +591,17 @@ def check_call_launches(name: str, launched: int, want: int) -> None:
 
 def check_collective_launches(name: str, counts: dict, mesh, scatter: bool,
                               linearize: str, stats=None) -> None:
-    """A sharded merge's folds and expansions: one ``mesh_reduce`` a
-    distinct card for each psum and pmax (three psums and a pmax past the
-    scatter gate, the counts' psum alone below it), one ``cond_expand`` a
+    """A sharded merge's folds and expansions: one fold a distinct card
+    for each psum and pmax (three psums and a pmax past the scatter gate,
+    the counts' psum alone below it), each ``passes(mesh.size)``
+    ``mesh_reduce`` launches (one up to 8 shards), one ``cond_expand`` a
     run of shards on a card in the condensed arm; on one card (``stats``:
     the collectives' counts) psum and pmax copy nothing."""
+    from automerge_tpu_torch.kernels.collectives import passes
+
     k = len(mesh.distinct)
     check_call_launches(f"{name} mesh_reduce", counts["mesh_reduce"],
-                        (4 if scatter else 1) * k)
+                        (4 if scatter else 1) * k * passes(mesh.size))
     check_call_launches(f"{name} cond_expand", counts["cond_expand"],
                         len(mesh.runs) if linearize == "condensed" else 0)
     if stats is not None and k == 1:
@@ -696,7 +728,7 @@ def text_fanin(name: str, card: str, device, make_trace=None):
     DeviceDoc.merge on the card, its launches read around it (the scatter
     winners must run, the sort-based must not), its text length the
     generator's count. Returns (document, phases, text, text object,
-    launch counts)."""
+    launch counts, change bytes)."""
     from automerge_tpu_torch import kernels
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
 
@@ -722,22 +754,209 @@ def text_fanin(name: str, card: str, device, make_trace=None):
     check_launches(f"{name} fan-in", counts, RUN_NATIVE + ("scatter_winners",),
                    ("sort_winners",) + TRANSPORT_ONLY)
     print(f"{name}: {len(text)} characters, as the generator counted", flush=True)
-    return doc, phases, text, text_obj, counts
+    return doc, phases, text, text_obj, counts, blobs
 
 
 def text_path(card: str, device):
     """(a) the text fan-in: (log, launch counts by path: the fan-in, its
     eager-expansion staging and its packed resolve; the dict merge's 13
     outputs, the text, the text object)."""
-    doc, phases, text, text_obj, counts = text_fanin("text", card, device)
+    doc, phases, text, text_obj, counts, blobs = text_fanin("text", card, device)
     log = doc.log
     expand_counts, out = check_stagings("text fan-in", log, device)
     packed, packed_counts = check_packed("text fan-in", doc, phases, device)
     if packed.text(text_obj) != text:
         raise AssertionError("text fan-in: the packed document's text differs")
     print("text fan-in packed: the same text", flush=True)
+    view_counts, h1_covered = text_view(card, device, doc, blobs, text_obj)
     return log, {"text": counts, "text expand": expand_counts,
-                 "text packed": packed_counts}, out, text, text_obj
+                 "text packed": packed_counts, **view_counts}, out, text, text_obj, \
+        h1_covered
+
+
+# the second cut of a historical view: the heads after this many replicas
+VIEW_REPLICAS = 512
+
+
+def view_cuts(blobs, n_base: int) -> dict:
+    """{"H0": the heads of the first ``n_base`` changes (the base's), "H1":
+    the heads after the next ``VIEW_REPLICAS`` replicas' changes}, each
+    as (heads, the change bytes those heads cover: their ancestors, by
+    the changes' dependencies)."""
+    from automerge_tpu_torch.storage.change import parse_change
+
+    parsed = [parse_change(b)[0] for b in blobs]
+    by_hash = {c.hash: c for c in parsed}
+    cuts = {}
+    for name, k in (("H0", n_base), ("H1", n_base + VIEW_REPLICAS)):
+        deps = {d for c in parsed[:k] for d in c.dependencies}
+        heads = sorted(c.hash for c in parsed[:k] if c.hash not in deps)
+        seen, stack = set(), list(heads)
+        while stack:
+            h = stack.pop()
+            if h not in seen:
+                seen.add(h)
+                stack.extend(by_hash[h].dependencies)
+        cuts[name] = heads, [b for c, b in zip(parsed, blobs) if c.hash in seen]
+    return cuts
+
+
+def view_at(name: str, card: str, doc, heads, winners: str):
+    """One historical view ``doc.at(heads)`` on the card, the launch counts
+    set to 0 just before and read just after, held to what its merge of
+    the whole log runs: the run-native staging's ``expand_runs`` (one
+    launch a stack of run tables), ``succ_vis`` on the clock mask,
+    ``winners``, ``forest`` and its ``radix_sort``, ``linearize``, and no
+    other kernel. Prints its seconds, its phases, its covered rows and
+    the run counts of its covered column and of the packed transport's
+    flags column. Returns (view, launch counts)."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.kernels import linearize as L
+    from automerge_tpu_torch.ops.merge import _encode_columns, _flags_column
+
+    gc.collect()
+    phases = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    view = doc.at(heads, phases=phases)
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    cols = doc.log.padded_columns(covered=view.covered)
+    _, groups = _encode_columns(cols, run_native=True)
+    stacks = len(groups)
+    coded = next((cls for (_, cls), g in groups.items()
+                  if "covered" in [k for k, _, _ in g]), "dense")
+    flags = _flags_column(cols)
+
+    def runs(x) -> int:
+        return 1 + int(np.count_nonzero(np.diff(x.astype(np.int64))))
+
+    print(f"{name}: at {len(heads)} heads, {int(view.covered.sum())} of "
+          f"{doc.log.n} rows covered; resolve {seconds:.6f} s on {card}; "
+          f"phases_s " + json.dumps({k: round(v, 6) for k, v in phases.items()
+                                     if isinstance(v, float)}), flush=True)
+    print(f"{name}: covered column {runs(cols['covered'])} runs (staged "
+          f"{coded}); flags column {runs(flags)} runs (all covered: "
+          f"{runs(_flags_column(doc.log.padded_columns()))})", flush=True)
+    print(f"{name} launches {json.dumps(counts)}", flush=True)
+    want = {"succ_vis": SV_LAUNCHES, "forest": FOREST_LAUNCHES,
+            "linearize": L.LAUNCHES, "expand_runs": stacks,
+            winners: SW_LAUNCHES if winners == "scatter_winners" else SO_LAUNCHES}
+    for k, n in want.items():
+        check_call_launches(f"{name} {k}", counts[k], n)
+    check_launches(name, counts, tuple(want) + ("radix_sort",),
+                   tuple(k for k in counts if k not in want and k != "radix_sort"))
+    return view, counts
+
+
+def check_view_merge(name: str, card: str, device, doc, heads, covered_blobs, read):
+    """A view against an independent merge on the card of exactly the
+    changes its heads cover: ``read(d, heads)`` of both equal, and
+    ``hydrate``. Prints the seconds of each read."""
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    t0 = time.perf_counter()
+    got = read(doc, heads)
+    t1 = time.perf_counter()
+    got_h = doc.hydrate(heads=heads)
+    t2 = time.perf_counter()
+    ref = DeviceDoc.merge(covered_blobs, device=device)
+    t3 = time.perf_counter()
+    if read(ref, None) != got:
+        raise AssertionError(f"{name}: reads differ from a merge of the "
+                             f"{len(covered_blobs)} changes its heads cover")
+    if ref.hydrate() != got_h:
+        raise AssertionError(f"{name}: hydrate differs from a merge of the "
+                             f"changes its heads cover")
+    print(f"{name}: reads {t1 - t0:.6f} s, hydrate {t2 - t1:.6f} s on {card}; "
+          f"equal to a merge on the card of the {len(covered_blobs)} changes its "
+          f"heads cover ({t3 - t2:.3f} s)", flush=True)
+
+
+def check_patches(name: str, card: str, doc, h0) -> None:
+    """``diff(H0, None)`` applied to ``hydrate(heads=H0)`` gives
+    ``hydrate()``, and ``make_patches`` applied to {} too; their seconds
+    printed."""
+    from automerge_tpu_torch.patches import apply_patches
+
+    now = doc.hydrate()
+    before = doc.hydrate(heads=h0)
+    t0 = time.perf_counter()
+    patches = doc.diff(h0, None)
+    t1 = time.perf_counter()
+    applied = apply_patches(before, patches)
+    t2 = time.perf_counter()
+    made = doc.make_patches()
+    t3 = time.perf_counter()
+    if applied != now:
+        raise AssertionError(f"{name}: diff(H0) applied to H0 is not the document")
+    if apply_patches({}, made) != now:
+        raise AssertionError(f"{name}: make_patches applied to {{}} is not the "
+                             "document")
+    print(f"{name}: diff(H0, None) {len(patches)} patches {t1 - t0:.6f} s, "
+          f"applied {t2 - t1:.6f} s; make_patches {len(made)} patches "
+          f"{t3 - t2:.6f} s on {card}; both give hydrate()", flush=True)
+
+
+def text_view(card: str, device, doc, blobs, text_obj):
+    """(h) The text fan-in's document at H0 (the base's heads) and at H1
+    (after the first ``VIEW_REPLICAS`` replicas): each view's text and
+    length equal a merge on the card of exactly the changes its heads
+    cover, H0's text the base generator's; ``diff(H0)`` applied to
+    ``hydrate(heads=H0)`` is ``hydrate()``; the H1 view's columns resolved
+    with the packed transport (``unpack_flags`` on its flags column) equal
+    the view. Returns (launch counts by path, the H1 view's covered
+    mask)."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.merge import merge_columns
+
+    t0 = time.perf_counter()
+    cuts = view_cuts(blobs, 1)
+    base_ch, elems = W.base_change(W.load_trace(BASE_EDITS), BASE_EDITS)
+    base_text = "".join(base_ch.ops[c - 1].value.value for c, _ in elems)
+    print(f"text view: cuts and the base generator's text {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    counts = {}
+
+    def read(d, heads):
+        return d.text(text_obj, heads=heads), d.length(text_obj, heads=heads)
+
+    for cut, path in (("H0", "text view H0"), ("H1", "text view")):
+        heads, covered = cuts[cut]
+        view, counts[path] = view_at(f"text view {cut}", card, doc, heads,
+                                     "scatter_winners")
+        check_view_merge(f"text view {cut}", card, device, doc, heads, covered, read)
+        if cut == "H0" and view.text(text_obj) != base_text:
+            raise AssertionError("text view H0: the text is not the base generator's")
+    print(f"text view H0: the base generator's text, {len(base_text)} characters",
+          flush=True)
+    check_patches("text view", card, doc, cuts["H0"][0])
+
+    h1 = doc.at(cuts["H1"][0])
+    log = doc.log
+    kernels.reset_launches()
+    packed = merge_columns(log.padded_columns(covered=h1.covered),
+                           fetch=DeviceDoc.VIEW_FETCH, n_objs=log.n_objs,
+                           n_props=len(log.props), device=device, transport="packed")
+    counts["text view packed"] = kernels.launch_counts()
+    check_launches("text view packed", counts["text view packed"], PACKED, ())
+    for k in DeviceDoc.VIEW_FETCH:
+        cut = log.n_objs + 2 if k.startswith("obj_") else log.n
+        got, want = np.asarray(packed[k])[:cut], np.asarray(h1.res[k])[:cut]
+        if k == "conflicts":
+            got, want = got > 1, want > 1
+        if not np.array_equal(got, want):
+            raise AssertionError(f"text view packed: {k} differs from the view's")
+    print("text view packed: the H1 view's columns through the packed transport "
+          "(unpack_flags on its flags column) equal the view (conflicts as > 1); "
+          f"launches {json.dumps(counts['text view packed'])}", flush=True)
+    return counts, h1.covered
 
 
 def report_path(name, log, phases, e2e, counts, card) -> None:
@@ -854,6 +1073,7 @@ def record_paths(card: str, device):
         raise AssertionError("record fan-in: the packed document's reads differ "
                              "from the generator's counts")
     print("record fan-in packed: reads as the generator counted", flush=True)
+    view_counts, h0, h0_view = records_view(card, device, doc, [base] + reps)
 
     # (c) served: the base resident on the card, then 64 batches of 16
     batches = W.record_batches(reps, RECORD_BATCH)
@@ -866,6 +1086,8 @@ def record_paths(card: str, device):
     print(f"record served base launches {json.dumps(base_counts)}", flush=True)
     check_launches("record served base", base_counts, RUN_NATIVE + ("sort_winners",),
                    ("scatter_winners",) + TRANSPORT_ONLY)
+    # a view of the resident base before the drain, which must drop it
+    pre_view = served.at(h0)
     # note each batch's subset (its dirty objects) to check the kernels at
     # a served batch's shapes afterwards, and each batch's expand_runs
     # launches
@@ -935,6 +1157,7 @@ def record_paths(card: str, device):
     check_logs_equal("record served rebuild", served.log, rebuilt)
     print(f"record served: the spliced log equals a from_changes rebuild of its "
           f"changes ({time.perf_counter() - t0:.3f} s)", flush=True)
+    view_counts["served view"] = served_view(card, served, h0, h0_view, pre_view)
 
     # the same batches from the same base, staged dense
     kernels.reset_launches()
@@ -973,8 +1196,66 @@ def record_paths(card: str, device):
     counts = {"records": fanin_counts, "records expand": expand_counts,
               "records packed": packed_counts,
               "served base": base_counts, "served": served_counts,
-              "served dense base": dense_base_counts, "served dense": dense_counts}
+              "served dense base": dense_base_counts, "served dense": dense_counts,
+              **view_counts}
     return doc.log, last, counts, fanin_out, expect
+
+
+def records_view(card: str, device, doc, blobs):
+    """(h) The record store's fan-in document at H0 (the base's heads) and
+    H1 (after the first ``VIEW_REPLICAS`` replicas): each view's
+    ``map_entries`` of the records map and ``hydrate`` equal a merge on
+    the card of exactly the changes its heads cover; ``diff(H0)`` applied
+    to ``hydrate(heads=H0)`` is ``hydrate()``. Returns (launch counts by
+    path, H0, the H0 view)."""
+    from automerge_tpu_torch import workload as W
+
+    cuts = view_cuts(blobs, 1)
+    counts, views = {}, {}
+
+    def read(d, heads):
+        return d.map_entries(W.RECORDS_OBJ, heads=heads)
+
+    for cut, path in (("H0", "records view H0"), ("H1", "records view")):
+        heads, covered = cuts[cut]
+        views[cut], counts[path] = view_at(f"records view {cut}", card, doc, heads,
+                                           "sort_winners")
+        check_view_merge(f"records view {cut}", card, device, doc, heads, covered,
+                         read)
+    check_patches("records view", card, doc, cuts["H0"][0])
+    return counts, cuts["H0"][0], views["H0"]
+
+
+def served_view(card: str, served, h0, h0_view, pre_view) -> dict:
+    """(h) The served record store at H0 after its drain: a new view (the
+    appends dropped the one taken before), resolved with the actor ranks
+    as the drain remapped them, equal to the fan-in's H0 view on its
+    covered mask, every VIEW_FETCH array, the counters and the records
+    map's entries. Returns its launch counts."""
+    import numpy as np
+
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    view, counts = view_at("served view H0", card, served, h0, "sort_winners")
+    if view is pre_view or served._views.get(tuple(sorted(h0))) is not view:
+        raise AssertionError("served view: the drain did not drop the view taken "
+                             "before it")
+    n = h0_view.log.n
+    same = np.array_equal(view.covered, h0_view.covered) and np.array_equal(
+        view.counter_val[:n], h0_view.counter_val[:n])
+    for k in DeviceDoc.VIEW_FETCH:
+        cut = h0_view.log.n_objs + 2 if k.startswith("obj_") else n
+        same = same and np.array_equal(np.asarray(view.res[k])[:cut],
+                                       np.asarray(h0_view.res[k])[:cut])
+    if not same or served.map_entries(W.RECORDS_OBJ, heads=h0) != \
+            h0_view.map_entries(W.RECORDS_OBJ):
+        raise AssertionError("served view: H0 after the drain differs from the "
+                             "fan-in's H0 view")
+    print(f"served view H0: a new view after the drain ({len(served.log.actors)} "
+          "actors ranked), equal to the fan-in's H0 view on covered, VIEW_FETCH, "
+          "the counters and the records map", flush=True)
+    return counts
 
 
 def check_served_equal(name: str, served, doc, expect) -> None:
@@ -1072,7 +1353,7 @@ def condensed_paths(card, device, text, records):
     # the typing fan-in, a stand-in for a real editing trace: the dict
     # merge by DeviceDoc.merge (the path "typing"), then all 13 of its
     # outputs from merge_columns for the condensed merge to meet
-    doc, _, txt, text_obj, counts["typing"] = text_fanin(
+    doc, _, txt, text_obj, counts["typing"], _ = text_fanin(
         "typing", card, device, W.typing_trace)
     typing_log = doc.log
     out = merge_columns(typing_log.columns(), n_objs=typing_log.n_objs,
@@ -1404,6 +1685,8 @@ def sharded_paths(card, device, text, typing_log, record_log):
             print(f"typing sharded: all_gather bytes per doubling round, condensed "
                   f"arm {per_round['condensed']:.1f}, row arm {per_round['rows']:.1f}, "
                   f"ratio {per_round['rows'] / per_round['condensed']:.2f}", flush=True)
+        if name == "text":
+            counts.update(sixteen_shards(card, device, cols, geom, single))
     counts.update(exchange_path(card, device, text_log))
     counts.update(mesh_doc_path(card, device, text_log, text_obj))
     n_cards = torch.cuda.device_count()
@@ -1420,6 +1703,32 @@ def sharded_paths(card, device, text, typing_log, record_log):
     return counts
 
 
+def sixteen_shards(card, device, cols, geom, single) -> dict:
+    """(f) "text sharded 16": the text fan-in's sharded merge over
+    ``Mesh([card] * 16)``, both linearize arms, as (f)'s other paths (all
+    13 outputs equal the single-device merge's); each psum and pmax
+    folds its 16 tables in ``passes(16)`` ``mesh_reduce`` launches.
+    Returns the launch counts by path."""
+    from automerge_tpu_torch.kernels.collectives import CAP, passes
+    from automerge_tpu_torch.parallel import default_mesh
+
+    mesh = default_mesh(devices=[device] * SIXTEEN)
+    counts = {}
+    for linearize in ("condensed", "rows"):
+        path = "text sharded 16" + ("" if linearize == "condensed" else " rows")
+        gc.collect()
+        counts[path] = sharded_path(path, card, cols, *geom, mesh, single,
+                                    linearize)[0]
+        print(f"{path}: mesh_reduce {counts[path]['mesh_reduce']} launches, "
+              f"{passes(SIXTEEN)} a fold of {SIXTEEN} tables (at most {CAP} a "
+              "launch)", flush=True)
+    return counts
+
+
+# the shards of the mesh past the fold's one-launch cap
+SIXTEEN = 16
+
+
 def cards_paths(card, device) -> None:
     """``--cards``: the text fan-in's sharded merge over four distinct
     cards (the default mesh), both linearize arms, beside the same four
@@ -1432,7 +1741,7 @@ def cards_paths(card, device) -> None:
     if n_cards < MESH_SHARDS:
         raise SystemExit(f"chip_smoke --cards: needs {MESH_SHARDS} CUDA devices, "
                          f"found {n_cards}")
-    doc, _, _, _, _ = text_fanin("text", card, device)
+    doc = text_fanin("text", card, device)[0]
     cols = doc.log.padded_columns()
     geom = (doc.log.n_objs, len(doc.log.props))
     single = single_merge(cols, *geom, device)
@@ -1578,6 +1887,7 @@ def resolve_rows(c, scatter_geom):
 SV_LAUNCHES = 2  # succ_vis: row pass, edge pass
 SP_LAUNCHES = 1  # succ_partial: edge pass (one memset before)
 SW_LAUNCHES = 2  # scatter_winners: scatter, gather
+SO_LAUNCHES = 3  # sort_winners: fill, insert, gather
 FOREST_LAUNCHES = 2  # forest: links, finish (its radix_sort counts apart)
 
 
@@ -1646,10 +1956,11 @@ def eager_kernels(cols, n_objs: int, n_props: int, device):
     return expand_rows(stacks)
 
 
-def packed_kernels(cols, n_objs: int, n_props: int, device):
+def packed_kernels(cols, n_objs: int, n_props: int, device, fetch=None):
     """The packed transport's own kernels on one path's padded columns, as
     ``DeviceDoc.resolve(..., transport="packed")`` runs them: expand_runs
-    at its row and edge stacks, unpack_flags, emit_packed of READ_FETCH."""
+    at its row and edge stacks, unpack_flags, emit_packed of ``fetch``
+    (READ_FETCH unless given)."""
     from automerge_tpu_torch.kernels import emit_packed as EP
     from automerge_tpu_torch.kernels import expand_runs as E
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
@@ -1671,9 +1982,34 @@ def packed_kernels(cols, n_objs: int, n_props: int, device):
     rows.append(("unpack_flags", E.unpack_flags, E.unpack_flags_plain, (flags,),
                  E.unpack_flags(flags), None, ""))
     core = merge_kernel(_unpack_transport(key, a, P, Q), n_objs, n_props)
-    em_in = (core, DeviceDoc.READ_FETCH, min(_capacity(n_objs + 2, 16), P + 2))
+    em_in = (core, fetch or DeviceDoc.READ_FETCH, min(_capacity(n_objs + 2, 16), P + 2))
     rows.append(("emit_packed", EP.emit_packed, EP.emit_packed_plain, em_in,
                  (EP.emit_packed(*em_in),), None, ""))
+    return rows
+
+
+def view_kernels(cols, n_objs: int, n_props: int, device):
+    """The kernels a historical view's merge runs on a clock mask with
+    false rows, at its padded columns: expand_runs at each stack of run
+    tables the run-native staging makes, then succ_vis."""
+    from automerge_tpu_torch.convert import columns_from_numpy
+    from automerge_tpu_torch.kernels import succ_vis as SV
+    from automerge_tpu_torch.ops.merge import stage_cols_run_native
+
+    _, stacks, plan = stage_cols_run_native(cols, device)
+    rows = expand_rows([
+        (arrs[0], arrs[1], arrs[2] if cls == "delta" else None, n, bools,
+         f"n={n} {cls} K={len(names)} rcap={rcap}")
+        for (n, rcap, cls, names, bools), arrs in zip(plan, stacks)])
+    c = columns_from_numpy(cols, device)
+    sv_in = (c["action"], c["value_tag"], c["value_i32"], c["covered"],
+             c["pred_src"], c["pred_tgt"])
+    before = SV.succ_vis.launches
+    sv = SV.succ_vis(*sv_in)
+    check_call_launches("succ_vis", SV.succ_vis.launches - before, SV_LAUNCHES)
+    rows.append(("succ_vis", SV.succ_vis, SV.succ_vis_plain, sv_in, sv, None,
+                 f"{SV_LAUNCHES} launches a call, "
+                 f"{int(c['covered'].sum())} of {c['covered'].numel()} rows covered"))
     return rows
 
 
@@ -1698,10 +2034,11 @@ def condensed_kernels(cols, n_objs: int, n_props: int, device, rcap: int):
     return rows
 
 
-def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
+def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str,
+                    shards: int = MESH_SHARDS):
     """The sharded merge's kernels on one path's padded columns at one
-    shard's shapes (the mesh of ``MESH_SHARDS``), as it runs them:
-    succ_partial on shard 0's pred slice, mesh_reduce folding the four
+    shard's shapes (a mesh of ``shards`` on one card), as it runs them:
+    succ_partial on shard 0's pred slice, mesh_reduce folding the
     shards' accumulators where they lie (and, past the scatter gate,
     their win tables), visibility, the row-range winners at shard 0, then
     the ``linearize`` arm's kernels: a doubling round at one shard's slice
@@ -1716,7 +2053,7 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
     from automerge_tpu_torch.kernels import succ_vis as SV
     from automerge_tpu_torch.parallel import sharding as PS
 
-    n = MESH_SHARDS
+    n = shards
     c = columns_from_numpy({k: cols[k] for k in PS.COLUMN_SPECS}, device)
     P, Q = c["action"].numel(), c["pred_src"].numel()
     Pl, Ql = P // n, Q // n
@@ -1736,7 +2073,7 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
     acc = CK.mesh_reduce(accs, "sum")
     rows.append(("mesh_reduce", CK.mesh_reduce, CK.mesh_reduce_plain, (accs, "sum"),
                  (acc,), lambda: torch.stack(accs).sum(0, dtype=torch.int32),
-                 f"psum {n} x [3, P]"))
+                 f"psum {n} x [3, P], {CK.passes(n)} launch(es)"))
     vis_in = (c["action"], c["value_tag"], c["covered"], acc[0], acc[1])
     visible = SV.visibility(*vis_in)
     rows.append(("visibility", SV.visibility, SV.visibility_plain, vis_in,
@@ -1756,7 +2093,7 @@ def sharded_kernels(cols, n_objs: int, n_props: int, device, linearize: str):
         win = CK.mesh_reduce(wins, "max")
         rows.append(("mesh_reduce", CK.mesh_reduce, CK.mesh_reduce_plain,
                      (wins, "max"), (win,), lambda: torch.stack(wins).amax(0),
-                     f"pmax {n} x [G]"))
+                     f"pmax {n} x [G], {CK.passes(n)} launch(es)"))
         cnt = CK.mesh_reduce([t[1] for t in tables], "sum")
         wg_in = (c["action"], c["insert"], c["elem_ref"], c["obj_dense"], c["prop"],
                  c["width"], win, cnt, 0, Pl, *geom)
@@ -2029,6 +2366,7 @@ def kernel_rows(path: str, spec, device):
     cols, n_objs, n_props, *caps = spec
     rows_of = (sharded_kernels if "sharded" in path else
                packed_kernels if path.endswith("packed") else
+               view_kernels if path.endswith("view") else
                eager_kernels if path.endswith("expand") else
                condensed_kernels if path.endswith("condensed") else path_kernels)
     return rows_of(cols, n_objs, n_props, device, *caps)
@@ -2127,7 +2465,8 @@ def main() -> int:
         return 0
 
     # 3. the main paths
-    text_log, text_counts, text_out, text, text_obj = text_path(card, device)
+    text_log, text_counts, text_out, text, text_obj, h1_covered = text_path(
+        card, device)
     record_log, last, record_counts, record_out, expect = record_paths(card, device)
     check_reference_fault(device)
     typing_log, condensed_counts = condensed_paths(
@@ -2139,6 +2478,7 @@ def main() -> int:
 
     # 4./5. every kernel against its plain version at each path's shapes;
     # the whole merge against the CPU on a small fan-in and a served subset
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
     from automerge_tpu_torch.ops.merge import condensed_caps
 
     by_path = {**text_counts, **record_counts, **condensed_counts,
@@ -2149,8 +2489,11 @@ def main() -> int:
                 len(log.props), *((condensed_caps(log),) if condensed else ()))
 
     text_cols, record_cols = spec(text_log), spec(record_log)
+    view_cols = (text_log.padded_columns(covered=h1_covered), *text_cols[1:])
     paths = {"text": text_cols, "text expand": text_cols,
-             "text packed": text_cols, "records": record_cols,
+             "text packed": text_cols, "text view": view_cols,
+             "text view packed": (*view_cols, DeviceDoc.VIEW_FETCH),
+             "records": record_cols,
              "records expand": record_cols, "records packed": record_cols,
              "served": last, "text condensed": spec(text_log, True),
              "typing": spec(typing_log),
@@ -2158,6 +2501,7 @@ def main() -> int:
              "records condensed": spec(record_log, True),
              "text sharded": (*text_cols, "condensed"),
              "text sharded rows": (*text_cols, "rows"),
+             "text sharded 16": (*text_cols, "condensed", SIXTEEN),
              "typing sharded rows": (*spec(typing_log), "rows"),
              "records sharded": (*record_cols, "condensed")}
     report = kernel_report(paths, by_path, device, REPS)

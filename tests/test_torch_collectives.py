@@ -43,7 +43,7 @@ def _numpy_fold(a, op):
 
 
 @pytest.mark.parametrize("op", CK.OPS)
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 7, CK.CAP])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 7, CK.CAP, 9, 16, 33])
 def test_mesh_reduce_of_parts_equals_its_stack_and_numpy(n, op):
     a = _tables(n, 37, n)
     parts = [torch.from_numpy(row.copy()) for row in a]
@@ -72,11 +72,14 @@ def test_mesh_reduce_keeps_the_shape_of_a_table():
 
 @pytest.mark.parametrize("fn", [CK.mesh_reduce, CK.mesh_reduce_plain])
 def test_mesh_reduce_raises_past_the_cap_and_on_bad_parts(fn):
-    parts = [torch.zeros(4, dtype=torch.int32)] * (CK.CAP + 1)
-    with pytest.raises(ValueError, match="at most"):
-        fn(parts, "sum")
-    with pytest.raises(ValueError, match="at most"):
-        fn(torch.zeros(CK.CAP + 1, 4, dtype=torch.int32), "max")
+    """Past ``CAP`` tables both fold (the fold in passes, the plain
+    version at once), as a list and as a stack; they raise only on bad
+    parts."""
+    a = _tables(CK.CAP + 1, 4, 3)
+    parts = [torch.from_numpy(t.copy()) for t in a]
+    np.testing.assert_array_equal(fn(parts, "sum").numpy(), _numpy_fold(a, "sum"))
+    np.testing.assert_array_equal(fn(torch.from_numpy(a), "max").numpy(),
+                                  _numpy_fold(a, "max"))
     with pytest.raises(ValueError):
         fn([], "sum")
     with pytest.raises(ValueError):
@@ -88,19 +91,50 @@ def test_mesh_reduce_raises_past_the_cap_and_on_bad_parts(fn):
         fn([torch.zeros(4, dtype=torch.int32)], "min")
 
 
+@pytest.mark.parametrize("n", [9, 16, 17, 33, 64, 65])
+def test_mesh_reduce_past_the_cap_folds_in_passes(monkeypatch, n):
+    """Past ``CAP`` tables the fold runs in passes: groups of ``CAP``
+    into partials (a group of one carried over as it is), then the
+    partials; ``passes(n)`` folds of at most ``CAP`` tables, each table
+    read once, the first pass's tables where they lie."""
+    a = _tables(n, 29, n)
+    parts = [torch.from_numpy(t.copy()) for t in a]
+    calls = []
+    launch = CK._launch
+
+    def spy(tables, op):
+        calls.append([t.data_ptr() for t in tables])
+        return launch(tables, op)
+
+    monkeypatch.setattr(CK, "_launch", spy)
+    for op in CK.OPS:
+        calls.clear()
+        got = CK.mesh_reduce(parts, op)
+        np.testing.assert_array_equal(got.numpy(), _numpy_fold(a, op))
+        assert len(calls) == CK.passes(n)
+        assert all(1 < len(c) <= CK.CAP for c in calls)
+        first = [p for c in calls for p in c if p in {t.data_ptr() for t in parts}]
+        assert sorted(first) == sorted(t.data_ptr() for t in parts)
+    assert CK.passes(1) == CK.passes(CK.CAP) == 1
+
+
 @pytest.mark.parametrize("fn", [C.psum, C.pmax])
-def test_psum_and_pmax_refuse_a_mesh_past_the_cap_and_bad_tables(fn):
-    """The collective checks the tables once, for the fold: at most
-    ``CAP`` shards, one contiguous int32 table of one shape a shard."""
+def test_psum_and_pmax_refuse_bad_tables_at_any_mesh_size(fn):
+    """The collective checks the tables once, for the fold: one
+    contiguous int32 table of one shape a shard, at any mesh size (a
+    mesh past ``CAP`` shards folds)."""
     table = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="at most"):
-        fn(Mesh(["cpu"] * (CK.CAP + 1)), [table] * (CK.CAP + 1))
-    mesh = Mesh(["cpu"] * 2)
-    for bad in ([table], [table, torch.zeros(5, dtype=torch.int32)],
-                [table, torch.zeros(4, dtype=torch.int64)],
-                [table, torch.zeros(8, dtype=torch.int32)[::2]]):
-        with pytest.raises(ValueError):
-            fn(mesh, bad)
+    n = 2 * CK.CAP + 1
+    got = fn(Mesh(["cpu"] * n), [table + i for i in range(n)])
+    want = n * (n - 1) // 2 if fn is C.psum else n - 1
+    assert got[torch.device("cpu")].tolist() == [want] * 4
+    for mesh in (Mesh(["cpu"] * 2), Mesh(["cpu"] * n)):
+        for bad in ([table], [table, torch.zeros(5, dtype=torch.int32)],
+                    [table, torch.zeros(4, dtype=torch.int64)],
+                    [table, torch.zeros(8, dtype=torch.int32)[::2]]):
+            bad = bad + [table] * (mesh.size - 2) if len(bad) == 2 else bad
+            with pytest.raises(ValueError):
+                fn(mesh, bad)
 
 
 @pytest.mark.parametrize("devices", [["cpu"] * 4, ["cpu:0", "cpu:0", "cpu:1", "cpu:1"],
@@ -243,3 +277,88 @@ def test_sharded_merge_folds_and_expands_once_per_device(monkeypatch, name,
         assert expands == [(0, P)]
     else:
         assert expands == [(first * Pl, count * Pl) for _, first, count in mesh.runs]
+
+
+# -- past the cap: 16 shards against the JAX package's 16-device merge ----------
+
+SIXTEEN = {
+    "one-device": ["cpu"] * 16,
+    "two-devices": ["cpu:0"] * 8 + ["cpu:1"] * 8,
+}
+SIXTEEN_WORKLOADS = ("forks", "typing_fanin")
+# the JAX side runs in a process of its own: tier-1's conftest fixes 8
+# virtual CPU devices, and the device count is read once, at backend start
+_JAX16 = """
+import sys
+import numpy as np
+import automerge_tpu.parallel.sharding as JS
+from automerge_tpu.parallel import default_mesh
+from tests.test_torch_sharded import _workload
+out = {}
+for name in sys.argv[2:]:
+    cols, n_objs, n_props = _workload(name)
+    res = JS.sharded_merge_columns(cols, default_mesh(16), n_objs=n_objs,
+                                   n_props=n_props)
+    for k, v in cols.items():
+        out[f"{name}/cols/{k}"] = np.asarray(v)
+    out[f"{name}/meta"] = np.array([-1 if n_objs is None else n_objs,
+                                    -1 if n_props is None else n_props])
+    for k, v in res.items():
+        out[f"{name}/res/{k}"] = np.asarray(v)
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax16(tmp_path_factory):
+    """The workloads' padded columns and the JAX package's
+    ``sharded_merge_columns`` over 16 virtual CPU devices, from one
+    subprocess with a timeout of its own."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    path = tmp_path_factory.mktemp("jax16") / "jax16.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=16",
+               PYTHONPATH=str(root))
+    subprocess.run([sys.executable, "-c", _JAX16, str(path), *SIXTEEN_WORKLOADS],
+                   cwd=root, env=env, check=True, timeout=300)
+    data = np.load(path)
+    out = {}
+    for name in SIXTEEN_WORKLOADS:
+        cols = {k.split("/")[2]: data[k] for k in data.files
+                if k.startswith(f"{name}/cols/")}
+        res = {k.split("/")[2]: data[k] for k in data.files
+               if k.startswith(f"{name}/res/")}
+        n_objs, n_props = (None if v < 0 else int(v) for v in data[f"{name}/meta"])
+        out[name] = cols, n_objs, n_props, res
+    return out
+
+
+@pytest.mark.parametrize("transport", PS.TRANSPORTS)
+@pytest.mark.parametrize("linearize", PS.LINEARIZE)
+@pytest.mark.parametrize("mesh_name", sorted(SIXTEEN))
+@pytest.mark.parametrize("name", SIXTEEN_WORKLOADS)
+def test_sixteen_shards_equal_the_jax_sixteen_device_merge(
+        monkeypatch, jax16, name, mesh_name, linearize, transport):
+    """A mesh of 16 shards, past the one-launch fold's ``CAP``: all 13
+    outputs equal the JAX package's merge over 16 devices, exactly; each
+    collective folds its 16 tables once a distinct device, in passes."""
+    cols, n_objs, n_props, want = jax16[name]
+    mesh = Mesh(SIXTEEN[mesh_name])
+    sizes = []
+    fold = C.fold
+
+    def fold_spy(tables, op):
+        sizes.append(len(tables))
+        return fold(tables, op)
+
+    monkeypatch.setattr(C, "fold", fold_spy)
+    got = sharded_merge_columns(cols, mesh, n_objs=n_objs, n_props=n_props,
+                                linearize=linearize, transport=transport)
+    _assert_outputs_equal(got, want, f"{name} {mesh_name} {linearize} {transport}")
+    assert sizes and set(sizes) == {16}
+    assert len(sizes) % len(mesh.distinct) == 0

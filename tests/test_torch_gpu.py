@@ -1232,3 +1232,157 @@ def test_mesh_document_on_card_equals_single_device(cuda, cards):
         np.testing.assert_array_equal(np.asarray(doc.res[k])[:cut],
                                       np.asarray(single.res[k])[:cut], err_msg=k)
     assert doc.text(base.text_exid) == single.text(base.text_exid)
+
+
+# -- historical views on the card, and psum/pmax past 8 shards --------------
+
+
+@pytest.mark.parametrize("n", [9, 16, 33])
+def test_mesh_reduce_past_the_cap_folds_in_passes_on_card(cuda, n):
+    """Past ``CAP`` tables the fold runs in ``passes(n)`` launches (groups
+    of ``CAP`` into partials, then the partials), equal to the plain
+    version and numpy, the tables aligned and 4 bytes off."""
+    from automerge_tpu_torch.kernels import collectives as CK
+
+    for offset in (0, 1):
+        a = _int32_tables(n, 24_577, n + offset)
+        parts = [_on_card_at(row, cuda, offset) for row in a]
+        for op in CK.OPS:
+            reset_launches()
+            got = CK.mesh_reduce(parts, op)
+            assert launch_counts()["mesh_reduce"] == CK.passes(n)
+            _same(got, CK.mesh_reduce_plain(parts, op))
+            want = a.max(0) if op == "max" else a.sum(0, dtype=np.int32)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("linearize", ["condensed", "rows"])
+def test_sixteen_shards_on_one_card_equal_the_single_device_merge(cuda, linearize):
+    """A mesh of 16 shards on the card, past the one-launch fold: all 13
+    outputs equal the single-device merge's; each psum and pmax folds
+    its 16 tables in ``passes(16)`` launches."""
+    from automerge_tpu_torch.kernels import collectives as CK
+    from automerge_tpu_torch.parallel import default_mesh, sharded_merge_columns
+    from automerge_tpu_torch.parallel import collectives as C
+
+    mesh = default_mesh(devices=[cuda] * 16)
+    for name, log in _sharded_logs():
+        cols = log.padded_columns()
+        kw = dict(n_objs=log.n_objs, n_props=len(log.props))
+        single = merge_columns(cols, device=cuda, **kw)
+        C.reset_stats()
+        reset_launches()
+        got = sharded_merge_columns(cols, mesh, linearize=linearize, **kw)
+        folds = C.stats["psum"]["calls"] + C.stats["pmax"]["calls"]
+        assert launch_counts()["mesh_reduce"] == folds * CK.passes(16), name
+        assert C.stats["psum"]["copied"] == C.stats["pmax"]["copied"] == 0
+        for k in ALL_OUTPUTS:
+            m = len(single[k])
+            np.testing.assert_array_equal(got[k][:m], single[k], err_msg=f"{name} {k}")
+
+
+def _heads_of(changes):
+    deps = {d for c in changes for d in c.dependencies}
+    return sorted(c.hash for c in changes if c.hash not in deps)
+
+
+def _view_docs():
+    """(name, change bytes, [heads], objects to read): a text fan-in cut
+    at its base and after half its replicas, the record store likewise,
+    and a seeded history at its base."""
+    from .test_torch_histories import _history
+
+    trace = W.load_trace(3000)
+    base = W.build_base(trace, 2000)
+    reps = W.synth_fanin(base, trace, 16, 100, 2000)
+    text = [c.raw_bytes for c in base.changes + reps]
+    rbase, rreps, _ = _record_store()
+    hb, hrest = _history(2)
+    hist = hb + [b for b in hrest if b not in hb]
+    out = []
+    for name, blobs, n_base, half in (("text", text, 1, 8), ("records", [rbase] + rreps, 1, 32),
+                                      ("history", hist, len(hb), 0)):
+        parsed = [parse_change(b)[0] for b in blobs]
+        cuts = [[], _heads_of(parsed[:n_base])]
+        if half:
+            cuts.append(_heads_of(parsed[:n_base + half]))
+        out.append((name, blobs, cuts))
+    return out
+
+
+@pytest.mark.parametrize("name", ["text", "records", "history"])
+def test_views_on_card_equal_the_same_views_on_cpu(cuda, name):
+    """``at`` on a document resolved on the card runs there (its merge's
+    kernels launch: succ_vis with a partly false covered mask) and equals
+    the same view of the same document on the CPU: the view's arrays,
+    counters and every read, ``diff`` and ``make_patches``."""
+    from automerge_tpu_torch.patches import apply_patches
+    from automerge_tpu_torch.types import ObjType
+
+    blobs, cuts = next((b, c) for n, b, c in _view_docs() if n == name)
+    gpu = DeviceDoc.merge(blobs, device=cuda)
+    cpu = DeviceDoc.merge(blobs, device="cpu")
+    for heads in cuts:
+        reset_launches()
+        view = gpu.at(heads)
+        counts = launch_counts()
+        assert view.device == gpu.device
+        assert counts["succ_vis"] == 2 and counts["linearize"] == L.LAUNCHES
+        want = cpu.at(heads)
+        np.testing.assert_array_equal(view.covered, want.covered)
+        for k in DeviceDoc.VIEW_FETCH:
+            cut = gpu.log.n_objs + 2 if k.startswith("obj_") else gpu.log.n
+            np.testing.assert_array_equal(np.asarray(view.res[k])[:cut],
+                                          np.asarray(want.res[k])[:cut], err_msg=k)
+        np.testing.assert_array_equal(view.counter_val, want.counter_val)
+        for k in gpu._obj_type:
+            obj = gpu.log.export_id(k)
+            t = gpu.object_type(obj)
+            reads = (lambda d: (d.values(obj, heads=heads), d.length(obj, heads=heads),
+                                d.parents(obj, heads=heads),
+                                d.map_entries(obj, heads=heads)
+                                if t in (ObjType.MAP, ObjType.TABLE) else
+                                (d.list_items(obj, heads=heads),
+                                 [(m.start, m.end, m.name, m.value)
+                                  for m in d.marks(obj, heads=heads)])))
+            assert reads(gpu) == reads(cpu), (heads, obj)
+        assert gpu.hydrate(heads=heads) == cpu.hydrate(heads=heads)
+        patches = gpu.diff(heads)
+        assert [(p.obj, p.path, p.action) for p in patches] == \
+            [(p.obj, p.path, p.action) for p in cpu.diff(heads)]
+        assert apply_patches(gpu.hydrate(heads=heads), patches) == gpu.hydrate()
+    assert gpu.hydrate(heads=[]) == {}
+    assert apply_patches({}, gpu.make_patches()) == cpu.hydrate()
+
+
+def test_view_columns_decode_and_resolve_as_the_plain_versions(cuda):
+    """At a view's columns (a covered mask true for the base and half the
+    replicas, interleaved in Lamport order): succ_vis, expand_runs at
+    every run-native stack and unpack_flags of the packed transport's
+    flags column equal their plain versions."""
+    from automerge_tpu_torch.kernels import expand_runs as E
+    from automerge_tpu_torch.ops.merge import (
+        _flags_column, _unpack_transport, encode_transport,
+    )
+
+    blobs, cuts = next((b, c) for n, b, c in _view_docs() if n == "text")
+    doc = DeviceDoc.merge(blobs, device="cpu")
+    covered = doc.at(cuts[-1]).covered
+    assert covered.any() and not covered.all()
+    cols = doc.log.padded_columns(covered=covered)
+    _, stacks, plan = stage_cols_run_native(cols, cuda)
+    assert plan
+    for (n, rcap, cls, names, bools), arrs in zip(plan, stacks):
+        args = (arrs[0], arrs[1], arrs[2] if cls == "delta" else None, n, bools)
+        _same(E.expand_runs(*args), E.expand_runs_plain(*args))
+    c = columns_from_numpy(cols, cuda)
+    sv_in = (c["action"], c["value_tag"], c["value_i32"], c["covered"],
+             c["pred_src"], c["pred_tgt"])
+    _same(SV.succ_vis(*sv_in), SV.succ_vis_plain(*sv_in))
+    key, arrays = encode_transport(cols)
+    a = {k: torch.from_numpy(v).to(cuda) for k, v in arrays.items()}
+    P, Q = len(cols["action"]), len(cols["pred_src"])
+    decoded = _unpack_transport(key, a, P, Q)
+    assert torch.equal(decoded["covered"].cpu(), torch.from_numpy(cols["covered"]))
+    flags = torch.from_numpy(_flags_column(cols)).to(cuda)
+    _same(E.unpack_flags(flags), E.unpack_flags_plain(flags))

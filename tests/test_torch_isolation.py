@@ -43,6 +43,16 @@ assert packed.text(base.text_exid) == doc.text(base.text_exid)
 expand = DeviceDoc.merge([c.raw_bytes for c in changes], device="cpu",
                          staging="expand")
 assert expand.text(base.text_exid) == doc.text(base.text_exid)
+from automerge_tpu_torch.patches import apply_patches
+deps = {d for c in base.changes for d in c.dependencies}
+bheads = [c.hash for c in base.changes if c.hash not in deps]
+view = doc.at(bheads)
+assert view.device.type == "cpu" and view._base is doc
+bdoc = DeviceDoc.merge([c.raw_bytes for c in base.changes], device="cpu")
+assert view.text(base.text_exid) == bdoc.text(base.text_exid)
+assert doc.hydrate(heads=bheads) == bdoc.hydrate()
+assert apply_patches(doc.hydrate(heads=bheads), doc.diff(bheads)) == doc.hydrate()
+assert apply_patches({}, doc.make_patches()) == doc.hydrate()
 rbase, reps, expect = W.record_store(64, 8, 20)
 served = DeviceDoc.merge([rbase.raw_bytes], device="cpu")
 served.apply_changes([r.raw_bytes for r in reps[:4]])
@@ -214,6 +224,11 @@ def test_served_document_stays_on_its_device(monkeypatch):
     assert doc.apply_batches(
         W.record_batches([r.raw_bytes for r in reps[4:]], 2)) == 4
     assert W.record_counts(doc) == expect
+    # a view resolves where its base does
+    view = doc.at([rbase.hash])
+    assert view.device == doc.device
+    fresh = DeviceDoc.merge([rbase.raw_bytes], device="cpu")
+    assert view.map_entries(W.RECORDS_OBJ) == fresh.map_entries(W.RECORDS_OBJ)
 
 
 def test_cpu_is_taken_only_when_asked():
