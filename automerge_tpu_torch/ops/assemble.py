@@ -897,4 +897,5 @@ def assemble_log(log, changes: Sequence, rank_of: Dict[bytes, int]):
         log.n_objs = int(out_meta[0])
         log.obj_table = obj_table_buf[: log.n_objs].copy()
         log.obj_dense = obj_dense
+    log.count_missing()
     return log

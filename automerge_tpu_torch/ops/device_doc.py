@@ -357,6 +357,52 @@ class DeviceDoc:
                 inflight = handle
         return len(ready), inflight
 
+    def stage_batches(self, batches: Sequence[Sequence]):
+        """The host half of the cross-document apply (``ops/batched.py``):
+        dedup, causal order and the log splice exactly as ``apply_batches``
+        would do over the same batches, but the subset resolution is not
+        launched: it is returned as a ``BatchStage`` for the caller to
+        pack with other documents' into one launch.
+
+        Returns ``(applied, stage or None)``. ``None`` means this call
+        resolved the document itself: the delta was empty or rowless, the
+        log was rebuilt, or the dirty rows passed
+        ``DIRTY_FRACTION_LIMIT`` (a full re-resolve, on this document's
+        device or mesh). Only valid on the base document."""
+        if self._base is not self:
+            raise ValueError("stage_batches on a historical view; use the base doc")
+        ready = self._take_ready(_parsed([ch for b in batches for ch in b]))
+        return self._stage_ready(ready)
+
+    def stage_ready(self, ready: Sequence):
+        """``stage_batches`` over changes already deduplicated and in
+        causal order (``_take_ready``'s output): the scalar path of the
+        cross-document staging (``ops/host_batch.py``), which runs the two
+        halves of ``_take_ready`` itself, and its oracle."""
+        if self._base is not self:
+            raise ValueError("stage_ready on a historical view; use the base doc")
+        return self._stage_ready(ready)
+
+    def _stage_ready(self, ready):
+        from .batched import BatchStage
+
+        if not ready:
+            return 0, None
+        info = self.log.append_changes(ready) if self.log.n else None
+        if info is None:
+            self._rebuild(list(self.log.changes) + list(ready))
+            return len(ready), None
+        self._apply_append(info, ready)
+        if not info.n_new:
+            return len(ready), None
+        dirty = np.asarray(info.dirty_objs, np.int64)
+        rows = self._subset_rows(dirty)
+        if (len(rows) / self.log.n > DIRTY_FRACTION_LIMIT
+                or len(dirty) >= self.log.n_objs):
+            self._reresolve(dirty)
+            return len(ready), None
+        return len(ready), BatchStage(self, rows, dirty)
+
     def pending_changes(self) -> int:
         """Changes buffered awaiting missing dependencies."""
         return len(self._pending)
@@ -473,6 +519,9 @@ class DeviceDoc:
         self.winner = win
         self.conflicts = con
         self.elem_index = ei
+        # the base covers every op, the new ones too
+        self.covered = self._res_splice("covered", self.covered, m, rm, n_old,
+                                        True)
 
         # successor bookkeeping and exact counter totals ride the same
         # splice, then absorb the delta's edges (kept fresh whichever

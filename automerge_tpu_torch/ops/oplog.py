@@ -126,6 +126,8 @@ class OpLog:
         "mark_name_idx",
         "elem_key",
         "pred_key",
+        "n_miss_elem",
+        "n_miss_pred",
         "_hash_set",
         "_bufs",
         "_actor_order",
@@ -144,6 +146,12 @@ class OpLog:
         # (an assembled log rebuilds them on its first append)
         self.elem_key = None
         self.pred_key = None
+        # unresolved references (elem_ref == ELEM_MISSING rows, pred_tgt < 0
+        # edges), kept current across appends: the cross-document staging
+        # (ops/host_batch.py) takes its tail splice only when both are 0,
+        # and must not scan the whole log per drain to find out
+        self.n_miss_elem = 0
+        self.n_miss_pred = 0
         self._hash_set = None
         self._bufs = None  # capacity-bucketed backing buffers of the splice
         self._actor_order = None
@@ -335,6 +343,7 @@ class OpLog:
         log.pred_tgt = tgt.astype(np.int32)
         log.elem_key = elem
         log.pred_key = np.asarray(pred_key, np.int64)
+        log.count_missing()
         return log
 
     # -- device prep -----------------------------------------------------
@@ -419,6 +428,11 @@ class OpLog:
         ctr = self.id_key >> ACTOR_BITS
         rank = (self.id_key & ACTOR_MASK).astype(np.int64)
         return ctr <= np.asarray(clock_max_op, np.int64)[rank]
+
+    def count_missing(self) -> None:
+        """Sets ``n_miss_elem`` / ``n_miss_pred`` from the columns."""
+        self.n_miss_elem = int(np.count_nonzero(self.elem_ref == ELEM_MISSING))
+        self.n_miss_pred = int(np.count_nonzero(self.pred_tgt < 0))
 
     # -- host-side id helpers ---------------------------------------------
 
@@ -641,10 +655,12 @@ class OpLog:
         er_new = sp("elem_ref", old_er.astype(np.int32, copy=False), d_er)
         # previously-MISSING refs may now resolve (their target arrived)
         rere_rows = np.empty(0, np.int64)
+        n_miss_elem = 0
         miss = np.flatnonzero(er_new == ELEM_MISSING)
         if len(miss):
             res = rows_of(ek_new[miss])
             got = res != ELEM_MISSING
+            n_miss_elem = int(len(miss) - np.count_nonzero(got))
             if np.any(got):
                 er_new[miss[got]] = res[got]
                 rere_rows = miss[got]
@@ -676,10 +692,12 @@ class OpLog:
         pk_new = cat("pred_key", remap_packed(self.pred_key), d_pk)
         # previously-unresolved pred targets may now resolve
         rere_pred = np.empty(0, np.int64)
+        n_miss_pred = 0
         pmiss = np.flatnonzero(pt_new == -1)
         if len(pmiss):
             res = rows_of(pk_new[pmiss])
             got = res != ELEM_MISSING
+            n_miss_pred = int(len(pmiss) - np.count_nonzero(got))
             if np.any(got):
                 pt_new[pmiss[got]] = res[got]
                 rere_pred = pmiss[got]
@@ -740,6 +758,8 @@ class OpLog:
         self.mark_names = mark_names
         self.n = m
         self.n_objs = len(new_table)
+        self.n_miss_elem = n_miss_elem
+        self.n_miss_pred = n_miss_pred
         self.actors = [ActorId(b) for b in all_bytes]
         self._actor_order = None
         self.changes.extend(fresh)

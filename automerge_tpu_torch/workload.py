@@ -548,3 +548,118 @@ def record_counts(doc) -> dict:
     )
     return {"records": len(records), "votes": votes,
             "conflict_keys": int(np.count_nonzero(winners))}
+
+
+# -- the serve-shaped documents ----------------------------------------------
+#
+# A server's hot set (``automerge_tpu/bench.py`` ``sb_workload``, :1196-1226):
+# every document has a text ``_root.live`` seeded with "live seed text " and
+# an untouched text ``_root.archive`` of ``ballast`` "x"s (the resident
+# history that keeps a drained delta's dirty rows a small share of the
+# log), and one editor that types into ``live`` each cycle and commits
+# once. The editor's actor is ``bytes([31 + (tag & 1)]) + bytes([i % 250])``
+# then zeros; in cycle c it types ``ops`` characters, the j-th ("a" or "b")
+# at position ``(i + c * ops + j) % max(len + j, 1)`` of the text as it
+# stood at the cycle's start (length ``len``).
+
+SERVE_ACTOR = bytes([0x15]) * 16
+SERVE_LIVE = f"1@{SERVE_ACTOR.hex()}"  # _root.live, the base's op 1
+SERVE_SEED = "live seed text "
+SERVE_ARCHIVE = f"{2 + len(SERVE_SEED)}@{SERVE_ACTOR.hex()}"
+
+
+def _chained_text(obj, counter: int, text: str) -> List[ChangeOp]:
+    """Inserts of ``text`` at the head of ``obj``, each anchored on the one
+    before it (a splice of fresh text), the first at op ``counter``."""
+    ops = []
+    anchor = HEAD_STORED
+    for i, ch in enumerate(text):
+        ops.append(ChangeOp(obj=obj, key=Key.seq(anchor), insert=True,
+                            action=_ACTION_PUT, value=ScalarValue("str", ch)))
+        anchor = (counter + i, 0)
+    return ops
+
+
+def serve_base_change(ballast: int) -> StoredChange:
+    """The base every serve-shaped document shares (actor ``SERVE_ACTOR``,
+    not yet encoded): op 1 makes ``live``, then its seed text; the next op
+    makes ``archive``, then ``ballast`` "x"s."""
+    ops = [ChangeOp(obj=(0, -1), key=Key.map("live"), insert=False,
+                    action=_ACTION_MAKE_TEXT, value=ScalarValue("null"))]
+    ops += _chained_text((1, 0), 2, SERVE_SEED)
+    archive = len(ops) + 1
+    ops.append(ChangeOp(obj=(0, -1), key=Key.map("archive"), insert=False,
+                        action=_ACTION_MAKE_TEXT, value=ScalarValue("null")))
+    ops += _chained_text((archive, 0), archive + 1, "x" * ballast)
+    return StoredChange(dependencies=[], actor=SERVE_ACTOR, other_actors=[],
+                        seq=1, start_op=1, timestamp=0, message=None, ops=ops)
+
+
+def serve_editor_actor(i: int, tag: int = 0) -> bytes:
+    return bytes([31 + (tag & 1), i % 250]) + bytes(14)
+
+
+class ServeEditor:
+    """Document ``i``'s editor: its changes (not yet encoded), one a cycle,
+    and its own model of ``live`` (the characters in document order)."""
+
+    def __init__(self, base: StoredChange, i: int, tag: int = 0):
+        self.i = i
+        self.actor = serve_editor_actor(i, tag)
+        self.heads = [base.hash]
+        self.next_op = base.max_op + 1
+        self.seq = 0
+        # live's elements in document order: (counter, author or base)
+        self.elems = [(2 + j, SERVE_ACTOR) for j in range(len(SERVE_SEED))]
+        self.chars = list(SERVE_SEED)
+
+    def cycle(self, c: int, ops: int, n: Optional[int] = None) -> StoredChange:
+        """Cycle ``c``'s change: ``n`` characters (default ``ops``) typed at
+        the bench's positions (``ops`` sets their stride between cycles)."""
+        local = {self.actor: 0, SERVE_ACTOR: 1}
+        length = len(self.elems)
+        out = []
+        start = self.next_op
+        for j in range(ops if n is None else n):
+            pos = (self.i + c * ops + j) % max(length + j, 1)
+            if pos:
+                ctr, actor = self.elems[pos - 1]
+                anchor = (ctr, local[actor])
+            else:
+                anchor = HEAD_STORED
+            ch = "ab"[j % 2]
+            out.append(ChangeOp(obj=(1, 1), key=Key.seq(anchor), insert=True,
+                                action=_ACTION_PUT, value=ScalarValue("str", ch)))
+            self.elems.insert(pos, (start + j, self.actor))
+            self.chars.insert(pos, ch)
+        self.seq += 1
+        change = StoredChange(dependencies=list(self.heads), actor=self.actor,
+                              other_actors=[SERVE_ACTOR], seq=self.seq,
+                              start_op=start, timestamp=0, message=None, ops=out)
+        self.next_op += len(out)
+        return change
+
+    def text(self) -> str:
+        return "".join(self.chars)
+
+
+def serve_workload(n_docs: int, cycles: int, ops: int, ballast: int, tag: int = 0,
+                   burst: Optional[Dict[Tuple[int, int], int]] = None):
+    """``n_docs`` serve-shaped documents over ``cycles`` cycles: (the base
+    chunk, shared by every document, ``deltas[i][c]`` document i's change
+    chunk of cycle c, each editor's model of ``live`` at the end).
+    ``burst`` maps (document, cycle) to a number of characters typed then
+    instead of ``ops``."""
+    base = build_change(serve_base_change(ballast))
+    burst = burst or {}
+    deltas, texts = [], []
+    for i in range(n_docs):
+        ed = ServeEditor(base, i, tag)
+        chunks = []
+        for c in range(cycles):
+            ch = build_change(ed.cycle(c, ops, burst.get((i, c))))
+            ed.heads = [ch.hash]
+            chunks.append(ch.raw_bytes)
+        deltas.append(chunks)
+        texts.append(ed.text())
+    return base.raw_bytes, deltas, texts

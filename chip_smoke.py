@@ -1,7 +1,8 @@
 """Chip smoke test of automerge_tpu_torch on one NVIDIA GPU: the fan-in
-merge of a text document, the fan-in of a record store and the record
-store served batch by batch, end to end through hand-written CUDA kernels,
-with the columns staged as run tables (run-native, the default), the
+merge of a text document, the fan-in of a record store, the record store
+served batch by batch and 128 documents' drained deltas resolved in
+packed launches (``ops/batched.py``), end to end through hand-written
+CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
 over meshes of four and sixteen shards on the card, and historical views
 of the documents (``DeviceDoc.at``: the whole log resolved under a clock
@@ -102,6 +103,30 @@ Phases, each raising on failure (nothing is caught):
        text fan-in's merge (a), then its sharded merge over four distinct
        cards and over four shards on one card, both linearize arms, each
        twice, each against the single-device merge as in (f);
+    i. the cross-document served drain (``cross-doc``, run after (d)): 128
+       serve-shaped documents (``workload.serve_workload``: a live text
+       and an 8,192-character archive each, one editor typing 40
+       characters a cycle, document 0 4,096 in cycle 8), every base
+       resident on the card, built three times from the same bytes and
+       drained over 16 cycles, in turns each cycle, with the launch counts
+       and ``batched.STATS`` set to 0 just before each drain and read just
+       after: (a) ``apply_cross_doc`` in packed launches of 32 documents,
+       pipelined, fallback_ratio 0.25 (at 0.5 no whale can exist at these
+       sizes; see SERVE_FALLBACK); (b) each document's own
+       ``apply_batches``; (c) a ``CrossDocBatcher`` fed by one thread a
+       document holding its document's lock, generations of 32 flushed
+       as two half-launches. After every cycle (a) and (c) equal (b) on
+       every READ_FETCH array; after the drain every ``live`` and
+       ``archive`` text is the generator's; cycle 1's packed super-batches
+       resolved again by the plain CPU merge equal the card's; no packed
+       path error, no admitted document on the scalar path, a whale
+       peeled in cycle 8, (a) exactly 4 packed launches a cycle and its
+       kernels' launches those of its packed merges and whales, (b) those
+       of 128 merges a cycle. Printed: each drain's wall per cycle (p50,
+       max) and its gc seconds, (a)'s host stages summed (dedup, causal
+       order, host pack, sort, splice, pack, launch, readback, scatter,
+       whale, overlap) beside (b)'s, useful and padded rows a packed
+       launch, each drain's launches;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -122,9 +147,10 @@ Phases, each raising on failure (nothing is caught):
        remapped the actor ranks) equal to "records view"'s H0 view;
  4. every kernel against its plain PyTorch version on the same CUDA
     tensors (exact equality: all integer arithmetic) at the shapes of
-    each path that runs it: the text fan-in, the record fan-in and the
+    each path that runs it: the text fan-in, the record fan-in, the
     last served batch's subset columns (whose prop ids are the whole
-    log's); at the H1 text view's columns ("text view": expand_runs at its
+    log's) and one packed super-batch of (i) ("cross-doc"); at the H1
+    text view's columns ("text view": expand_runs at its
     run-native stacks and succ_vis on its covered mask; "text view
     packed": expand_runs, unpack_flags and emit_packed of VIEW_FETCH);
     expand_runs at every stack of run tables the run-native
@@ -1789,6 +1815,273 @@ def check_reference_fault(device) -> None:
           flush=True)
 
 
+# (i) the record store's hot set: many documents drained at once
+SERVE_DOCS, SERVE_CYCLES, SERVE_OPS, SERVE_BALLAST = 128, 16, 40, 8192
+SERVE_PER_LAUNCH = 32  # documents a packed launch (a)
+SERVE_BURST = (0, 8, 4096)  # document 0 types 4,096 characters in cycle 8
+# The whale share. At these sizes the reference's 0.5 never peels: a whale
+# needs more dirty rows than the other 31 documents of its launch together
+# (11,625 in cycle 8) while staying under DIRTY_FRACTION_LIMIT of its own
+# log (at most 8,194 rows beside the 8,192-character archive).
+SERVE_FALLBACK = 0.25
+
+
+def _diff_counts(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _add_counts(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def check_serve_equal(name: str, docs, want, cycle: int) -> None:
+    """Every document of ``docs`` equals its twin in ``want`` (the
+    per-document drain) on the READ_FETCH arrays, bit for bit."""
+    import numpy as np
+
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    for i, (a, b) in enumerate(zip(docs, want)):
+        n = b.log.n
+        if (a.log.n, a.log.n_objs) != (n, b.log.n_objs):
+            raise AssertionError(f"{name} cycle {cycle} document {i}: log size differs")
+        for k in DeviceDoc.READ_FETCH:
+            cut = b.log.n_objs + 2 if k.startswith("obj_") else n
+            if not np.array_equal(np.asarray(a.res[k])[:cut], np.asarray(b.res[k])[:cut]):
+                raise AssertionError(f"{name} cycle {cycle} document {i}: {k} differs "
+                                     f"from its own apply_batches")
+
+
+def check_merges(name: str, counts: dict, merges: int) -> None:
+    """Launches of ``merges`` run-native merges: linearize LAUNCHES each,
+    succ_vis and forest 2, the winners 2 (scatter) or 3 (sort), at least
+    one expand_runs and one radix_sort; nothing of another path."""
+    from automerge_tpu_torch.kernels.linearize import LAUNCHES
+
+    want = {"linearize": LAUNCHES * merges, "succ_vis": SV_LAUNCHES * merges,
+            "forest": FOREST_LAUNCHES * merges}
+    got = {k: counts[k] for k in want}
+    winners = counts["scatter_winners"] // SW_LAUNCHES + counts["sort_winners"] // SO_LAUNCHES
+    if got != want or winners != merges or counts["expand_runs"] < merges \
+            or counts["radix_sort"] < merges:
+        raise AssertionError(f"{name}: launches {json.dumps(counts)} are not those of "
+                             f"{merges} merges")
+    stray = [k for k in TRANSPORT_ONLY + SHARDED_ALL[:3] + SHARDED_CONDENSED
+             + ("linearize_condensed",) if counts[k]]
+    if stray:
+        raise AssertionError(f"{name}: kernels launched that must not be: {stray}")
+
+
+def cross_doc_paths(card: str, device):
+    """(i) The cross-document served drain: SERVE_DOCS serve-shaped
+    documents (``workload.serve_workload``), SERVE_CYCLES cycles of one
+    change a document, built three times from the same bytes and drained
+    (a) by ``apply_cross_doc`` in packed launches of SERVE_PER_LAUNCH
+    documents, pipelined, (b) by each document's own ``apply_batches``,
+    (c) by a ``CrossDocBatcher`` fed by one thread a document (holding its
+    document's lock), in turns each cycle. Returns (launch counts by path,
+    one packed super-batch's spec for the kernel report)."""
+    import threading
+
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.merge import merge_columns
+    from automerge_tpu_torch.ops.oplog import pad_columns
+
+    doc0, cycle0, n0 = SERVE_BURST
+    t_phase = t0 = time.perf_counter()
+    base, deltas, texts = W.serve_workload(
+        SERVE_DOCS, SERVE_CYCLES, SERVE_OPS, SERVE_BALLAST, burst={(doc0, cycle0): n0})
+    print(f"cross-doc served workload: {SERVE_DOCS} documents (ballast "
+          f"{SERVE_BALLAST}), {SERVE_CYCLES} cycles of {SERVE_OPS} characters, "
+          f"document {doc0} types {n0} in cycle {cycle0}; "
+          f"{time.perf_counter() - t0:.3f} s to generate and encode", flush=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    docs = {p: [DeviceDoc.merge([base], device=device) for _ in range(SERVE_DOCS)]
+            for p in "abc"}
+    torch.cuda.synchronize()
+    base_counts = kernels.launch_counts()
+    print(f"cross-doc served: {3 * SERVE_DOCS} bases resident on {card} in "
+          f"{time.perf_counter() - t0:.3f} s, launches {json.dumps(base_counts)}",
+          flush=True)
+    check_merges("cross-doc base", base_counts, 3 * SERVE_DOCS)
+
+    generations = []
+
+    class NotingBatcher(B.CrossDocBatcher):
+        def _flush(self, gen):
+            generations.append(len(gen.subs) + len(gen.stages))
+            super()._flush(gen)
+
+    batcher = NotingBatcher(mode="1", window_ms=1000.0, max_docs=SERVE_PER_LAUNCH,
+                            fallback_ratio=SERVE_FALLBACK, device=device)
+    locks = [threading.Lock() for _ in range(SERVE_DOCS)]
+
+    # one cycle's packed super-batches, held against the plain CPU merge
+    check_cycle = 1
+    captured, launch_rows = [], []
+    dispatch, collect = B._dispatch_packed, B._collect_packed
+
+    def noting_dispatch(cols, n_objs, n_props, *a, **k):
+        handle = dispatch(cols, n_objs, n_props, *a, **k)
+        launch_rows.append((handle["useful"], handle["P"]))
+        if capture[0]:
+            handle["check"] = (pad_columns(cols, n_objs), n_objs, n_props)
+        return handle
+
+    def noting_collect(handle, *a, **k):
+        res = collect(handle, *a, **k)
+        if "check" in handle:
+            captured.append((handle["check"], res))
+        return res
+
+    capture = [False]
+    totals = {p: {} for p in "abc"}
+    stats = {p: dict.fromkeys(B.STATS, 0) for p in "abc"}
+    seconds = {p: [] for p in "abc"}
+    gcs = {p: 0.0 for p in "abc"}
+    phases = {"a": {}, "b": {}}
+    whales = []
+    per_cycle_launches = {"a": [], "b": [], "c": []}
+
+    def run_a(c):
+        work = [(d, [[deltas[i][c]]]) for i, d in enumerate(docs["a"])]
+        out = B.apply_cross_doc(work, max_docs_per_launch=SERVE_PER_LAUNCH,
+                                fallback_ratio=SERVE_FALLBACK, device=device,
+                                phases=phases["a"])
+        if out["applied"] != SERVE_DOCS:
+            raise AssertionError(f"cross-doc cycle {c}: applied {out}")
+
+    def run_b(c):
+        for i, d in enumerate(docs["b"]):
+            d.apply_batches([[deltas[i][c]]], phases["b"])
+
+    def run_c(c):
+        errs = []
+        barrier = threading.Barrier(SERVE_DOCS)
+
+        def worker(i):
+            try:
+                barrier.wait()
+                with locks[i]:
+                    batcher.apply(docs["c"][i], [[deltas[i][c]]])
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(SERVE_DOCS)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if errs:
+            raise errs[0]
+
+    runs = {"a": run_a, "b": run_b, "c": run_c}
+    B._dispatch_packed, B._collect_packed = noting_dispatch, noting_collect
+    try:
+        for c in range(SERVE_CYCLES):
+            order = "abc"[c % 3:] + "abc"[:c % 3]
+            for p in order:
+                gc.collect()
+                kernels.reset_launches()
+                B.reset_stats()
+                capture[0] = p == "a" and c == check_cycle
+                with gc_pauses() as pauses:
+                    t0 = time.perf_counter()
+                    runs[p](c)
+                    torch.cuda.synchronize()
+                    seconds[p].append(time.perf_counter() - t0)
+                gcs[p] += sum(s for _, s in pauses)
+                counts = kernels.launch_counts()
+                _add_counts(totals[p], counts)
+                s = B.stats()
+                _add_counts(stats[p], s)
+                merges = s["launches"] + s["batched_fallback"] if p != "b" else SERVE_DOCS
+                check_merges(f"cross-doc ({p}) cycle {c}", counts, merges)
+                per_cycle_launches[p].append(s["launches"])
+                if p == "a":
+                    whales.append(s["batched_fallback"])
+                    if s["launches"] != SERVE_DOCS // SERVE_PER_LAUNCH:
+                        raise AssertionError(f"cross-doc (a) cycle {c}: {s['launches']} "
+                                             "packed launches")
+            check_serve_equal("cross-doc (a)", docs["a"], docs["b"], c)
+            check_serve_equal("cross-doc (c)", docs["c"], docs["b"], c)
+    finally:
+        B._dispatch_packed, B._collect_packed = dispatch, collect
+
+    # checks of the whole drain
+    for p in "ac":
+        s = stats[p]
+        if s["batched_error"] or s["scalar_docs"] or s["demoted_docs"] \
+                or s["extract_error"] or s["vectorized_docs"] != SERVE_DOCS * SERVE_CYCLES:
+            raise AssertionError(f"cross-doc ({p}): {json.dumps(s)}: an error, or an "
+                                 "admitted document on the scalar path")
+    if whales[cycle0] < 1:
+        raise AssertionError(f"cross-doc (a): no whale peeled in cycle {cycle0}: {whales}")
+    if len(generations) != SERVE_CYCLES * SERVE_DOCS // SERVE_PER_LAUNCH \
+            or set(generations) != {SERVE_PER_LAUNCH} \
+            or per_cycle_launches["c"] != [2 * SERVE_DOCS // SERVE_PER_LAUNCH] * SERVE_CYCLES:
+        raise AssertionError(f"cross-doc (c): generations {generations}, packed launches "
+                             f"a cycle {per_cycle_launches['c']}: not two half-launches "
+                             f"a generation of {SERVE_PER_LAUNCH}")
+    for p in "abc":
+        for i, d in enumerate(docs[p]):
+            if d.text(W.SERVE_LIVE) != texts[i] \
+                    or d.text(W.SERVE_ARCHIVE) != "x" * SERVE_BALLAST:
+                raise AssertionError(f"cross-doc ({p}) document {i}: live or archive "
+                                     "differs from the generator's")
+    if len(captured) != SERVE_DOCS // SERVE_PER_LAUNCH:
+        raise AssertionError(f"cross-doc: {len(captured)} packed launches captured")
+    for (cols, n_objs, n_props), res in captured:
+        plain = merge_columns(dict(cols), fetch=DeviceDoc.READ_FETCH, n_objs=n_objs,
+                              n_props=n_props, device="cpu")
+        for k in DeviceDoc.READ_FETCH:
+            if not np.array_equal(res[k], np.asarray(plain[k])):
+                raise AssertionError(f"cross-doc packed launch (P {len(cols['action'])}):"
+                                     f" {k} differs from the plain CPU merge")
+    print(f"cross-doc served: (a) and (c) equal (b) on READ_FETCH after every cycle; "
+          f"live and archive as the generator's; cycle {check_cycle}'s "
+          f"{len(captured)} packed super-batches (P "
+          f"{[len(c[0]['action']) for c, _ in captured]}) equal the plain CPU merge",
+          flush=True)
+
+    merges_a = sum(per_cycle_launches["a"]) + sum(whales)
+    merges_b = SERVE_DOCS * SERVE_CYCLES
+    for p in "abc":
+        sec = seconds[p]
+        print(f"cross-doc ({p}) {'packed' if p == 'a' else 'per-doc' if p == 'b' else 'batcher'}: "
+              f"per cycle p50 {statistics.median(sec):.6f} s max {max(sec):.6f} s, "
+              f"drain {sum(sec):.6f} s, gc {gcs[p]:.6f} s on {card}", flush=True)
+    useful = [u for u, _ in launch_rows]
+    padded = [P - u for u, P in launch_rows]
+    print(f"cross-doc packed launches: {len(launch_rows)} in (a) and (c), useful rows "
+          f"a launch p50 {statistics.median(useful)} max {max(useful)}, padded rows "
+          f"p50 {statistics.median(padded)} max {max(padded)}", flush=True)
+    print("cross-doc (a) stages_s " + json.dumps(
+        {k: round(v, 6) for k, v in phases["a"].items()}), flush=True)
+    print("cross-doc (b) stages_s " + json.dumps(
+        {k: round(v, 6) for k, v in phases["b"].items() if k != "batches"}), flush=True)
+    def launched(p):
+        return json.dumps({k: v for k, v in totals[p].items() if v})
+
+    print(f"cross-doc launches: (a) {merges_a} merges ({sum(per_cycle_launches['a'])} "
+          f"packed, whales by cycle {whales}) {launched('a')}; (b) {merges_b} merges "
+          f"{launched('b')}; (c) {sum(per_cycle_launches['c'])} packed + "
+          f"{stats['c']['batched_fallback']} whales {launched('c')}", flush=True)
+    print(f"cross-doc served: the phase took {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+    (cols, n_objs, n_props), _ = captured[0]
+    counts = {"cross-doc": totals["a"], "cross-doc per-doc": totals["b"],
+              "cross-doc batcher": totals["c"], "cross-doc base": base_counts}
+    return counts, (cols, n_objs, n_props)
+
+
 def check_served_subset(last, device) -> None:
     """One served batch's subset columns: the whole merge on the card
     equals the plain CPU path on every output, exactly."""
@@ -2469,6 +2762,7 @@ def main() -> int:
         card, device)
     record_log, last, record_counts, record_out, expect = record_paths(card, device)
     check_reference_fault(device)
+    cross_counts, cross_spec = cross_doc_paths(card, device)
     typing_log, condensed_counts = condensed_paths(
         card, device, (text_log, text_out, text, text_obj),
         (record_log, record_out, expect))
@@ -2481,7 +2775,7 @@ def main() -> int:
     from automerge_tpu_torch.ops.device_doc import DeviceDoc
     from automerge_tpu_torch.ops.merge import condensed_caps
 
-    by_path = {**text_counts, **record_counts, **condensed_counts,
+    by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
                **sharded_counts}
 
     def spec(log, condensed=False):
@@ -2495,7 +2789,8 @@ def main() -> int:
              "text view packed": (*view_cols, DeviceDoc.VIEW_FETCH),
              "records": record_cols,
              "records expand": record_cols, "records packed": record_cols,
-             "served": last, "text condensed": spec(text_log, True),
+             "served": last, "cross-doc": cross_spec,
+             "text condensed": spec(text_log, True),
              "typing": spec(typing_log),
              "typing condensed": spec(typing_log, True),
              "records condensed": spec(record_log, True),

@@ -1386,3 +1386,99 @@ def test_view_columns_decode_and_resolve_as_the_plain_versions(cuda):
     assert torch.equal(decoded["covered"].cpu(), torch.from_numpy(cols["covered"]))
     flags = torch.from_numpy(_flags_column(cols)).to(cuda)
     _same(E.unpack_flags(flags), E.unpack_flags_plain(flags))
+
+
+def _serve_trio(cuda, n_docs, cycles, ops, ballast, burst=None):
+    base, deltas, texts = W.serve_workload(n_docs, cycles, ops, ballast, burst=burst)
+    docs = {k: [DeviceDoc.merge([base], device=d) for _ in range(n_docs)]
+            for k, d in (("packed", cuda), ("card", cuda), ("cpu", "cpu"))}
+    return deltas, texts, docs
+
+
+def _equal_docs(a, b, where):
+    n = a.log.n
+    assert (n, a.log.n_objs) == (b.log.n, b.log.n_objs), where
+    for k in DeviceDoc.READ_FETCH:
+        cut = a.log.n_objs + 2 if k.startswith("obj_") else n
+        np.testing.assert_array_equal(np.asarray(a.res[k])[:cut],
+                                      np.asarray(b.res[k])[:cut], err_msg=f"{where} {k}")
+
+
+def test_cross_doc_on_card_equals_each_documents_own_apply(cuda):
+    """Serve-shaped documents drained through ``apply_cross_doc`` on the
+    card, two packed launches a cycle (chunks of four, pipelined), a
+    burst's document peeled as a whale from its cycle on: equal, after
+    every cycle, to each document's own ``apply_batches`` on the card and
+    on the CPU; every launch of the path is one of the packed merges or
+    the whale's."""
+    from automerge_tpu_torch.ops import batched as B
+
+    n, cycles = 8, 3
+    deltas, texts, docs = _serve_trio(cuda, n, cycles, 12, 300, burst={(0, 1): 200})
+    for c in range(cycles):
+        B.reset_stats()
+        reset_launches()
+        out = B.apply_cross_doc([(d, [[deltas[i][c]]]) for i, d in enumerate(docs["packed"])],
+                                device=cuda, max_docs_per_launch=4)
+        counts, s = launch_counts(), B.stats()
+        merges = s["launches"] + s["batched_fallback"]
+        assert s["launches"] == 2 and s["batched_error"] == 0 and s["scalar_docs"] == 0, s
+        assert s["batched_fallback"] == (0 if c == 0 else 1), s  # the burst on
+        assert out["applied"] == n and out["fallback"] == s["batched_fallback"]
+        assert counts["linearize"] == L.LAUNCHES * merges
+        assert counts["succ_vis"] == 2 * merges and counts["forest"] == 2 * merges
+        assert counts["scatter_winners"] // 2 + counts["sort_winners"] // 3 == merges
+        for i in range(n):
+            docs["card"][i].apply_batches([[deltas[i][c]]])
+            docs["cpu"][i].apply_changes([deltas[i][c]])
+            _equal_docs(docs["packed"][i], docs["card"][i], (c, i, "card"))
+            _equal_docs(docs["packed"][i], docs["cpu"][i], (c, i, "cpu"))
+    assert [d.text(W.SERVE_LIVE) for d in docs["packed"]] == texts
+
+
+def test_cross_doc_batch_past_the_scatter_gate_on_card(cuda):
+    """Two documents whose subsets each pass the scatter gate pack into a
+    batch past it: the packed launch on the card runs ``sort_winners``,
+    and equals each document's own launch on the card and on the CPU."""
+    from automerge_tpu.api import AutoDoc
+    from automerge_tpu.types import ActorId, ObjType
+
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.ops.merge import scatter_geometry_ok
+    from automerge_tpu_torch.ops.oplog import pad_columns
+
+    def many_objects(i):
+        base = AutoDoc(actor=ActorId(bytes([1]) * 16))
+        for k in range(900):
+            base.put("_root", f"{'kz'[i]}{k}", k)
+        kids = [base.put_object("_root", f"m{j}", ObjType.MAP) for j in range(60)]
+        for j, m in enumerate(kids):
+            base.put(m, f"{'kz'[i]}{j}", j)
+        base.commit()
+        chs = [a.stored.raw_bytes for a in base.doc.history]
+        f = base.fork(actor=ActorId(bytes([30 + i]) * 16))
+        for j, m in enumerate(kids):
+            f.put(m, f"{'kz'[i]}{j}", -j)
+        f.commit()
+        return chs, [a.stored.raw_bytes for a in f.doc.history if a.stored.raw_bytes not in chs]
+
+    made = [many_objects(i) for i in range(2)]
+    packed = [DeviceDoc.merge(chs, device=cuda) for chs, _ in made]
+    stages = [d.stage_batches([delta])[1] for d, (_, delta) in zip(packed, made)]
+    cols, _, _, objs = B._pack(stages)
+    n_props = max(len(s.doc.log.props) for s in stages)
+    assert not scatter_geometry_ok(len(pad_columns(cols, objs)["action"]), objs, n_props)
+    reset_launches()
+    B.resolve_stages(stages, device=cuda)
+    counts = launch_counts()
+    assert counts["sort_winners"] == 3 and counts["scatter_winners"] == 0
+    for d, (chs, delta) in zip(packed, made):
+        alone = DeviceDoc.merge(chs, device=cuda)
+        _, st = alone.stage_batches([delta])
+        reset_launches()
+        B.resolve_stages([st], device=cuda)
+        assert launch_counts()["scatter_winners"] == 2
+        cpu = DeviceDoc.merge(chs, device="cpu")
+        cpu.apply_changes(delta)
+        _equal_docs(d, alone, "alone on the card")
+        _equal_docs(d, cpu, "cpu")

@@ -1,6 +1,7 @@
 """automerge_tpu_torch stands alone: it imports neither JAX nor anything
-of automerge_tpu (its sharded merge, ``parallel/``, included), and its
-entry points refuse to fall back to the CPU."""
+of automerge_tpu (its sharded merge, ``parallel/``, and its cross-document
+batching, ``ops/batched.py`` and ``ops/host_batch.py``, included), and
+its entry points refuse to fall back to the CPU."""
 
 import ast
 import os
@@ -15,6 +16,7 @@ import torch
 import automerge_tpu_torch
 from automerge_tpu_torch.convert import columns_from_numpy
 from automerge_tpu_torch.device import resolve_device
+from automerge_tpu_torch.ops.batched import CrossDocBatcher, apply_cross_doc
 from automerge_tpu_torch.ops.device_doc import DeviceDoc
 from automerge_tpu_torch.ops.merge import merge_columns
 from automerge_tpu_torch.ops.oplog import OpLog
@@ -107,6 +109,17 @@ mdoc = DeviceDoc.merge([c.raw_bytes for c in changes[:-1]], device="cpu")
 mdoc.enable_mesh(devices=["cpu"] * 2, min_rows=0)
 mdoc.apply_changes([changes[-1].raw_bytes])
 assert mesh_runs == [1] and mdoc.text(base.text_exid) == doc.text(base.text_exid)
+from automerge_tpu_torch.ops import batched
+sbase, sdeltas, stexts = W.serve_workload(3, 2, 5, 40)
+sdocs = [DeviceDoc.merge([sbase], device="cpu") for _ in range(3)]
+batched.reset_stats()
+for c in range(2):
+    out = batched.apply_cross_doc([(d, [[sdeltas[i][c]]]) for i, d in enumerate(sdocs)],
+                                  device="cpu")
+    assert out == {"applied": 3, "batched": 3, "fallback": 0}, out
+assert [d.text(W.SERVE_LIVE) for d in sdocs] == stexts
+s = batched.stats()
+assert s["launches"] == 2 and s["vectorized_docs"] == 6 and s["scalar_docs"] == 0, s
 from automerge_tpu_torch import native
 from automerge_tpu_torch.ops import assemble, extract
 from automerge_tpu_torch.storage.change import LazyOps, parse_change
@@ -212,6 +225,13 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
         DeviceDoc.merge([rbase.raw_bytes])
     with pytest.raises(RuntimeError):
         DeviceDoc(OpLog.from_changes([rbase]), {})
+    sbase, sdeltas, _ = W.serve_workload(1, 1, 3, 10)
+    doc = DeviceDoc.merge([sbase], device="cpu")
+    with pytest.raises(RuntimeError):
+        apply_cross_doc([(doc, [sdeltas[0]])])
+    with pytest.raises(RuntimeError):
+        CrossDocBatcher(mode="1").apply(doc, [sdeltas[0]])
+    assert doc.log.n == len(W.serve_base_change(10).ops)  # nothing applied
 
 
 def test_served_document_stays_on_its_device(monkeypatch):

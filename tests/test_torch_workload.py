@@ -87,3 +87,60 @@ def test_unencoded_changes_encode_to_the_built_ones():
     built = W.synth_fanin(base, trace, 3, 50, 700)
     assert [len(c.ops) for c in raw] == [len(c.ops) for c in built]
     assert all(c.hash is None for c in raw)
+
+
+def _bench_serve_docs(n_docs, cycles, ops, ballast, tag=0):
+    """``bench.py``'s ``sb_workload`` (:1196-1226, nested in its ``main``),
+    through the JAX package's document layer: each editor's ``live`` and
+    ``archive`` text after every cycle."""
+    from automerge_tpu.api import AutoDoc
+    from automerge_tpu.types import ActorId, ObjType
+
+    out = []
+    for i in range(n_docs):
+        base = AutoDoc(actor=ActorId(bytes([21]) * 16))
+        live = base.put_object("_root", "live", ObjType.TEXT)
+        base.splice_text(live, 0, 0, "live seed text ")
+        arch = base.put_object("_root", "archive", ObjType.TEXT)
+        base.splice_text(arch, 0, 0, "x" * ballast)
+        base.commit()
+        ed = base.fork(actor=ActorId(bytes([31 + (tag & 1)]) + bytes([i % 250]) + bytes(14)))
+        texts = []
+        for c in range(cycles):
+            ln = ed.length(live)
+            for j in range(ops):
+                ed.splice_text(live, (i + c * ops + j) % max(ln + j, 1), 0, "ab"[j % 2])
+            ed.commit()
+            texts.append((ed.text(live), ed.text(arch)))
+        out.append((live, arch, texts))
+    return out
+
+
+@pytest.mark.parametrize("tag", [0, 1])
+def test_serve_documents_read_as_the_bench_generator(tag):
+    """The serve-shaped documents (``serve_workload``), loaded by the JAX
+    package cycle by cycle, read the same ``live`` and ``archive`` texts as
+    the bench's generator, and the port's merge the editor's own model."""
+    from automerge_tpu.storage.change import parse_change as j_parse_change
+
+    n_docs, cycles, ops, ballast = 3, 4, 6, 40
+    base, deltas, texts = W.serve_workload(n_docs, cycles, ops, ballast, tag)
+    bench = _bench_serve_docs(n_docs, cycles, ops, ballast, tag)
+    for i, (live, arch, want) in enumerate(bench):
+        assert (live, arch) == (W.SERVE_LIVE, W.SERVE_ARCHIVE)
+        for c in range(cycles):
+            blobs = [base] + deltas[i][: c + 1]
+            jdoc = JDeviceDoc.resolve(JOpLog.from_changes([j_parse_change(b)[0]
+                                                           for b in blobs]))
+            assert (jdoc.text(live), jdoc.text(arch)) == want[c], (i, c)
+        doc = DeviceDoc.merge([base] + deltas[i], device="cpu")
+        assert doc.text(live) == texts[i] == want[-1][0]
+
+
+def test_a_serve_burst_types_its_characters():
+    base, deltas, texts = W.serve_workload(2, 3, 5, 10, burst={(1, 1): 37})
+    lens = [len(t) for t in texts]
+    assert lens == [len(W.SERVE_SEED) + 15, len(W.SERVE_SEED) + 5 + 37 + 5]
+    doc = DeviceDoc.merge([base] + deltas[1], device="cpu")
+    assert doc.text(W.SERVE_LIVE) == texts[1]
+    assert doc.text(W.SERVE_ARCHIVE) == "x" * 10
