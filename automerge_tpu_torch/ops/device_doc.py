@@ -449,6 +449,57 @@ class DeviceDoc:
         self._pending = pend
         self._mesh, self._mesh_min_rows = mesh
 
+    # -- residency (ops/compressed.py) --------------------------------------
+
+    # the last resident_nbytes() figure, stamped by the thread that owns
+    # the document (its apply path, under the document's lock). Readers on
+    # other threads read this instead of calling resident_nbytes(), which
+    # syncs the log's compressed image (a mutation) and must never race an
+    # append. None until first computed.
+    _resident_cache = None
+
+    def resident_nbytes(self) -> int:
+        """The document's resident bytes: the column image (runs where
+        the gate admits them, dense with ``compressed.ENABLED`` off) plus
+        the resolution arrays read back. Syncs the compressed image: call
+        it only from the thread that owns the document; other threads use
+        ``resident_nbytes_estimate``."""
+        n = self.log.resident_column_nbytes() + sum(
+            a.nbytes for a in self.res.values()
+        )
+        self._resident_cache = n
+        return n
+
+    def resident_nbytes_estimate(self) -> int:
+        """The resident bytes for a reader on another thread: the owner's
+        last figure when there is one, else the dense arithmetic. Reads
+        only; never creates or syncs the compressed image."""
+        n = self._resident_cache
+        if n is not None:
+            return n
+        return self.dense_nbytes()
+
+    def dense_nbytes(self) -> int:
+        """The same residency fully decompressed, the ratio's numerator."""
+        return self.log.dense_column_nbytes() + sum(
+            a.nbytes for a in self.res.values()
+        )
+
+    def compress_ratio(self) -> float:
+        r = self.resident_nbytes()
+        return (self.dense_nbytes() / r) if r else 1.0
+
+    def audit_columns(self) -> list:
+        """Sync the compressed image and check every encoded column
+        against the dense column (``CompressedOpColumns.verify_against``).
+        The names of the columns that differ: a non-empty list means the
+        document must not serve reads and is to be rebuilt. Call it from
+        the thread that owns the document."""
+        comp = self.log.compressed(sync=True)
+        if comp is None:
+            return []  # dense mode is the oracle: nothing is encoded
+        return comp.verify_against(self.log)
+
     def _apply_append(self, info, ready: Sequence) -> None:
         """Splice the resolution arrays and host caches through an
         AppendInfo (positions move; values of clean objects are reused)."""

@@ -16,9 +16,8 @@ ready changes go through one set of shared passes:
   vector passes;
 * **splice**: per document, a tail append specialised by column kind
   (payload, packed-key, row-reference and string-table columns), with row
-  references resolved through the native ``join_rows``, and the
-  resolution-array bookkeeping of ``DeviceDoc._apply_append`` in the
-  same form.
+  references resolved through the id join, and the resolution-array
+  bookkeeping of ``DeviceDoc._apply_append`` in the same form.
 
 A document takes the fast path only when its assumptions hold: a resident
 log with column bytes kept (``LazyValues``), no unresolved reference
@@ -28,10 +27,14 @@ staged by ``DeviceDoc.stage_ready``, the scalar path and the oracle of
 this one; ``stage_docs(work, vectorized=False)`` stages every document
 that way.
 
-The reference's compressed-residency join (the delta's ids appended to
-the compressed id runs, ``ops/compressed.py``) waits for that module:
-``_splice_doc`` joins ids with ``join_rows``, as the reference does with
-compression off.
+The id join is offset-value-coded where it can be: with compressed
+residency on (``compressed.ENABLED``) and no new actor, the delta's ids
+extend the log's compressed id runs and the row references are joined
+over the R run heads (``StrideRuns.join``); otherwise, or once the id
+runs are demoted, through the native ``join_rows``. A tail write never
+moves the resident prefix, so the rest of the compressed image stays
+valid and extends its last runs at the next sync; an actor-rank remap
+drops it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..types import ACTOR_BITS, Action, ActorId, objtype_for_action
+from . import compressed as _C
 from .device_doc import DIRTY_FRACTION_LIMIT, _parsed, _stage
 from .extract import LazyValues
 from .oplog import (
@@ -493,6 +497,18 @@ def _splice_doc(p: _DocPlan, g):
         return ("scalar",)
     m = n + k
 
+    # -- the offset-value-coded id join: the delta's ids extend the id_key
+    # runs, so that the joins below search R run heads instead of m keys;
+    # the rest of the image extends at its next sync (a tail write never
+    # moves the resident prefix)
+    idruns = None
+    if _C.enabled() and not p.actors_changed:
+        comp = log._comp
+        if comp is None:
+            comp = log._comp = _C.CompressedOpColumns()
+        comp._sync_col("id_key", "delta", log.id_key, n)
+        idruns = comp.extend_id(d_id)
+
     # -- packed-key and payload columns (tail writes only)
     if log._bufs is None:
         log._bufs = {}
@@ -531,10 +547,16 @@ def _splice_doc(p: _DocPlan, g):
     mark_new = tw(bufs, "mark_name_idx", log.mark_name_idx, d_mark, m)
 
     # -- row-reference columns, through the id join
+    def _id_join(keys):
+        if idruns is not None:
+            _C.count("ovc_join", len(keys))
+            return idruns.join(keys, ELEM_MISSING)
+        return join_rows(id_new, keys, ELEM_MISSING)
+
     d_ek = g["elem_s"][sl]
     d_er = np.where(
         d_ek == -1, np.int32(ELEM_MAP),
-        np.where(d_ek == 0, np.int32(ELEM_HEAD), join_rows(id_new, d_ek, ELEM_MISSING)),
+        np.where(d_ek == 0, np.int32(ELEM_HEAD), _id_join(d_ek)),
     ).astype(np.int32)
     er_new = tw(bufs, "elem_ref", log.elem_ref, d_er, m)
     n_miss_elem = int(np.count_nonzero(d_er == ELEM_MISSING))
@@ -544,7 +566,7 @@ def _splice_doc(p: _DocPlan, g):
     if len(src_g):
         d_ps = (n + (g["inv_g"][src_g] - p.r0)).astype(np.int32)
         d_pk = g["pk_t"][p.p0:p.p1]
-        d_pt = join_rows(id_new, d_pk, ELEM_MISSING)
+        d_pt = _id_join(d_pk)
         d_pt = np.where(d_pt == ELEM_MISSING, np.int32(-1), d_pt).astype(np.int32)
     else:
         d_ps = np.empty(0, np.int32)
@@ -620,6 +642,7 @@ def _splice_doc(p: _DocPlan, g):
     log.n_miss_pred = n_miss_pred
     if p.actors_changed:
         log.actors = [ActorId(b) for b in p.all_bytes]
+        log._comp = None  # every resident packed key was rank-remapped
     log._actor_order = None
     log.changes.extend(ready)
     log.hashes().update(ch.hash for ch in ready)

@@ -22,8 +22,13 @@ resident columns by position arithmetic, with an ``AppendInfo`` saying
 what moved) extracts only the delta the same way; no op is visited in
 Python. ``fast=False`` on both takes the per-op path of
 ``automerge_tpu.ops.oplog`` (its ``_collect_slow``) instead: the explicit
-oracle the tests hold the native path to, never a fallback. The
-compressed column image is not part of this package.
+oracle the tests hold the native path to, never a fallback.
+
+Beside the dense columns a log keeps a compressed image of them
+(``compressed``, ops/compressed.py): it gives the residency figures and
+the ARSN snapshot (storage/runsnap.py), and on a tail append by known
+actors its id runs answer the reference joins (the offset-value-coded
+join) instead of ``join_rows``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 from .. import native
 from ..storage.change import StoredChange
 from ..types import ACTOR_BITS, ActorId, ScalarValue, str_width
+from . import compressed as C
 
 # Up to 2^20 distinct actors per merged log; counters up to 2^43.
 ACTOR_MASK = (1 << ACTOR_BITS) - 1
@@ -131,6 +137,7 @@ class OpLog:
         "_hash_set",
         "_bufs",
         "_actor_order",
+        "_comp",
     )
 
     def __init__(self):
@@ -155,6 +162,9 @@ class OpLog:
         self._hash_set = None
         self._bufs = None  # capacity-bucketed backing buffers of the splice
         self._actor_order = None
+        # the compressed image of the columns (ops/compressed.py), built on
+        # first use and dropped by anything that rewrites the prefix
+        self._comp = None
 
     # -- construction --------------------------------------------------
 
@@ -434,6 +444,51 @@ class OpLog:
         self.n_miss_elem = int(np.count_nonzero(self.elem_ref == ELEM_MISSING))
         self.n_miss_pred = int(np.count_nonzero(self.pred_tgt < 0))
 
+    # -- compressed residency (ops/compressed.py) ---------------------------
+
+    def compressed(self, sync: bool = True):
+        """The compressed image of the columns, or None when compressed
+        residency is off (``compressed.ENABLED``). Kept incrementally:
+        tail appends extend the last runs; a rewrite of the prefix drops
+        the image and the next call encodes it again."""
+        if not C.enabled():
+            return None
+        if self._comp is None:
+            self._comp = C.CompressedOpColumns()
+        if sync:
+            self._comp.sync(self)
+        return self._comp
+
+    def dense_column_nbytes(self) -> int:
+        """The dense bytes of the column set. A column not materialized
+        (``elem_key`` / ``pred_key`` of an assembled log) counts zero, as
+        it does in ``resident_column_nbytes``: bytes on one side only
+        would inflate ``compress_ratio``."""
+        q = len(self.pred_src)
+        return sum(
+            self.n * item
+            for name, _, item in C.ROW_SPEC
+            if getattr(self, name) is not None
+        ) + sum(
+            q * item
+            for name, _, item in C.EDGE_SPEC
+            if getattr(self, name) is not None
+        )
+
+    def resident_column_nbytes(self) -> int:
+        """The bytes of the column set under the active mode: runs where
+        the gate admits them, dense elsewhere. Syncs the image."""
+        comp = self.compressed()
+        if comp is None:
+            return self.dense_column_nbytes()
+        return comp.nbytes(self)
+
+    def compress_ratio(self) -> float:
+        comp = self.compressed()
+        if comp is None:
+            return 1.0
+        return comp.ratio(self)
+
     # -- host-side id helpers ---------------------------------------------
 
     def export_id(self, key: int) -> str:
@@ -604,6 +659,17 @@ class OpLog:
                 return None  # an op id the log already holds
         tail = n == 0 or pos[0] == n
         m = n + k
+        # the offset-value-coded id join: the compressed id_key runs,
+        # extended with the delta now, answer every reference join below
+        # over R run heads and stride arithmetic instead of a searchsorted
+        # over all N keys (compressed.StrideRuns.join)
+        idruns = None
+        if tail and not actors_changed and n and C.enabled():
+            comp = self._comp
+            if comp is None:
+                comp = self._comp = C.CompressedOpColumns()
+            comp._sync_col("id_key", "delta", self.id_key, n)
+            idruns = comp.extend_id(d_id)
         new_rows = pos + np.arange(k, dtype=np.int64)
         if tail:
             row_map = None
@@ -638,6 +704,9 @@ class OpLog:
         mark_new = sp("mark_name_idx", self.mark_name_idx, d_mark)
 
         def rows_of(keys):
+            if idruns is not None:
+                C.count("ovc_join", len(keys))
+                return idruns.join(keys, ELEM_MISSING)
             return join_rows(id_new, keys, ELEM_MISSING)
 
         # -- element references --------------------------------------------
@@ -762,6 +831,12 @@ class OpLog:
         self.n_miss_pred = n_miss_pred
         self.actors = [ActorId(b) for b in all_bytes]
         self._actor_order = None
+        # the compressed image survives only a pure tail append: an actor
+        # remap rewrites every packed key, a non-tail splice moves the
+        # prefix, re-resolved MISSING references rewrite elem_ref /
+        # pred_tgt rows; the next consumer encodes again
+        if not tail or actors_changed or len(rere_rows) or len(rere_pred):
+            self._comp = None
         self.changes.extend(fresh)
         known.update(batch_seen)
         return AppendInfo(n, k, new_rows, row_map, tail, dirty, obj_remap,
@@ -849,6 +924,7 @@ class OpLog:
         self.obj_table = remap_packed(self.obj_table)
         self.actors = [ActorId(b) for b in all_bytes]
         self._actor_order = None  # every actor rank was remapped
+        self._comp = None  # and every packed key
         # remapped arrays no longer alias the backing buffers
         self._bufs = {}
 

@@ -1,7 +1,8 @@
 """Chip smoke test of automerge_tpu_torch on one NVIDIA GPU: the fan-in
 merge of a text document, the fan-in of a record store, the record store
-served batch by batch and 128 documents' drained deltas resolved in
-packed launches (``ops/batched.py``), end to end through hand-written
+served batch by batch, 128 documents' drained deltas resolved in
+packed launches (``ops/batched.py``) and documents opened cold from ARSN
+run images (``storage/runsnap.py``), end to end through hand-written
 CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
 over meshes of four and sixteen shards on the card, and historical views
@@ -126,7 +127,36 @@ Phases, each raising on failure (nothing is caught):
        max) and its gc seconds, (a)'s host stages summed (dedup, causal
        order, host pack, sort, splice, pack, launch, readback, scatter,
        whale, overlap) beside (b)'s, useful and padded rows a packed
-       launch, each drain's launches;
+       launch, each drain's launches. Two more sets of the 128 bases are
+       written as ARSN images (``runsnap.encode_snapshot`` of a log built
+       from the base chunk) and opened cold on the card (``parse``,
+       ``to_oplog``, ``DeviceDoc.resolve``: 256 merges, equal to the
+       change-built bases), then drained in the same turns as (d)
+       ``apply_cross_doc`` as (a) and (e) each document's own
+       ``apply_batches``: after every cycle both equal (b); (d) peels the
+       whales (a) peels; after the drain every image is faithful
+       (``audit_columns()`` empty) and rows were joined over the
+       compressed id runs (``compressed.STATS["ovc_join"]``, read around
+       each drain) in (d)'s staged splice and in (e)'s
+       ``OpLog.append_changes``; each drain's rows joined so are
+       printed with its wall;
+    j. cold open (after (e)): the three fan-ins (a), (b) and the typing
+       fan-in, each written as an ARSN image of its log and heads,
+       parsed, turned into a log (``RunImage.to_oplog``: no op column
+       parsed, the run tables installed as the log's compressed image)
+       and resolved on the card by ``DeviceDoc.resolve``, with the
+       launch counts set to 0 just before the resolve and read just
+       after: the log equals the fan-in's on every column (the
+       reference keys and unresolved counts too), the six READ_FETCH
+       arrays and the read (the text; the records map's keys and every
+       128th record's entries) equal the fan-in document's,
+       ``audit_columns()`` is empty and the launches are the fan-in
+       merge's, kernel for kernel. Printed: the image's bytes beside the
+       change bytes and the dense and resident column bytes, the
+       document's ``resident_nbytes``, ``dense_nbytes`` and
+       ``compress_ratio``, each column's run count and the demoted
+       columns, and the seconds of encode, parse, ``to_oplog`` and the
+       merge (and gc) beside the fan-in's parse and oplog from chunks;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -780,6 +810,10 @@ def text_fanin(name: str, card: str, device, make_trace=None):
     check_launches(f"{name} fan-in", counts, RUN_NATIVE + ("scatter_winners",),
                    ("sort_winners",) + TRANSPORT_ONLY)
     print(f"{name}: {len(text)} characters, as the generator counted", flush=True)
+    FANINS[name] = {"doc": doc, "phases": phases, "counts": counts,
+                    "e2e": t_end - t0, "bytes": sum(map(len, blobs)),
+                    "must": RUN_NATIVE + ("scatter_winners",),
+                    "read": lambda d: d.text(text_obj)}
     return doc, phases, text, text_obj, counts, blobs
 
 
@@ -1093,6 +1127,17 @@ def record_paths(card: str, device):
     check_launches("record fan-in", fanin_counts, RUN_NATIVE + ("sort_winners",),
                    ("scatter_winners",) + TRANSPORT_ONLY)
     print(f"record fan-in: {json.dumps(got)}, as the generator counted", flush=True)
+
+    def sample_reads(d):
+        """keys of the records map and map_entries of every 128th record"""
+        keys = d.keys(W.RECORDS_OBJ)
+        entries = d.map_entries(W.RECORDS_OBJ)
+        return keys, [d.map_entries(rec) for _, (_, _, rec), _ in entries[::128]]
+
+    FANINS["records"] = {"doc": doc, "phases": phases, "counts": fanin_counts,
+                         "e2e": t_end - t0,
+                         "bytes": len(base) + sum(map(len, reps)),
+                         "must": RUN_NATIVE + ("sort_winners",), "read": sample_reads}
     expand_counts, fanin_out = check_stagings("record fan-in", doc.log, device)
     packed, packed_counts = check_packed("record fan-in", doc, phases, device)
     if W.record_counts(packed) != expect:
@@ -1780,6 +1825,107 @@ def cards_paths(card, device) -> None:
                              *geom, mesh, single, linearize)
 
 
+# the fan-in documents (a), (b) and the typing fan-in of (e), held for the
+# cold-open phase (j): the document, its phases, its launches, its end to
+# end seconds, its change bytes, the kernels it must run, a read
+FANINS = {}
+COLD_ORDER = ("text", "typing", "records")
+
+
+def check_ref_keys(name: str, got, want) -> None:
+    """The reference-key columns and the unresolved counts agree."""
+    import numpy as np
+
+    for k in ("elem_key", "pred_key"):
+        g, w = getattr(got, k), getattr(want, k)
+        if (g is None) != (w is None) or (g is not None and (
+                g.dtype != w.dtype or not np.array_equal(g, w))):
+            raise AssertionError(f"{name}: column {k} differs")
+    if (got.n_miss_elem, got.n_miss_pred) != (want.n_miss_elem, want.n_miss_pred):
+        raise AssertionError(f"{name}: unresolved-reference counts differ")
+
+
+def cold_open(name: str, card: str, device) -> dict:
+    """(j) One fan-in written as an ARSN image and opened cold on the
+    card: ``encode_snapshot`` of its log and heads, ``parse``,
+    ``to_oplog``, ``DeviceDoc.resolve``, each timed (the collector's
+    seconds beside them), the launches counted around the resolve. The
+    log equals the fan-in's, the six READ_FETCH arrays and the read
+    equal the fan-in document's, the image is faithful (``audit_columns``
+    empty) and the launches are the fan-in merge's, kernel for kernel.
+    Returns the launch counts."""
+    import numpy as np
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.storage import runsnap as R
+
+    held = FANINS[name]
+    doc = held["doc"]
+    heads = doc.current_heads()
+    phases = {}
+    gc.collect()
+    with gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        data = R.encode_snapshot(doc.log, heads)
+        t1 = time.perf_counter()
+        img = R.parse(data)
+        t2 = time.perf_counter()
+        log = img.to_oplog()
+        t3 = time.perf_counter()
+        kernels.reset_launches()
+        cold = DeviceDoc.resolve(log, device=device, phases=phases)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    counts = kernels.launch_counts()
+    gc_s = sum(s for _, s in pauses)
+    check_logs_equal(f"{name} cold open", log, doc.log)
+    check_ref_keys(f"{name} cold open", log, doc.log)
+    for k in DeviceDoc.READ_FETCH:
+        cut = log.n_objs + 2 if k.startswith("obj_") else log.n
+        if not np.array_equal(np.asarray(cold.res[k])[:cut], np.asarray(doc.res[k])[:cut]):
+            raise AssertionError(f"{name} cold open: {k} differs from the fan-in's")
+    t5 = time.perf_counter()
+    if held["read"](cold) != held["read"](doc):
+        raise AssertionError(f"{name} cold open: the read differs from the fan-in's")
+    t_read = time.perf_counter() - t5
+    bad = cold.audit_columns()
+    if bad:
+        raise AssertionError(f"{name} cold open: the image differs from the columns: {bad}")
+    if counts != held["counts"]:
+        raise AssertionError(f"{name} cold open: launches {json.dumps(counts)}, the "
+                             f"fan-in's {json.dumps(held['counts'])}")
+    check_launches(f"{name} cold open", counts, held["must"], TRANSPORT_ONLY)
+    comp = cold.log._comp
+    runs = comp.run_counts()
+    fp = held["phases"]
+    print(f"{name} cold open: image {len(data)} bytes, change bytes {held['bytes']}, "
+          f"dense columns {cold.log.dense_column_nbytes()}, resident columns "
+          f"{cold.log.resident_column_nbytes()}; document resident_nbytes "
+          f"{cold.resident_nbytes()}, dense_nbytes {cold.dense_nbytes()}, "
+          f"compress_ratio {cold.compress_ratio():.6f}", flush=True)
+    print(f"{name} cold open runs " + json.dumps(runs) + "; demoted "
+          + json.dumps(sorted(k for k, v in runs.items() if v == -1)), flush=True)
+    print(f"{name} cold open seconds: encode {t1 - t0:.6f}, parse {t2 - t1:.6f}, "
+          f"to_oplog {t3 - t2:.6f}, merge {t4 - t3:.6f} (phases "
+          + json.dumps({k: round(v, 6) for k, v in phases.items()})
+          + f"), gc {gc_s:.6f}; image to resident log {t3 - t1:.6f} s against the "
+          f"fan-in's parse {fp['parse']:.6f} + oplog {fp['oplog']:.6f} = "
+          f"{fp['parse'] + fp['oplog']:.6f} s from chunks (fan-in end to end "
+          f"{held['e2e']:.6f} s) on {card}", flush=True)
+    print(f"{name} cold open: log, reference keys, READ_FETCH and the read "
+          f"({t_read:.3f} s) equal the fan-in's; audit_columns() == []; launches "
+          f"the fan-in's {json.dumps(counts)}", flush=True)
+    return counts
+
+
+def cold_open_paths(card: str, device) -> dict:
+    """(j) the three fan-ins opened cold from images; releases them."""
+    counts = {f"{name} cold open": cold_open(name, card, device) for name in COLD_ORDER}
+    FANINS.clear()
+    return counts
+
+
 def check_reference_fault(device) -> None:
     """(d) Two map puts whose prop ids the JAX package's packed key merges
     (prop 64 + 4 needs more than ceil_log2(16 + 5) bits): the packed
@@ -1911,6 +2057,34 @@ def cross_doc_paths(card: str, device):
           f"{time.perf_counter() - t0:.3f} s, launches {json.dumps(base_counts)}",
           flush=True)
     check_merges("cross-doc base", base_counts, 3 * SERVE_DOCS)
+    # (d), (e): the bases written as ARSN images and opened cold on the card
+    from automerge_tpu_torch.ops import compressed as C
+    from automerge_tpu_torch.ops.oplog import OpLog
+    from automerge_tpu_torch.storage import runsnap as R
+    from automerge_tpu_torch.storage.change import parse_change
+
+    gc.collect()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    images = []
+    for _ in range(2 * SERVE_DOCS):
+        ch = parse_change(base)[0]
+        images.append(R.encode_snapshot(OpLog.from_changes([ch]), [ch.hash]))
+    t1 = time.perf_counter()
+    cold = [DeviceDoc.resolve(R.parse(data).to_oplog(), device=device) for data in images]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    docs["d"], docs["e"] = cold[:SERVE_DOCS], cold[SERVE_DOCS:]
+    cold_base_counts = kernels.launch_counts()
+    check_merges("cross-doc cold base", cold_base_counts, 2 * SERVE_DOCS)
+    if any(d.audit_columns() for d in cold):
+        raise AssertionError("cross-doc cold base: an image differs from its columns")
+    check_serve_equal("cross-doc cold base (d)", docs["d"], docs["b"], -1)
+    check_serve_equal("cross-doc cold base (e)", docs["e"], docs["b"], -1)
+    print(f"cross-doc served: {2 * SERVE_DOCS} bases written as images ({len(images[0])} "
+          f"bytes each, the chunk {len(base)}) in {t1 - t0:.3f} s and opened cold on "
+          f"{card} in {t2 - t1:.3f} s, equal to the change-built bases; launches "
+          f"{json.dumps(cold_base_counts)}", flush=True)
 
     generations = []
 
@@ -1942,25 +2116,31 @@ def cross_doc_paths(card: str, device):
         return res
 
     capture = [False]
-    totals = {p: {} for p in "abc"}
-    stats = {p: dict.fromkeys(B.STATS, 0) for p in "abc"}
-    seconds = {p: [] for p in "abc"}
-    gcs = {p: 0.0 for p in "abc"}
-    phases = {"a": {}, "b": {}}
-    whales = []
-    per_cycle_launches = {"a": [], "b": [], "c": []}
+    drains = "abcde"
+    totals = {p: {} for p in drains}
+    stats = {p: dict.fromkeys(B.STATS, 0) for p in drains}
+    seconds = {p: [] for p in drains}
+    gcs = {p: 0.0 for p in drains}
+    ovc = {p: 0 for p in drains}  # rows joined over the id runs
+    phases = {"a": {}, "b": {}, "d": {}, "e": {}}
+    whales = {"a": [], "d": []}
+    per_cycle_launches = {p: [] for p in drains}
 
-    def run_a(c):
-        work = [(d, [[deltas[i][c]]]) for i, d in enumerate(docs["a"])]
-        out = B.apply_cross_doc(work, max_docs_per_launch=SERVE_PER_LAUNCH,
-                                fallback_ratio=SERVE_FALLBACK, device=device,
-                                phases=phases["a"])
-        if out["applied"] != SERVE_DOCS:
-            raise AssertionError(f"cross-doc cycle {c}: applied {out}")
+    def packed_drain(p):
+        def run(c):
+            work = [(d, [[deltas[i][c]]]) for i, d in enumerate(docs[p])]
+            out = B.apply_cross_doc(work, max_docs_per_launch=SERVE_PER_LAUNCH,
+                                    fallback_ratio=SERVE_FALLBACK, device=device,
+                                    phases=phases[p])
+            if out["applied"] != SERVE_DOCS:
+                raise AssertionError(f"cross-doc ({p}) cycle {c}: applied {out}")
+        return run
 
-    def run_b(c):
-        for i, d in enumerate(docs["b"]):
-            d.apply_batches([[deltas[i][c]]], phases["b"])
+    def per_doc_drain(p):
+        def run(c):
+            for i, d in enumerate(docs[p]):
+                d.apply_batches([[deltas[i][c]]], phases[p])
+        return run
 
     def run_c(c):
         errs = []
@@ -1982,15 +2162,17 @@ def cross_doc_paths(card: str, device):
         if errs:
             raise errs[0]
 
-    runs = {"a": run_a, "b": run_b, "c": run_c}
+    runs = {"a": packed_drain("a"), "b": per_doc_drain("b"), "c": run_c,
+            "d": packed_drain("d"), "e": per_doc_drain("e")}
     B._dispatch_packed, B._collect_packed = noting_dispatch, noting_collect
     try:
         for c in range(SERVE_CYCLES):
-            order = "abc"[c % 3:] + "abc"[:c % 3]
+            order = drains[c % 5:] + drains[:c % 5]
             for p in order:
                 gc.collect()
                 kernels.reset_launches()
                 B.reset_stats()
+                C.reset_stats()
                 capture[0] = p == "a" and c == check_cycle
                 with gc_pauses() as pauses:
                     t0 = time.perf_counter()
@@ -1998,39 +2180,49 @@ def cross_doc_paths(card: str, device):
                     torch.cuda.synchronize()
                     seconds[p].append(time.perf_counter() - t0)
                 gcs[p] += sum(s for _, s in pauses)
+                ovc[p] += C.stats()["ovc_join"]
                 counts = kernels.launch_counts()
                 _add_counts(totals[p], counts)
                 s = B.stats()
                 _add_counts(stats[p], s)
-                merges = s["launches"] + s["batched_fallback"] if p != "b" else SERVE_DOCS
+                merges = (SERVE_DOCS if p in "be"
+                          else s["launches"] + s["batched_fallback"])
                 check_merges(f"cross-doc ({p}) cycle {c}", counts, merges)
                 per_cycle_launches[p].append(s["launches"])
-                if p == "a":
-                    whales.append(s["batched_fallback"])
+                if p in "ad":
+                    whales[p].append(s["batched_fallback"])
                     if s["launches"] != SERVE_DOCS // SERVE_PER_LAUNCH:
-                        raise AssertionError(f"cross-doc (a) cycle {c}: {s['launches']} "
-                                             "packed launches")
-            check_serve_equal("cross-doc (a)", docs["a"], docs["b"], c)
-            check_serve_equal("cross-doc (c)", docs["c"], docs["b"], c)
+                        raise AssertionError(f"cross-doc ({p}) cycle {c}: "
+                                             f"{s['launches']} packed launches")
+            for p in "acde":
+                check_serve_equal(f"cross-doc ({p})", docs[p], docs["b"], c)
     finally:
         B._dispatch_packed, B._collect_packed = dispatch, collect
 
     # checks of the whole drain
-    for p in "ac":
+    for p in "acd":
         s = stats[p]
         if s["batched_error"] or s["scalar_docs"] or s["demoted_docs"] \
                 or s["extract_error"] or s["vectorized_docs"] != SERVE_DOCS * SERVE_CYCLES:
             raise AssertionError(f"cross-doc ({p}): {json.dumps(s)}: an error, or an "
                                  "admitted document on the scalar path")
-    if whales[cycle0] < 1:
-        raise AssertionError(f"cross-doc (a): no whale peeled in cycle {cycle0}: {whales}")
+    if whales["a"][cycle0] < 1 or whales["d"] != whales["a"]:
+        raise AssertionError(f"cross-doc (a), (d): whales by cycle {whales}: none in "
+                             f"cycle {cycle0}, or not the same")
+    for p in "de":
+        bad = [i for i, d in enumerate(docs[p]) if d.audit_columns()]
+        if bad:
+            raise AssertionError(f"cross-doc ({p}): documents whose image differs from "
+                                 f"their columns: {bad}")
+        if ovc[p] <= 0:
+            raise AssertionError(f"cross-doc ({p}): no row joined over the id runs")
     if len(generations) != SERVE_CYCLES * SERVE_DOCS // SERVE_PER_LAUNCH \
             or set(generations) != {SERVE_PER_LAUNCH} \
             or per_cycle_launches["c"] != [2 * SERVE_DOCS // SERVE_PER_LAUNCH] * SERVE_CYCLES:
         raise AssertionError(f"cross-doc (c): generations {generations}, packed launches "
                              f"a cycle {per_cycle_launches['c']}: not two half-launches "
                              f"a generation of {SERVE_PER_LAUNCH}")
-    for p in "abc":
+    for p in drains:
         for i, d in enumerate(docs[p]):
             if d.text(W.SERVE_LIVE) != texts[i] \
                     or d.text(W.SERVE_ARCHIVE) != "x" * SERVE_BALLAST:
@@ -2051,13 +2243,20 @@ def cross_doc_paths(card: str, device):
           f"{[len(c[0]['action']) for c, _ in captured]}) equal the plain CPU merge",
           flush=True)
 
-    merges_a = sum(per_cycle_launches["a"]) + sum(whales)
+    merges_a = sum(per_cycle_launches["a"]) + sum(whales["a"])
     merges_b = SERVE_DOCS * SERVE_CYCLES
-    for p in "abc":
+    kinds = {"a": "packed", "b": "per-doc", "c": "batcher",
+             "d": "packed, opened from images", "e": "per-doc, opened from images"}
+    for p in drains:
         sec = seconds[p]
-        print(f"cross-doc ({p}) {'packed' if p == 'a' else 'per-doc' if p == 'b' else 'batcher'}: "
+        print(f"cross-doc ({p}) {kinds[p]}: "
               f"per cycle p50 {statistics.median(sec):.6f} s max {max(sec):.6f} s, "
-              f"drain {sum(sec):.6f} s, gc {gcs[p]:.6f} s on {card}", flush=True)
+              f"drain {sum(sec):.6f} s, gc {gcs[p]:.6f} s, rows joined over the id "
+              f"runs {ovc[p]} on {card}", flush=True)
+    print(f"cross-doc served from images: (d) and (e) equal (b) on READ_FETCH after "
+          f"every cycle; audit_columns() == [] for all {2 * SERVE_DOCS}; offset-value-"
+          f"coded joins: (d) staged splice {ovc['d']} rows, (e) per-document "
+          f"{ovc['e']} rows", flush=True)
     useful = [u for u, _ in launch_rows]
     padded = [P - u for u, P in launch_rows]
     print(f"cross-doc packed launches: {len(launch_rows)} in (a) and (c), useful rows "
@@ -2067,18 +2266,23 @@ def cross_doc_paths(card: str, device):
         {k: round(v, 6) for k, v in phases["a"].items()}), flush=True)
     print("cross-doc (b) stages_s " + json.dumps(
         {k: round(v, 6) for k, v in phases["b"].items() if k != "batches"}), flush=True)
+    print("cross-doc (d) stages_s " + json.dumps(
+        {k: round(v, 6) for k, v in phases["d"].items()}), flush=True)
     def launched(p):
         return json.dumps({k: v for k, v in totals[p].items() if v})
 
     print(f"cross-doc launches: (a) {merges_a} merges ({sum(per_cycle_launches['a'])} "
-          f"packed, whales by cycle {whales}) {launched('a')}; (b) {merges_b} merges "
+          f"packed, whales by cycle {whales['a']}) {launched('a')}; (b) {merges_b} merges "
           f"{launched('b')}; (c) {sum(per_cycle_launches['c'])} packed + "
-          f"{stats['c']['batched_fallback']} whales {launched('c')}", flush=True)
+          f"{stats['c']['batched_fallback']} whales {launched('c')}; (d) "
+          f"{launched('d')}; (e) {launched('e')}", flush=True)
     print(f"cross-doc served: the phase took {time.perf_counter() - t_phase:.3f} s",
           flush=True)
     (cols, n_objs, n_props), _ = captured[0]
     counts = {"cross-doc": totals["a"], "cross-doc per-doc": totals["b"],
-              "cross-doc batcher": totals["c"], "cross-doc base": base_counts}
+              "cross-doc batcher": totals["c"], "cross-doc base": base_counts,
+              "cross-doc cold": totals["d"], "cross-doc cold per-doc": totals["e"],
+              "cross-doc cold base": cold_base_counts}
     return counts, (cols, n_objs, n_props)
 
 
@@ -2767,6 +2971,7 @@ def main() -> int:
         card, device, (text_log, text_out, text, text_obj),
         (record_log, record_out, expect))
     del text_out, record_out
+    cold_counts = cold_open_paths(card, device)
     sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
                                    record_log)
 
@@ -2776,7 +2981,7 @@ def main() -> int:
     from automerge_tpu_torch.ops.merge import condensed_caps
 
     by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
-               **sharded_counts}
+               **cold_counts, **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,

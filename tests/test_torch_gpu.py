@@ -1482,3 +1482,58 @@ def test_cross_doc_batch_past_the_scatter_gate_on_card(cuda):
         cpu.apply_changes(delta)
         _equal_docs(d, alone, "alone on the card")
         _equal_docs(d, cpu, "cpu")
+
+
+def _image_of(doc):
+    from automerge_tpu_torch.storage import runsnap as R
+
+    return R.parse(R.encode_snapshot(doc.log, doc.current_heads()))
+
+
+@pytest.mark.parametrize("name", ["text", "records"])
+def test_document_opened_from_an_image_on_card_equals_the_change_built(cuda, name):
+    """A fan-in written as an ARSN image and opened cold on the card
+    (``to_oplog``, then ``DeviceDoc.resolve``) equals the document merged
+    from its changes, launch for launch, and the one opened on the CPU."""
+    blobs = next(b for n, b, _ in _view_docs() if n == name)
+    reset_launches()
+    built = DeviceDoc.merge(blobs, device=cuda)
+    want = launch_counts()
+    log = _image_of(built).to_oplog()
+    assert log._comp is not None
+    reset_launches()
+    cold = DeviceDoc.resolve(log, device=cuda)
+    assert launch_counts() == want
+    assert want["linearize"] == L.LAUNCHES and want["expand_runs"] >= 1
+    _equal_docs(cold, built, name)
+    _equal_docs(cold, DeviceDoc.resolve(_image_of(built).to_oplog(), device="cpu"),
+                (name, "cpu"))
+    assert cold.audit_columns() == [] and cold.hydrate() == built.hydrate()
+
+
+def test_cross_doc_drain_of_documents_opened_from_images_on_card(cuda):
+    """Serve-shaped documents opened from images on the card and drained
+    by ``apply_cross_doc``: equal after every cycle to each change-built
+    document's own ``apply_batches`` on the card, with the staged splice
+    joining over the id runs (``compressed.STATS["ovc_join"]``)."""
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.ops import compressed as C
+
+    n, cycles = 8, 3
+    deltas, texts, docs = _serve_trio(cuda, n, cycles, 12, 300)
+    cold = [DeviceDoc.resolve(_image_of(d).to_oplog(), device=cuda) for d in docs["card"]]
+    ovc = 0
+    for c in range(cycles):
+        C.reset_stats()
+        B.reset_stats()
+        B.apply_cross_doc([(d, [[deltas[i][c]]]) for i, d in enumerate(cold)],
+                          device=cuda, max_docs_per_launch=4)
+        s = B.stats()
+        assert s["launches"] == 2 and s["batched_error"] == 0 and s["scalar_docs"] == 0, s
+        ovc += C.stats()["ovc_join"]
+        for i in range(n):
+            docs["card"][i].apply_batches([[deltas[i][c]]])
+            _equal_docs(cold[i], docs["card"][i], (c, i))
+    assert ovc > 0
+    assert [d.text(W.SERVE_LIVE) for d in cold] == texts
+    assert all(d.audit_columns() == [] for d in cold)

@@ -1,7 +1,9 @@
 """automerge_tpu_torch stands alone: it imports neither JAX nor anything
-of automerge_tpu (its sharded merge, ``parallel/``, and its cross-document
-batching, ``ops/batched.py`` and ``ops/host_batch.py``, included), and
-its entry points refuse to fall back to the CPU."""
+of automerge_tpu (its sharded merge, ``parallel/``, its cross-document
+batching, ``ops/batched.py`` and ``ops/host_batch.py``, and its compressed
+residency and run image, ``ops/compressed.py`` and
+``storage/runsnap.py``, included), and its entry points refuse to fall
+back to the CPU."""
 
 import ast
 import os
@@ -127,6 +129,24 @@ ch = parse_change(changes[1].raw_bytes)[0]
 assert isinstance(ch.ops, LazyOps) and len(ch.ops) == len(changes[1].ops)
 assert assemble.route(log.changes) == assemble.ROUTE_ASSEMBLE
 assert isinstance(log.values, extract.LazyValues)
+from automerge_tpu_torch.ops import compressed
+from automerge_tpu_torch.storage import runsnap
+data = runsnap.encode_snapshot(doc.log, doc.current_heads())
+assert runsnap.verify_container(data)["ok"]
+img = runsnap.parse(data)
+hyd = DeviceDoc.resolve(img.to_oplog(), device="cpu")
+assert hyd.text(base.text_exid) == doc.text(base.text_exid)
+assert hyd.log._comp is not None and hyd.audit_columns() == []
+assert hyd.compress_ratio() > 1.0 and hyd.resident_nbytes() < hyd.dense_nbytes()
+compressed.reset_stats()
+sdocs = [DeviceDoc.resolve(runsnap.parse(runsnap.encode_snapshot(
+    DeviceDoc.merge([sbase], device="cpu").log, [])).to_oplog(), device="cpu")
+    for _ in range(3)]
+for c in range(2):
+    batched.apply_cross_doc([(d, [[sdeltas[i][c]]]) for i, d in enumerate(sdocs)],
+                            device="cpu")
+assert [d.text(W.SERVE_LIVE) for d in sdocs] == stexts
+assert compressed.stats()["ovc_join"] > 0
 maps = open("/proc/self/maps").read()
 assert str(native.library_path()) in maps
 bad = sorted(
