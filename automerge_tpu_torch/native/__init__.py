@@ -1,6 +1,7 @@
 """The port's native host code: the change parser's column check, the
-column decoders, the batch extractor, the log assembler and the sorted id
-join, in C++ with a plain C interface, loaded with ``ctypes``.
+column decoders, the batch extractor, the log assembler, the sorted id
+join and the single-column codecs of the document layer, in C++ with a
+plain C interface, loaded with ``ctypes``.
 
 The sources (``native/*.cpp``, ``native/*.h``) compile with ``g++ -O3
 -march=native`` at first use, one ``g++`` each in parallel, into
@@ -16,6 +17,9 @@ no fallback: when the build fails, ``NativeUnavailable`` is raised.
 Array-level API (numpy in and out):
     join_rows(sorted_keys, queries, missing) -> int32 rows
     change_check(col_data, n_actors) -> op count (raises ValueError)
+    rle_encode_array / delta_encode_array / bool_encode_array /
+    rle_encode_strtab -> column bytes (``codecs.cpp``)
+    rle_decode_array / delta_decode_array / bool_decode_array -> arrays
 """
 
 from __future__ import annotations
@@ -135,6 +139,7 @@ def load() -> ctypes.CDLL:
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     i64 = ctypes.c_int64
+    sz = ctypes.c_size_t
     for name, argtypes in (
         ("am_rle_decode_batch", [u8p, i64p, i64p, i64p, i64, ctypes.c_int, i64p, u8p]),
         ("am_delta_decode_batch", [u8p, i64p, i64p, i64p, i64, i64p, u8p]),
@@ -145,6 +150,13 @@ def load() -> ctypes.CDLL:
         ("am_leb_decode_rows", [u8p, i64, i64p, i64p, i32p, i64, i64p]),
         ("am_join_rows_i64", [i64p, i64, i64p, i64, ctypes.c_int32, i32p]),
         ("am_change_check", [ctypes.POINTER(ctypes.c_char_p), i64p, i64]),
+        ("am_rle_decode_i64", [u8p, sz, ctypes.c_int, i64p, u8p, sz]),
+        ("am_delta_decode_i64", [u8p, sz, i64p, u8p, sz]),
+        ("am_bool_decode", [u8p, sz, u8p, sz]),
+        ("am_rle_encode_i64", [i64p, u8p, sz, ctypes.c_int, u8p, sz]),
+        ("am_delta_encode_i64", [i64p, u8p, sz, u8p, sz, i64p]),
+        ("am_bool_encode", [u8p, sz, u8p, sz]),
+        ("am_rle_encode_strtab", [i64p, i64, i64p, i64p, u8p, u8p, i64]),
         ("am_assemble_log", [
             # per-change metadata (11 i64 arrays), col_ptrs, n_changes
             i64p, i64p, i64p, i64p, i64p, i64p, i64p, i64p, i64p, i64p, i64p,
@@ -218,3 +230,97 @@ def change_check(col_data: dict, n_actors: int) -> int:
     if n < 0:
         raise ValueError(f"change op columns: {_CHECK_ERRORS.get(n, n)}")
     return n
+
+
+def _inbuf(buf: bytes) -> np.ndarray:
+    return np.frombuffer(buf, np.uint8) if len(buf) else np.zeros(1, np.uint8)
+
+
+def rle_decode_array(buf: bytes, signed_vals: bool, capacity: int):
+    """(int64 values, bool validity) of at most ``capacity`` rows of an RLE
+    column; raises ValueError on malformed bytes."""
+    vals = np.empty(capacity, np.int64)
+    mask = np.empty(capacity, np.uint8)
+    b = _inbuf(buf)
+    n = load().am_rle_decode_i64(_u8(b), len(buf), int(signed_vals), _i64(vals),
+                                 _u8(mask), capacity)
+    if n < 0:
+        raise ValueError("malformed RLE column")
+    return vals[:n], mask[:n].astype(bool)
+
+
+def delta_decode_array(buf: bytes, capacity: int):
+    """(int64 values, bool validity) of at most ``capacity`` rows of a delta
+    column; raises ValueError on malformed bytes."""
+    vals = np.empty(capacity, np.int64)
+    mask = np.empty(capacity, np.uint8)
+    b = _inbuf(buf)
+    n = load().am_delta_decode_i64(_u8(b), len(buf), _i64(vals), _u8(mask),
+                                   capacity)
+    if n < 0:
+        raise ValueError("malformed delta column")
+    return vals[:n], mask[:n].astype(bool)
+
+
+def bool_decode_array(buf: bytes, capacity: int) -> np.ndarray:
+    """At most ``capacity`` rows of a boolean column; raises ValueError on
+    malformed bytes."""
+    out = np.empty(capacity, np.uint8)
+    b = _inbuf(buf)
+    n = load().am_bool_decode(_u8(b), len(buf), _u8(out), capacity)
+    if n < 0:
+        raise ValueError("malformed boolean column")
+    return out[:n].astype(bool)
+
+
+def rle_encode_array(values: np.ndarray, mask: np.ndarray, signed_vals: bool) -> bytes:
+    """RLE column bytes of int64 ``values`` (``mask`` 0 = null)."""
+    v = np.ascontiguousarray(values, np.int64)
+    m = np.ascontiguousarray(mask, np.uint8)
+    out = np.empty(12 * len(v) + 32, np.uint8)
+    w = load().am_rle_encode_i64(_i64(v), _u8(m), len(v), int(signed_vals),
+                                 _u8(out), len(out))
+    if w < 0:
+        raise ValueError("rle encode: output overflow")
+    return out[:w].tobytes()
+
+
+def delta_encode_array(values: np.ndarray, mask: np.ndarray) -> bytes:
+    """Delta column bytes of int64 ``values`` (``mask`` 0 = null)."""
+    v = np.ascontiguousarray(values, np.int64)
+    m = np.ascontiguousarray(mask, np.uint8)
+    out = np.empty(12 * len(v) + 32, np.uint8)
+    scratch = np.empty(max(len(v), 1), np.int64)
+    w = load().am_delta_encode_i64(_i64(v), _u8(m), len(v), _u8(out), len(out),
+                                   _i64(scratch))
+    if w < 0:
+        raise ValueError("delta encode: output overflow")
+    return out[:w].tobytes()
+
+
+def bool_encode_array(values: np.ndarray) -> bytes:
+    """Boolean column bytes of ``values`` (nonzero = true)."""
+    v = np.ascontiguousarray(values, np.uint8)
+    out = np.empty(11 * len(v) + 32, np.uint8)
+    w = load().am_bool_encode(_u8(v), len(v), _u8(out), len(out))
+    if w < 0:
+        raise ValueError("bool encode: output overflow")
+    return out[:w].tobytes()
+
+
+def rle_encode_strtab(ids: np.ndarray, table) -> bytes:
+    """String RLE column bytes from ids into ``table`` (-1 = null), equal
+    to ``RleEncoder("str")`` over the looked-up strings."""
+    ids = np.ascontiguousarray(ids, np.int64)
+    raws = [s.encode("utf-8") for s in table]
+    tab_len = np.asarray([len(r) for r in raws] or [0], np.int64)
+    tab_off = np.concatenate([[0], np.cumsum(tab_len)]).astype(np.int64)
+    tab_buf = _inbuf(b"".join(raws))
+    # every row costs at most a header, a length and its bytes
+    total = int(tab_len[ids[ids >= 0]].sum()) if len(raws) else 0
+    out = np.empty(20 * len(ids) + total + 32, np.uint8)
+    w = load().am_rle_encode_strtab(_i64(ids), len(ids), _i64(tab_off),
+                                    _i64(tab_len), _u8(tab_buf), _u8(out), len(out))
+    if w < 0:
+        raise ValueError("strtab encode: output overflow")
+    return out[:w].tobytes()

@@ -202,11 +202,23 @@ class DeviceDoc:
     def merge(cls, changes: Sequence, device=None, phases=None,
               staging: str = "run_native", transport: str = "dict") -> "DeviceDoc":
         """N-way fan-in merge of replicas' changes: change chunks (bytes)
-        or parsed ``StoredChange``s, in any order, duplicates allowed.
-        ``phases`` (a dict) collects the seconds of each phase.
-        ``staging`` (kept for every later re-resolve) and ``transport``
-        (this resolve only) are ``merge_columns``'."""
+        or parsed ``StoredChange``s, in any order, duplicates allowed; or
+        of documents (``AutoDoc`` or ``Document``), whose histories are
+        united (``OpLog.from_documents``, which commits an AutoDoc's open
+        transaction first). ``phases`` (a dict) collects the seconds of
+        each phase. ``staging`` (kept for every later re-resolve) and
+        ``transport`` (this resolve only) are ``merge_columns``'."""
         t0 = time.perf_counter()
+        changes = list(changes)
+        docs = [c for c in changes if hasattr(getattr(c, "doc", c), "history")]
+        if docs:
+            if len(docs) != len(changes):
+                raise TypeError("merge takes documents or changes, not both")
+            log = OpLog.from_documents(docs)
+            if phases is not None:
+                phases["oplog"] = time.perf_counter() - t0
+            return cls.resolve(log, device=device, phases=phases,
+                               staging=staging, transport=transport)
         parsed = _parsed(changes)
         if phases is not None:
             phases["parse"] = time.perf_counter() - t0

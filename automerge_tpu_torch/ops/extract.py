@@ -426,3 +426,159 @@ class LazyValues:
         if code == 9:
             return ScalarValue("timestamp", decode_sleb(chunk, 0)[0])
         return ScalarValue("unknown", (code, chunk))
+
+
+def doc_op_arrays(col_data) -> Dict[str, object]:
+    """Decode document-chunk op columns (storage/document.py OP_*) into
+    numpy arrays with the native codecs (native/codecs.cpp): the fast load
+    path's input.
+
+    Strict about shape regularities the encoder always produces (action
+    column defines the row count and every other column covers or
+    null-pads it); anything irregular raises ExtractError and the caller
+    hands the chunk to the per-op python decoder, which reports precise
+    errors for genuinely malformed files.
+    """
+    from ..storage import document as D
+
+    def col(s) -> bytes:
+        return col_data.get(s, b"")
+
+    def rle_full(buf, signed=False):
+        cap = max(1024, len(buf))
+        while True:
+            v, m = native.rle_decode_array(buf, signed, cap)
+            if len(v) < cap:
+                return v, m
+            cap *= 4
+
+    def delta_full(buf):
+        cap = max(1024, len(buf))
+        while True:
+            v, m = native.delta_decode_array(buf, cap)
+            if len(v) < cap:
+                return v, m
+            cap *= 4
+
+    action, amask = rle_full(col(D.OP_ACTION))
+    n = len(action)
+    if n == 0 or not amask.all():
+        raise ExtractError("doc ops: empty or null action column")
+
+    def pad_to_n(v, m):
+        if len(v) > n:
+            raise ExtractError("doc ops: column longer than action column")
+        if len(v) < n:
+            v2 = np.zeros(n, v.dtype)
+            v2[: len(v)] = v
+            m2 = np.zeros(n, bool)
+            m2[: len(m)] = m
+            return v2, m2
+        return v, m
+
+    id_ctr, id_cm = pad_to_n(*delta_full(col(D.OP_ID_CTR)))
+    id_actor, id_am = pad_to_n(*rle_full(col(D.OP_ID_ACTOR)))
+    if not (id_cm.all() and id_am.all()):
+        raise ExtractError("doc ops: missing id column values")
+    obj_ctr, obj_cm = pad_to_n(*rle_full(col(D.OP_OBJ_CTR)))
+    obj_actor, obj_am = pad_to_n(*rle_full(col(D.OP_OBJ_ACTOR)))
+    if not np.array_equal(obj_cm, obj_am):
+        raise ExtractError("doc ops: half-null object id")
+    key_ctr, key_cm = pad_to_n(*delta_full(col(D.OP_KEY_CTR)))
+    key_actor, key_am = pad_to_n(*rle_full(col(D.OP_KEY_ACTOR)))
+
+    def bools(buf):
+        out = native.bool_decode_array(buf, n)
+        if len(out) < n:
+            out = np.concatenate([out, np.zeros(n - len(out), bool)])
+        return out.astype(np.uint8)
+
+    insert = bools(col(D.OP_INSERT))
+    expand = bools(col(D.OP_EXPAND))
+
+    def strtab(buf):
+        if not len(buf):
+            return np.full(n, -1, np.int32), []
+        return _strtab_decode(
+            buf, np.zeros(1, np.int64), np.asarray([len(buf)], np.int64),
+            np.asarray([0, n], np.int64), 1, n,
+        )
+
+    key_ids, key_table = strtab(col(D.OP_KEY_STR))
+    mark_ids, mark_table = strtab(col(D.OP_MARK_NAME))
+
+    vm, vmm = pad_to_n(*rle_full(col(D.OP_VAL_META)))
+    if not vmm.all():
+        raise ExtractError("doc ops: null value metadata")
+    vcode = (vm & 15).astype(np.int32)
+    vlen = (vm >> 4).astype(np.int64)
+    voff = np.concatenate([[0], np.cumsum(vlen)[:-1]]).astype(np.int64)
+    raw = col(D.OP_VAL_RAW)
+    if n and int(voff[-1] + vlen[-1]) > len(raw):
+        raise ExtractError("doc ops: value raw column overrun")
+
+    succ_num, snm = pad_to_n(*rle_full(col(D.OP_SUCC_GROUP)))
+    succ_num = np.where(snm, succ_num, 0).astype(np.int64)
+    total = int(succ_num.sum())
+    sa, sam = rle_full(col(D.OP_SUCC_ACTOR))
+    sc, scm = delta_full(col(D.OP_SUCC_CTR))
+    if len(sa) < total or len(sc) < total:
+        raise ExtractError("doc ops: truncated succ columns")
+    if not (sam[:total].all() and scm[:total].all()):
+        raise ExtractError("doc ops: null succ id")
+
+    return {
+        "n": n,
+        "action": action.astype(np.int64),
+        "id_ctr": id_ctr.astype(np.int64),
+        "id_actor": id_actor.astype(np.int64),
+        "obj_ctr": np.where(obj_cm, obj_ctr, 0).astype(np.int64),
+        "obj_actor": np.where(obj_am, obj_actor, 0).astype(np.int64),
+        "obj_mask": obj_cm,
+        "key_ctr": key_ctr.astype(np.int64),
+        "key_ctr_mask": key_cm,
+        "key_actor": np.where(key_am, key_actor, 0).astype(np.int64),
+        "key_actor_mask": key_am,
+        "key_ids": key_ids,
+        "key_table": key_table,
+        "mark_ids": mark_ids,
+        "mark_table": mark_table,
+        "insert": insert,
+        "expand": expand,
+        "vcode": vcode,
+        "vlen": vlen,
+        "voff": voff,
+        "vraw": raw,
+        "succ_num": succ_num,
+        "succ_ctr": sc[:total].astype(np.int64),
+        "succ_actor": sa[:total].astype(np.int64),
+    }
+
+
+def validate_doc_arrays(a, n_actors: int) -> None:
+    """Bounds/magnitude guards over doc_op_arrays output: actor indices in
+    [0, n_actors), counters within the 43-bit packed-id range. Raises
+    ExtractError: callers hand the chunk to the per-op python decoder,
+    which reports the canonical error for genuinely malformed files."""
+    lim = 1 << 43
+
+    def ctr_ok(v, mask=None):
+        if mask is not None:
+            v = v[mask]
+        if len(v) and (int(v.min()) < 0 or int(v.max()) >= lim):
+            raise ExtractError("counter outside packed range")
+
+    def actor_ok(v, mask=None):
+        if mask is not None:
+            v = v[mask]
+        if len(v) and (int(v.min()) < 0 or int(v.max()) >= n_actors):
+            raise ExtractError("actor index out of range")
+
+    ctr_ok(a["id_ctr"])
+    ctr_ok(a["succ_ctr"])
+    ctr_ok(a["obj_ctr"], a["obj_mask"].astype(bool))
+    ctr_ok(a["key_ctr"], a["key_ctr_mask"].astype(bool))
+    actor_ok(a["id_actor"])
+    actor_ok(a["succ_actor"])
+    actor_ok(a["obj_actor"], a["obj_mask"].astype(bool))
+    actor_ok(a["key_actor"], a["key_actor_mask"].astype(bool))

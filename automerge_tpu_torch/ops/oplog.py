@@ -199,6 +199,46 @@ class OpLog:
         return A.assemble_log(log, deduped, rank_of)
 
     @classmethod
+    def from_documents(cls, docs: Sequence) -> "OpLog":
+        """Union of several documents' histories (the N-way fan-in input).
+
+        AutoDocs are committed first — the device log is built from change
+        history, so pending transaction ops would otherwise be silently
+        absent (the reference's AutoCommit likewise commits at every
+        save/merge/sync boundary, autocommit.rs:582)."""
+        from ..types import get_text_encoding, using_text_encoding
+
+        changes: List[StoredChange] = []
+        encoding = None
+        for d in docs:
+            commit = getattr(d, "commit", None)
+            if commit is not None:
+                commit()
+            doc = getattr(d, "doc", d)  # AutoDoc or Document
+            if getattr(doc, "open_transactions", None):
+                raise ValueError(
+                    "document has an open manual transaction; commit or "
+                    "roll it back before building a device log"
+                )
+            # None means "follow the process default": resolve it before
+            # comparing, else a default-encoding doc mixed with an
+            # explicit-encoding doc slips past the check
+            d_enc = getattr(doc, "text_encoding", None) or get_text_encoding()
+            if encoding is None:
+                encoding = d_enc
+            elif d_enc != encoding:
+                raise ValueError(
+                    f"documents carry conflicting text encodings "
+                    f"({encoding!r} vs {d_enc!r}); width columns would "
+                    "silently disagree — re-encode one side first"
+                )
+            changes.extend(a.stored for a in doc.history)
+        # width columns follow the documents' (verified-uniform) text
+        # encoding; in the reference the unit is fixed per build
+        with using_text_encoding(encoding):
+            return cls.from_changes(changes)
+
+    @classmethod
     def _start(cls, changes: Iterable[StoredChange]):
         """(an empty log holding the deduped changes and their actors in
         rank order, the deduped changes, actor bytes -> rank)."""

@@ -1,8 +1,9 @@
 """Patches: path-qualified descriptions of document mutations
-(``patch.py``), as ``DeviceDoc.diff`` / ``make_patches`` emit them and
-``apply_patches`` applies them. The host differ is not part of this
-package."""
+(``patch.py``), as ``DeviceDoc.diff`` / ``make_patches`` and the host
+differ over a document's op store (``diff.py``, fed to observers by
+``patch_log.py``) emit them, and ``apply_patches`` applies them."""
 
+from .diff import diff
 from .patch import (
     DeleteMap,
     DeleteSeq,
@@ -18,6 +19,7 @@ from .patch import (
 )
 
 __all__ = [
+    "diff",
     "Patch",
     "PutMap",
     "PutSeq",

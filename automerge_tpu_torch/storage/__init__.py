@@ -1,1 +1,2 @@
-"""Storage layer: chunk framing and the change-chunk columnar codec."""
+"""Storage layer: chunk framing, the change and document chunks'
+columnar codecs, and the ARSN run image (``runsnap.py``)."""

@@ -192,6 +192,230 @@ def encode_change_ops(ops: Sequence[ChangeOp]) -> List[Tuple[int, bytes]]:
     ]
 
 
+def encode_ops_with_tail(prefix_ops: Sequence[ChangeOp], tail) -> List[Tuple[int, bytes]]:
+    """Encode op columns for ``prefix_ops`` (chunk-local ChangeOps) followed
+    by a numpy tail of ops (the native edit session's export) — identical bytes to
+    ``encode_change_ops`` over the materialized op list, at array speed.
+
+    ``tail`` fields (chunk-local actor indices, one row per op):
+      obj_ctr/obj_actor   ints (the session's single object id)
+      elem_ctr (i64), elem_actor (i64, -1 = HEAD/null)
+      insert (u8), action (i64)
+      val_meta (i64: (byte_len << 4) | type_code), val_raw (bytes)
+      pred_ctr/pred_actor (i64, -1 = no pred)
+    """
+    import numpy as np
+
+    from .values import encode_raw_value, value_meta
+
+    np_ = len(prefix_ops)
+    nt = len(tail["action"])
+    n = np_ + nt
+
+    obj_ctr = np.empty(n, np.int64)
+    obj_mask = np.empty(n, np.uint8)
+    obj_actor = np.empty(n, np.int64)
+    key_ctr = np.empty(n, np.int64)
+    key_ctr_mask = np.empty(n, np.uint8)
+    key_actor = np.empty(n, np.int64)
+    key_actor_mask = np.empty(n, np.uint8)
+    insert = np.empty(n, np.uint8)
+    action = np.empty(n, np.int64)
+    vmeta = np.empty(n, np.int64)
+    pred_num = np.empty(n, np.int64)
+
+    key_str = RleEncoder("str")
+    mark_name = RleEncoder("str")
+    expand = MaybeBooleanEncoder()
+    raw = bytearray()
+    pred_ctr_list: List[int] = []
+    pred_actor_list: List[int] = []
+
+    for i, op in enumerate(prefix_ops):
+        if is_root(op.obj):
+            obj_mask[i] = 0
+            obj_ctr[i] = 0
+            obj_actor[i] = 0
+        else:
+            obj_mask[i] = 1
+            obj_ctr[i] = op.obj[0]
+            obj_actor[i] = op.obj[1]
+        if op.key.prop is not None:
+            key_str.append_value(op.key.prop)
+            key_ctr_mask[i] = 0
+            key_ctr[i] = 0
+            key_actor_mask[i] = 0
+            key_actor[i] = 0
+        elif is_head(op.key.elem):
+            key_str.append_null()
+            key_ctr_mask[i] = 1
+            key_ctr[i] = 0
+            key_actor_mask[i] = 0
+            key_actor[i] = 0
+        else:
+            key_str.append_null()
+            key_ctr_mask[i] = 1
+            key_ctr[i] = op.key.elem[0]
+            key_actor_mask[i] = 1
+            key_actor[i] = op.key.elem[1]
+        insert[i] = 1 if op.insert else 0
+        action[i] = op.action
+        vmeta[i] = value_meta(op.value)
+        encode_raw_value(op.value, raw)
+        pred_num[i] = len(op.pred)
+        for p in op.pred:
+            pred_ctr_list.append(p[0])
+            pred_actor_list.append(p[1])
+        expand.append(op.expand)
+        if op.mark_name is None:
+            mark_name.append_null()
+        else:
+            mark_name.append_value(op.mark_name)
+
+    # tail (vectorized)
+    s = slice(np_, n)
+    obj_mask[s] = 1
+    obj_ctr[s] = int(tail["obj_ctr"])
+    obj_actor[s] = int(tail["obj_actor"])
+    t_elem_actor = tail["elem_actor"]
+    key_ctr[s] = tail["elem_ctr"]
+    key_ctr_mask[s] = 1
+    key_actor[s] = np.where(t_elem_actor >= 0, t_elem_actor, 0)
+    key_actor_mask[s] = (t_elem_actor >= 0).astype(np.uint8)
+    insert[s] = tail["insert"]
+    action[s] = tail["action"]
+    vmeta[s] = tail["val_meta"]
+    raw += tail["val_raw"]
+    t_pred_ctr = tail["pred_ctr"]
+    has_pred = t_pred_ctr >= 0
+    pred_num[s] = has_pred.astype(np.int64)
+    key_str.append_null_run(nt)
+    mark_name.append_null_run(nt)
+    expand.append_run(False, nt)
+
+    pred_ctr_all = np.concatenate(
+        [np.asarray(pred_ctr_list, np.int64), t_pred_ctr[has_pred]]
+    )
+    pred_actor_all = np.concatenate(
+        [np.asarray(pred_actor_list, np.int64), tail["pred_actor"][has_pred]]
+    )
+    ones_p = np.ones(len(pred_ctr_all), np.uint8)
+    ones = np.ones(n, np.uint8)
+
+    return [
+        (COL_OBJ_ACTOR, native.rle_encode_array(obj_actor, obj_mask, False)),
+        (COL_OBJ_CTR, native.rle_encode_array(obj_ctr, obj_mask, False)),
+        (COL_KEY_ACTOR, native.rle_encode_array(key_actor, key_actor_mask, False)),
+        (COL_KEY_CTR, native.delta_encode_array(key_ctr, key_ctr_mask)),
+        (COL_KEY_STR, key_str.finish()),
+        (COL_INSERT, native.bool_encode_array(insert)),
+        (COL_ACTION, native.rle_encode_array(action, ones, False)),
+        (COL_VAL_META, native.rle_encode_array(vmeta, ones, False)),
+        (COL_VAL_RAW, bytes(raw)),
+        (COL_PRED_GROUP, native.rle_encode_array(pred_num, ones, False)),
+        (COL_PRED_ACTOR, native.rle_encode_array(pred_actor_all, ones_p, False)),
+        (COL_PRED_CTR, native.delta_encode_array(pred_ctr_all, ones_p)),
+        (COL_EXPAND, expand.finish()),
+        (COL_MARK_NAME, mark_name.finish()),
+    ]
+
+
+def encode_map_tail_cols(tail) -> List[Tuple[int, bytes]]:
+    """Encode op columns for a pure map-put change from a numpy tail (the
+    native map session's export; no prefix rows) — identical bytes to ``encode_change_ops``
+    over the materialized op list, at array speed.
+
+    ``tail`` fields (chunk-local actor indices, one row per op):
+      obj_ctr/obj_actor   ints (the session's object; obj_actor -1 = root)
+      key_idx (i64 into keys), keys (string table)
+      val_meta (i64: (byte_len << 4) | type_code), val_raw (bytes)
+      pred_ctr/pred_actor (i64, -1 = no pred)
+    """
+    import numpy as np
+
+    from ..types import Action
+
+    n = len(tail["key_idx"])
+    ones = np.ones(n, np.uint8)
+    zero_mask = np.zeros(n, np.uint8)
+    zeros = np.zeros(n, np.int64)
+
+    root = int(tail["obj_actor"]) < 0
+    obj_mask = zero_mask if root else ones
+    obj_ctr = zeros if root else np.full(n, int(tail["obj_ctr"]), np.int64)
+    obj_actor = zeros if root else np.full(n, int(tail["obj_actor"]), np.int64)
+
+    action = np.full(n, int(Action.PUT), np.int64)
+    t_pred_ctr = np.asarray(tail["pred_ctr"], np.int64)
+    has_pred = t_pred_ctr >= 0
+    pred_ctr = t_pred_ctr[has_pred]
+    pred_actor = np.asarray(tail["pred_actor"], np.int64)[has_pred]
+    ones_p = np.ones(len(pred_ctr), np.uint8)
+
+    expand = MaybeBooleanEncoder()
+    expand.append_run(False, n)
+    mark_name = RleEncoder("str")
+    mark_name.append_null_run(n)
+
+    return [
+        (COL_OBJ_ACTOR, native.rle_encode_array(obj_actor, obj_mask, False)),
+        (COL_OBJ_CTR, native.rle_encode_array(obj_ctr, obj_mask, False)),
+        (COL_KEY_ACTOR, native.rle_encode_array(zeros, zero_mask, False)),
+        (COL_KEY_CTR, native.delta_encode_array(zeros, zero_mask)),
+        (COL_KEY_STR, native.rle_encode_strtab(
+            np.asarray(tail["key_idx"], np.int64), tail["keys"])),
+        (COL_INSERT, native.bool_encode_array(zero_mask)),
+        (COL_ACTION, native.rle_encode_array(action, ones, False)),
+        (COL_VAL_META, native.rle_encode_array(
+            np.asarray(tail["val_meta"], np.int64), ones, False)),
+        (COL_VAL_RAW, bytes(tail["val_raw"])),
+        (COL_PRED_GROUP, native.rle_encode_array(
+            has_pred.astype(np.int64), ones, False)),
+        (COL_PRED_ACTOR, native.rle_encode_array(pred_actor, ones_p, False)),
+        (COL_PRED_CTR, native.delta_encode_array(pred_ctr, ones_p)),
+        (COL_EXPAND, expand.finish()),
+        (COL_MARK_NAME, mark_name.finish()),
+    ]
+
+
+def encode_change_cols_arrays(a) -> List[Tuple[int, bytes]]:
+    """Full-array change-op column encode — byte-identical to
+    ``encode_change_ops`` over the materialized ChangeOp list (the fast
+    document-load path re-encoding reconstructed changes for hashing).
+
+    ``a`` fields, all length n in op-id order with chunk-local actor
+    indices: obj_ctr/obj_actor/obj_mask, key_str_ids (+key_str_table),
+    key_ctr/key_ctr_mask/key_actor/key_actor_mask, insert (u8), action,
+    val_meta, val_raw (bytes), pred_num, pred_ctr/pred_actor (flat),
+    expand (u8), mark_ids (+mark_table).
+    """
+    import numpy as np
+
+    from ..utils.codecs import _bool_runs_col
+
+    str_col = native.rle_encode_strtab
+
+    n = len(a["action"])
+    ones = np.ones(n, np.uint8)
+    ones_p = np.ones(len(a["pred_ctr"]), np.uint8)
+    return [
+        (COL_OBJ_ACTOR, native.rle_encode_array(a["obj_actor"], a["obj_mask"], False)),
+        (COL_OBJ_CTR, native.rle_encode_array(a["obj_ctr"], a["obj_mask"], False)),
+        (COL_KEY_ACTOR, native.rle_encode_array(a["key_actor"], a["key_actor_mask"], False)),
+        (COL_KEY_CTR, native.delta_encode_array(a["key_ctr"], a["key_ctr_mask"])),
+        (COL_KEY_STR, str_col(a["key_str_ids"], a["key_str_table"])),
+        (COL_INSERT, native.bool_encode_array(a["insert"])),
+        (COL_ACTION, native.rle_encode_array(a["action"], ones, False)),
+        (COL_VAL_META, native.rle_encode_array(a["val_meta"], ones, False)),
+        (COL_VAL_RAW, a["val_raw"]),
+        (COL_PRED_GROUP, native.rle_encode_array(a["pred_num"], ones, False)),
+        (COL_PRED_ACTOR, native.rle_encode_array(a["pred_actor"], ones_p, False)),
+        (COL_PRED_CTR, native.delta_encode_array(a["pred_ctr"], ones_p)),
+        (COL_EXPAND, _bool_runs_col(a["expand"], MaybeBooleanEncoder())),
+        (COL_MARK_NAME, str_col(a["mark_ids"], a["mark_table"])),
+    ]
+
+
 def decode_change_ops(col_data: dict[int, bytes]) -> List[ChangeOp]:
     """Decode op columns from a dict of normalized spec -> bytes."""
 
@@ -301,8 +525,11 @@ class LazyOps:
         return self._mat()[i]
 
 
-def build_change(change: StoredChange) -> StoredChange:
-    """Encode ``change`` into chunk bytes, filling ``hash``/``raw_bytes``."""
+def build_change(change: StoredChange, cols=None) -> StoredChange:
+    """Encode ``change`` into chunk bytes, filling ``hash``/``raw_bytes``.
+
+    ``cols`` supplies precomputed op columns (the array-native encoders
+    above); when given, ``change.ops`` may be a LazyOps placeholder."""
     data = bytearray()
     deps = sorted(change.dependencies)
     change.dependencies = deps
@@ -325,7 +552,8 @@ def build_change(change: StoredChange) -> StoredChange:
     for a in change.other_actors:
         encode_uleb(len(a), data)
         data += a
-    cols = encode_change_ops(change.ops)
+    if cols is None:
+        cols = encode_change_ops(change.ops)
     C.write_columns(cols, data)
     data += change.extra_bytes
     raw = write_chunk(CHUNK_CHANGE, bytes(data))
@@ -402,3 +630,82 @@ def parse_change(buf: bytes, pos: int = 0) -> tuple[StoredChange, int]:
         raw = bytes(buf[pos:end])
     change = parse_change_data(chunk.data, chunk.hash, raw)
     return change, end
+
+
+def _check_actor_bounds(op: ChangeOp, i: int, n_actors: int) -> None:
+    """The per-op form of the actor bounds check ``native.change_check``
+    makes over a change's columns: raises ValueError for an op that names
+    an actor index outside the chunk's table."""
+    refs = []
+    if op.obj != ROOT_STORED:
+        refs.append(op.obj[1])
+    if op.key.elem is not None and op.key.elem != HEAD_STORED:
+        refs.append(op.key.elem[1])
+    refs.extend(p[1] for p in op.pred)
+    for a in refs:
+        if a < 0 or a >= n_actors:
+            raise ValueError(f"op {i} references missing actor index {a}")
+
+
+def chunk_local_ops(rows, author, actor_bytes_of, extra_refs=()):
+    """Translate ops with *global* actor indices into chunk-local ChangeOps.
+
+    Builds the chunk-local actor table — author first, remaining referenced
+    actors sorted by their bytes (reference: change/change_actors.rs) — and
+    rewrites obj / elem / pred references through it. ``rows`` are ChangeOp-
+    shaped records whose OpIds carry global indices; ``actor_bytes_of`` maps
+    a global index to actor bytes; ``extra_refs`` adds global indices
+    referenced outside ``rows`` (the native-session tail) to the table.
+    Returns (chunk_ops, other_global_indices, local_of_global).
+
+    This is the single encoder shared by transaction commit and document
+    save/reconstruct so both always produce byte-identical change chunks for
+    the same logical change.
+    """
+    other: List[int] = []
+    seen = {author}
+    for r in rows:
+        refs = []
+        if r.obj != ROOT_STORED:
+            refs.append(r.obj[1])
+        if r.key.elem is not None and r.key.elem[0] != 0:
+            refs.append(r.key.elem[1])
+        refs.extend(p[1] for p in r.pred)
+        for a in refs:
+            if a not in seen:
+                seen.add(a)
+                other.append(a)
+    for a in extra_refs:
+        a = int(a)
+        if a not in seen:
+            seen.add(a)
+            other.append(a)
+    other.sort(key=actor_bytes_of)
+    local = {author: 0}
+    for j, g in enumerate(other):
+        local[g] = j + 1
+
+    def tr(opid: OpId) -> OpId:
+        return (opid[0], local[opid[1]])
+
+    ops = []
+    for r in rows:
+        if r.key.prop is not None:
+            key = r.key
+        elif r.key.elem[0] == 0:
+            key = Key.seq(HEAD_STORED)
+        else:
+            key = Key.seq(tr(r.key.elem))
+        ops.append(
+            ChangeOp(
+                obj=ROOT_STORED if r.obj == ROOT_STORED else tr(r.obj),
+                key=key,
+                insert=r.insert,
+                action=r.action,
+                value=r.value,
+                pred=[tr(p) for p in r.pred],
+                expand=r.expand,
+                mark_name=r.mark_name,
+            )
+        )
+    return ops, other, local

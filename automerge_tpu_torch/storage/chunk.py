@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import hashlib
 import zlib
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 from ..utils.leb128 import LEBDecodeError, decode_uleb, encode_uleb
 
@@ -26,6 +26,9 @@ MAGIC_BYTES = bytes([0x85, 0x6F, 0x4A, 0x83])
 CHUNK_DOCUMENT = 0
 CHUNK_CHANGE = 1
 CHUNK_COMPRESSED = 2
+
+DEFLATE_MIN_SIZE = 256  # reference: storage/change.rs DEFLATE_MIN_SIZE
+
 
 from ..errors import AutomergeError
 
@@ -46,6 +49,7 @@ class RawChunk(NamedTuple):
     checksum: bytes  # 4 bytes as stored
     hash: bytes  # 32-byte SHA-256 of (type || len || data)
     data: bytes
+    offset: int = -1  # position in the scanned buffer (scan_chunks sets it)
 
     @property
     def checksum_valid(self) -> bool:
@@ -97,3 +101,75 @@ def parse_chunk(buf: bytes, pos: int = 0) -> tuple[RawChunk, int]:
         chunk_type = CHUNK_CHANGE
     h = chunk_hash(chunk_type, data)
     return RawChunk(chunk_type, checksum, h, data), data_end
+
+
+class DroppedRegion(NamedTuple):
+    """A byte range skipped by ``scan_chunks``: [offset, end) plus why."""
+
+    offset: int
+    end: int
+    reason: str
+    checksum: bytes  # stored checksum when the header was readable, else b""
+    hash: bytes  # computed hash when the chunk parsed at all, else b""
+
+
+def scan_chunks(buf: bytes) -> Iterator["RawChunk | DroppedRegion"]:
+    """Fault-tolerant chunk walk: yield every verifiable chunk and a
+    ``DroppedRegion`` for every corrupt span.
+
+    It never raises on malformed input: a chunk
+    that fails to parse or whose checksum does not match is reported as
+    dropped, and the scan resynchronises at the next ``MAGIC_BYTES``
+    occurrence (trusting the corrupt chunk's own length field only when
+    it lands exactly on another magic marker or end-of-input).
+
+    Carving caveat: resynchronisation cannot tell a real chunk boundary
+    from chunk-shaped bytes *inside* a corrupt span — e.g. a save stored
+    as a bytes scalar within the damaged chunk. Chunks recovered after a
+    ``DroppedRegion`` may therefore originate from embedded data; every
+    resync point is visible as that region's ``end``, so callers needing
+    certainty can treat post-resync chunks as suspect.
+    """
+    pos = 0
+    n = len(buf)
+    while pos < n:
+        chunk = None
+        end = None
+        reason = ""
+        try:
+            chunk, end = parse_chunk(buf, pos)
+        except Exception as e:  # any decode error, incl. nested LEB/zlib
+            reason = str(e) or type(e).__name__
+        if chunk is not None and chunk.checksum_valid:
+            yield chunk._replace(offset=pos)
+            pos = end
+            continue
+        # corrupt span: decide where to resume. Only a span that actually
+        # starts with magic bytes has a readable checksum field — anything
+        # else would present arbitrary garbage as a chunk identity.
+        header_readable = (
+            pos + 8 <= n and bytes(buf[pos : pos + 4]) == MAGIC_BYTES
+        )
+        checksum = bytes(buf[pos + 4 : pos + 8]) if header_readable else b""
+        if chunk is not None:
+            reason = "checksum mismatch"
+            if end == n or buf[end : end + 4] == MAGIC_BYTES:
+                resume = end  # length field still framed the chunk correctly
+            else:
+                resume = _next_magic(buf, pos + 1)
+        else:
+            resume = _next_magic(buf, pos + 1)
+        yield DroppedRegion(
+            offset=pos,
+            end=resume,
+            reason=reason,
+            checksum=checksum,
+            hash=chunk.hash if chunk is not None else b"",
+        )
+        pos = resume
+
+
+def _next_magic(buf: bytes, start: int) -> int:
+    nxt = buf.find(MAGIC_BYTES, start)
+    return nxt if nxt != -1 else len(buf)
+

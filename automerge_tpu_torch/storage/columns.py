@@ -57,10 +57,25 @@ class ColumnLayoutError(AutomergeError):
     pass
 
 
-def write_columns(cols: List[Tuple[int, bytes]], out: bytearray) -> None:
-    """Write column metadata + data for ``cols`` (list of (spec, bytes)),
-    uncompressed, as change chunks require. Empty columns are filtered."""
-    encoded = [(s, d) for s, d in cols if d]
+def write_columns(
+    cols: List[Tuple[int, bytes]],
+    out: bytearray,
+    deflate_threshold: int | None = None,
+) -> None:
+    """Write column metadata + data for ``cols`` (list of (spec, bytes)).
+
+    Empty columns are filtered. If ``deflate_threshold`` is set, columns whose
+    data meets the threshold are DEFLATE-compressed and flagged (reference:
+    raw_column.rs compress / document/compression.rs).
+    """
+    present = [(s, d) for s, d in cols if d]
+    encoded = []
+    for s, d in present:
+        if deflate_threshold is not None and len(d) >= deflate_threshold:
+            co = zlib.compressobj(level=6, wbits=-15)
+            encoded.append((s | DEFLATE_BIT, co.compress(d) + co.flush()))
+        else:
+            encoded.append((s, d))
     encode_uleb(len(encoded), out)
     for s, d in encoded:
         encode_uleb(s, out)

@@ -39,6 +39,21 @@ class ActorId:
     def to_hex(self) -> str:
         return self.bytes.hex()
 
+    def with_concurrency_suffix(self, level: int) -> "ActorId":
+        """Derive the actor id used for isolated (scoped) transactions.
+
+        Mirrors the reference's actor suffixing that avoids opid collisions
+        when editing at historical heads (types.rs CONCURRENCY_MAGIC_BYTES).
+        """
+        suffix = bytearray(_CONCURRENCY_MAGIC)
+        n = level
+        while True:
+            suffix.append(n & 0xFF)
+            n >>= 8
+            if not n:
+                break
+        return ActorId(self.bytes + bytes(suffix))
+
     def __eq__(self, other):
         return isinstance(other, ActorId) and self.bytes == other.bytes
 
@@ -53,6 +68,9 @@ class ActorId:
 
     def __repr__(self):
         return f"ActorId({self.bytes.hex()})"
+
+
+_CONCURRENCY_MAGIC = bytes([0x12, 0x36, 0x34, 0x42])
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +135,13 @@ _MAKE_ACTIONS = {
 
 def objtype_for_action(a: int) -> Optional[ObjType]:
     return _MAKE_ACTIONS.get(Action(a)) if a in (0, 2, 4, 6) else None
+
+
+_OBJ_ACTIONS = {v: k for k, v in _MAKE_ACTIONS.items()}
+
+
+def action_for_objtype(t: ObjType) -> Action:
+    return _OBJ_ACTIONS[t]
 
 
 def is_make_action(a: int) -> bool:
@@ -209,10 +234,56 @@ class ScalarValue(NamedTuple):
     tag: str
     value: object = None
 
+    @classmethod
+    def null(cls):
+        return cls("null")
+
+    @classmethod
+    def from_py(cls, v) -> "ScalarValue":
+        """Best-effort conversion from a plain Python value."""
+        if v is None:
+            return cls("null")
+        if isinstance(v, ScalarValue):
+            return v
+        if isinstance(v, bool):
+            return cls("bool", v)
+        if isinstance(v, int):
+            return cls("int", v)
+        if isinstance(v, float):
+            return cls("f64", v)
+        if isinstance(v, str):
+            return cls("str", v)
+        if isinstance(v, (bytes, bytearray)):
+            return cls("bytes", bytes(v))
+        raise TypeError(f"cannot convert {type(v).__name__} to ScalarValue")
+
     def to_py(self):
         """The plain Python value (None for null), as ``hydrate`` and
         patches carry it."""
         return None if self.tag == "null" else self.value
+
+
+# Value metadata type codes (reference: value.rs ValueType)
+VALUE_TYPE_NULL = 0
+VALUE_TYPE_FALSE = 1
+VALUE_TYPE_TRUE = 2
+VALUE_TYPE_ULEB = 3
+VALUE_TYPE_LEB = 4
+VALUE_TYPE_FLOAT = 5
+VALUE_TYPE_STRING = 6
+VALUE_TYPE_BYTES = 7
+VALUE_TYPE_COUNTER = 8
+VALUE_TYPE_TIMESTAMP = 9
+
+
+# ---------------------------------------------------------------------------
+# Change hashes
+
+ChangeHash = bytes  # 32-byte SHA-256 digest
+
+
+def hash_hex(h: ChangeHash) -> str:
+    return h.hex()
 
 
 # ---------------------------------------------------------------------------

@@ -130,6 +130,24 @@ class RleEncoder:
             self._lits = []
             self._state, self._count = _NULLS, 1
 
+    def append_null_run(self, n: int) -> None:
+        """Append ``n`` nulls in O(1) (bulk columns with long null tails)."""
+        if n <= 0:
+            return
+        self.append_null()
+        if self._state in (_INITIAL_NULLS, _NULLS):
+            self._count += n - 1
+
+    def append_value_run(self, value, n: int) -> None:
+        """Append ``n`` equal values in O(1) (bulk run-encoded columns)."""
+        if n <= 0:
+            return
+        self.append_value(value)
+        if n == 1:
+            return
+        self.append_value(value)  # any state + same value twice -> _RUN
+        self._count += n - 2
+
     def append_value(self, value) -> None:
         st = self._state
         if st == _EMPTY:
@@ -273,6 +291,13 @@ class BooleanEncoder:
             self._last = value
             self._count = 1
 
+    def append_run(self, value: bool, n: int) -> None:
+        """Append ``n`` equal values in O(1)."""
+        if n <= 0:
+            return
+        self.append(value)
+        self._count += n - 1
+
     def finish(self) -> bytes:
         if self._count > 0:
             encode_uleb(self._count, self.out)
@@ -313,7 +338,43 @@ class MaybeBooleanEncoder:
             self._all_false = False
         self._inner.append(value)
 
+    def append_run(self, value: bool, n: int) -> None:
+        if value and n > 0:
+            self._all_false = False
+        self._inner.append_run(value, n)
+
     def finish(self) -> bytes:
         if self._all_false:
             return b""
         return self._inner.finish()
+
+
+def _run_bounds(arr):
+    """[(start, end)] of equal-value runs in ``arr``."""
+    import numpy as np
+
+    n = len(arr)
+    if not n:
+        return []
+    b = np.flatnonzero(np.diff(arr)) + 1
+    starts = np.concatenate([[0], b])
+    ends = np.concatenate([b, [n]])
+    return zip(starts.tolist(), ends.tolist())
+
+
+def _str_runs_col(ids, table, enc) -> bytes:
+    """Drive a string RleEncoder from an int-id column (-1 = null) using
+    vectorized run boundaries + O(1) bulk appends."""
+    for s, e in _run_bounds(ids):
+        v = int(ids[s])
+        if v < 0:
+            enc.append_null_run(e - s)
+        else:
+            enc.append_value_run(table[v], e - s)
+    return enc.finish()
+
+
+def _bool_runs_col(vals, enc) -> bytes:
+    for s, e in _run_bounds(vals):
+        enc.append_run(bool(vals[s]), e - s)
+    return enc.finish()

@@ -1,8 +1,10 @@
 """Chip smoke test of automerge_tpu_torch on one NVIDIA GPU: the fan-in
 merge of a text document, the fan-in of a record store, the record store
 served batch by batch, 128 documents' drained deltas resolved in
-packed launches (``ops/batched.py``) and documents opened cold from ARSN
-run images (``storage/runsnap.py``), end to end through hand-written
+packed launches (``ops/batched.py``), documents opened cold from ARSN
+run images (``storage/runsnap.py``) and the document layer catching up on
+both fan-ins (``api.AutoDoc``, ``core/document.py``: the stale read, the
+op-store rebuild, save and load), end to end through hand-written
 CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
 over meshes of four and sixteen shards on the card, and historical views
@@ -157,6 +159,28 @@ Phases, each raising on failure (nothing is caught):
        ``compress_ratio``, each column's run count and the demoted
        columns, and the seconds of encode, parse, ``to_oplog`` and the
        merge (and gc) beside the fan-in's parse and oplog from chunks;
+    k. document catch-up (after (i), before (j)): (a)'s 1,025 change
+       chunks parsed and applied by an ``AutoDoc(device="cuda")`` in one
+       ``apply_changes`` (the bulk path: no op store built); its
+       ``text()`` (the stale read: one merge of the history through the
+       kernels) equal to (a)'s text, expand_runs, succ_vis,
+       scatter_winners, forest, radix_sort and linearize launched,
+       sort_winners not; one local ``splice_text`` and ``commit()`` (the
+       op-store rebuild, its document order from the same kernels, which
+       must launch again), the text then (a)'s with the splice applied;
+       ``save()`` (its document order from the kernels) and
+       ``AutoDoc.load(..., device="cuda")``: the same text and heads, and
+       a second ``save()`` byte for byte the first; then (b)'s chunks into
+       a ``Document`` the same way, whose first read (``keys`` of the
+       records map) materializes the store through sort_winners (not
+       scatter_winners): ``keys`` and ``map_entries`` of the records map
+       equal (b)'s DeviceDoc's and the generator's counts hold on the
+       Document's reads. The logs those merges run on equal (a)'s and
+       (b)'s on every column, so (4)'s kernel checks at "text" and
+       "records" are at their shapes. Printed: each stage's seconds
+       (apply, stale read, rebuild, save, load, and the records' apply,
+       materialize, reads) with the collector's seconds in each (a
+       collection before each window), and each stage's launches;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -813,7 +837,8 @@ def text_fanin(name: str, card: str, device, make_trace=None):
     FANINS[name] = {"doc": doc, "phases": phases, "counts": counts,
                     "e2e": t_end - t0, "bytes": sum(map(len, blobs)),
                     "must": RUN_NATIVE + ("scatter_winners",),
-                    "read": lambda d: d.text(text_obj)}
+                    "read": lambda d: d.text(text_obj), "blobs": blobs,
+                    "text_obj": text_obj, "text": text}
     return doc, phases, text, text_obj, counts, blobs
 
 
@@ -1137,7 +1162,8 @@ def record_paths(card: str, device):
     FANINS["records"] = {"doc": doc, "phases": phases, "counts": fanin_counts,
                          "e2e": t_end - t0,
                          "bytes": len(base) + sum(map(len, reps)),
-                         "must": RUN_NATIVE + ("sort_winners",), "read": sample_reads}
+                         "must": RUN_NATIVE + ("sort_winners",), "read": sample_reads,
+                         "blobs": [base] + reps, "expect": expect}
     expand_counts, fanin_out = check_stagings("record fan-in", doc.log, device)
     packed, packed_counts = check_packed("record fan-in", doc, phases, device)
     if W.record_counts(packed) != expect:
@@ -1916,6 +1942,135 @@ def cold_open(name: str, card: str, device) -> dict:
     print(f"{name} cold open: log, reference keys, READ_FETCH and the read "
           f"({t_read:.3f} s) equal the fan-in's; audit_columns() == []; launches "
           f"the fan-in's {json.dumps(counts)}", flush=True)
+    return counts
+
+
+DOC_ACTOR = bytes([0x77]) * 16  # the catching-up replica's actor
+# a context manager factory, called with a stage's name, around each timed
+# stage of the document catch-up; None: none (scripts/profile_document_torch.py
+# sets it to trace the stages)
+DOC_STAGE_PROBE = None
+DOC_SPLICE = (1234, "<catch-up edit>")  # its local edit: position, text
+
+
+def document_record_counts(doc, entries) -> dict:
+    """The counts of ``workload.RecordExpect`` read through a Document's
+    own API: ``entries`` (``map_entries`` of the records map), each
+    visible record's ``map_entries`` for the votes sum, and ``get_all`` of
+    each scalar field for the keys holding concurrent values."""
+    from automerge_tpu_torch import workload as W
+
+    votes = conflicts = 0
+    fields = [f for f, _ in W.RECORD_FIELDS]
+    for _, (_, _, rec), _ in entries:
+        for name, value, _ in doc.map_entries(rec):
+            if name == W.COUNTER_FIELD:
+                votes += value[1]
+        conflicts += sum(1 for f in fields if len(doc.get_all(rec, f)) > 1)
+    return {"records": len(entries), "votes": votes, "conflict_keys": conflicts}
+
+
+def document_paths(card: str, device) -> dict:
+    """(k) the document layer catching up on (a)'s and (b)'s change chunks
+    on the card (see the module docstring). Returns the launch counts by
+    stage."""
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.core.document import Document
+    from automerge_tpu_torch.ops.oplog import OpLog
+    from automerge_tpu_torch.storage.change import parse_change
+    from automerge_tpu_torch.types import ActorId
+
+    seconds, counts = {}, {}
+
+    def stage(name, fn, path=None):
+        """fn() timed after a collection, the collector's seconds inside
+        it beside; with ``path``, its launches counted as that path's."""
+        gc.collect()
+        if path is not None:
+            kernels.reset_launches()
+        probe = DOC_STAGE_PROBE(name) if DOC_STAGE_PROBE else contextlib.nullcontext()
+        with probe, gc_pauses() as pauses:
+            t0 = time.perf_counter()
+            out = fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+        seconds[f"{name} gc"] = sum(s for _, s in pauses)
+        if path is not None:
+            counts[path] = kernels.launch_counts()
+            print(f"{path} launches {json.dumps(counts[path])}", flush=True)
+        return out
+
+    text_must = (RUN_NATIVE + ("scatter_winners",), ("sort_winners",) + TRANSPORT_ONLY)
+
+    # text: the bulk apply, the stale read, the rebuild, save and load
+    held = FANINS["text"]
+    blobs, text_obj, text = held["blobs"], held["text_obj"], held["text"]
+    doc = AutoDoc(ActorId(DOC_ACTOR), device=device)
+    stage("apply", lambda: doc.apply_changes([parse_change(b)[0] for b in blobs]))
+    new_ops = sum(len(a.stored.ops) for a in doc.doc.history)
+    if not doc.doc._ops_stale or new_ops < doc.doc.BULK_MIN_OPS:
+        raise AssertionError(f"text document: {new_ops} ops did not take the bulk path")
+    check_logs_equal("text document", OpLog.from_changes(
+        [a.stored for a in doc.doc.history]), held["doc"].log)
+    stale = stage("stale read", lambda: doc.text(text_obj), "text document read")
+    if stale != text:
+        raise AssertionError("text document: the stale read differs from (a)'s text")
+    if not doc.doc._ops_stale:
+        raise AssertionError("text document: the stale read built the op store")
+    check_launches("text document read", counts["text document read"], *text_must)
+    pos, ins = DOC_SPLICE
+
+    def edit():
+        doc.splice_text(text_obj, pos, 0, ins)
+        return doc.commit()
+
+    stage("rebuild", edit, "text document rebuild")
+    if counts["text document rebuild"] != counts["text document read"]:
+        raise AssertionError("text document: the rebuild's launches are not the "
+                             "stale read's")
+    want = stale[:pos] + ins + stale[pos:]
+    if doc.text(text_obj) != want:
+        raise AssertionError("text document: the edited text is not the splice's")
+    data = stage("save", doc.save, "text document save")
+    check_launches("text document save", counts["text document save"], *text_must)
+    loaded = stage("load", lambda: AutoDoc.load(data, device=device))
+    if loaded.text(text_obj) != want or loaded.get_heads() != doc.get_heads():
+        raise AssertionError("text document: the loaded document differs")
+    if loaded.save() != data:
+        raise AssertionError("text document: a second save differs from the first")
+    print(f"text document: {new_ops} ops applied in bulk; the stale read is (a)'s "
+          f"{len(stale)} characters; the edited text, the heads and the save "
+          f"({len(data)} bytes) survive a load, saved again byte for byte", flush=True)
+    del doc, loaded, data
+
+    # records: the first read materializes through sort_winners
+    held = FANINS["records"]
+    rdoc = Document(ActorId(DOC_ACTOR), device=device)
+    stage("records apply", lambda: rdoc.apply_changes(
+        [parse_change(b)[0] for b in held["blobs"]]))
+    if not rdoc._ops_stale:
+        raise AssertionError("records document: the apply built the op store")
+    check_logs_equal("records document", OpLog.from_changes(
+        [a.stored for a in rdoc.history]), held["doc"].log)
+    keys = stage("records materialize", lambda: rdoc.keys(W.RECORDS_OBJ),
+                 "records document")
+    check_launches("records document", counts["records document"],
+                   RUN_NATIVE + ("sort_winners",), ("scatter_winners",) + TRANSPORT_ONLY)
+    entries = stage("records reads", lambda: rdoc.map_entries(W.RECORDS_OBJ))
+    fan = held["doc"]
+    if keys != fan.keys(W.RECORDS_OBJ) or entries != fan.map_entries(W.RECORDS_OBJ):
+        raise AssertionError("records document: keys or map_entries differ from (b)'s")
+    got = document_record_counts(rdoc, entries)
+    if got != held["expect"]:
+        raise AssertionError(f"records document read {got}, the generator counted "
+                             f"{held['expect']}")
+    print(f"records document: {json.dumps(got)}, as the generator counted; keys "
+          f"and map_entries of the records map equal (b)'s", flush=True)
+    print("document catch-up seconds " + json.dumps(
+        {k: round(v, 6) for k, v in seconds.items()}) + f" on {card}", flush=True)
     return counts
 
 
@@ -2971,6 +3126,7 @@ def main() -> int:
         card, device, (text_log, text_out, text, text_obj),
         (record_log, record_out, expect))
     del text_out, record_out
+    document_counts = document_paths(card, device)
     cold_counts = cold_open_paths(card, device)
     sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
                                    record_log)
@@ -2981,7 +3137,7 @@ def main() -> int:
     from automerge_tpu_torch.ops.merge import condensed_caps
 
     by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
-               **cold_counts, **sharded_counts}
+               **document_counts, **cold_counts, **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,

@@ -1537,3 +1537,55 @@ def test_cross_doc_drain_of_documents_opened_from_images_on_card(cuda):
     assert ovc > 0
     assert [d.text(W.SERVE_LIVE) for d in cold] == texts
     assert all(d.audit_columns() == [] for d in cold)
+
+
+# the merge kernels a document's stale read, rebuild and save run
+DOC_MERGE_KERNELS = ("expand_runs", "succ_vis", "forest", "radix_sort", "linearize")
+
+
+def _doc_merge_launched(counts):
+    return (all(counts[k] >= 1 for k in DOC_MERGE_KERNELS)
+            and counts["scatter_winners"] + counts["sort_winners"] >= 1)
+
+
+@pytest.mark.parametrize("name", ["text", "records", "history"])
+def test_document_catch_up_on_card_equals_cpu(cuda, name, monkeypatch):
+    """A bulk catch-up into an ``AutoDoc`` on the card: its stale text
+    reads, the op-store rebuild a read then makes, a local edit and the
+    save equal the same catch-up on the CPU, and each of the three runs
+    the merge kernels on the card. The save made on the card loads on the
+    CPU."""
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.core.document import Document
+    from automerge_tpu_torch.types import ActorId
+
+    monkeypatch.setattr(Document, "BULK_MIN_OPS", 1)
+    blobs = next(b for n, b, _ in _view_docs() if n == name)
+    parsed = [parse_change(b)[0] for b in blobs]
+    log = OpLog.from_changes(parsed)
+    texts = [log.export_id(int(k)) for k in log.id_key[log.action == 4]]
+    card, cpu = (AutoDoc(ActorId(bytes([0x77]) * 16), device=dev)
+                 for dev in (cuda, "cpu"))
+    for d in (card, cpu):
+        d.apply_changes(parsed)
+        assert d.doc._ops_stale
+    reset_launches()
+    assert [card.text(t) for t in texts] == [cpu.text(t) for t in texts]
+    assert card.doc._ops_stale
+    if texts:
+        assert _doc_merge_launched(launch_counts())
+    reset_launches()
+    assert card.hydrate() == cpu.hydrate()
+    assert _doc_merge_launched(launch_counts())
+    for d in (card, cpu):
+        d.put("_root", "caught up", True)
+        d.commit(timestamp=1)
+    assert card.get_heads() == cpu.get_heads()
+    reset_launches()
+    data = card.save()
+    assert _doc_merge_launched(launch_counts())
+    assert data == cpu.save()
+    loaded = AutoDoc.load(data, device="cpu")
+    assert loaded.get_heads() == card.get_heads()
+    assert loaded.hydrate() == card.hydrate()
+    assert AutoDoc.load(cpu.save(), device=cuda).save() == data

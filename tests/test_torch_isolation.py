@@ -1,9 +1,10 @@
 """automerge_tpu_torch stands alone: it imports neither JAX nor anything
 of automerge_tpu (its sharded merge, ``parallel/``, its cross-document
-batching, ``ops/batched.py`` and ``ops/host_batch.py``, and its compressed
+batching, ``ops/batched.py`` and ``ops/host_batch.py``, its compressed
 residency and run image, ``ops/compressed.py`` and
-``storage/runsnap.py``, included), and its entry points refuse to fall
-back to the CPU."""
+``storage/runsnap.py``, and its document layer, ``api.py``, ``core/``,
+``storage/document.py`` and ``patches/``, included), and its entry points
+refuse to fall back to the CPU."""
 
 import ast
 import os
@@ -34,6 +35,12 @@ import automerge_tpu_torch
 for m in pkgutil.walk_packages(automerge_tpu_torch.__path__, "automerge_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+from automerge_tpu_torch import api, errors, types
+from automerge_tpu_torch.core import (
+    bulk_load, change_graph, clock, document, marks, op_store, transaction)
+from automerge_tpu_torch.patches import diff, patch_log
+from automerge_tpu_torch.storage import document as storage_document
+from automerge_tpu_torch.utils import indexed_cache
 from automerge_tpu_torch import workload as W
 from automerge_tpu_torch.ops.device_doc import DeviceDoc
 trace = W.load_trace(300)
@@ -147,6 +154,24 @@ for c in range(2):
                             device="cpu")
 assert [d.text(W.SERVE_LIVE) for d in sdocs] == stexts
 assert compressed.stats()["ovc_join"] > 0
+# the document layer: an edit, save and load, and a bulk catch-up
+adoc = api.AutoDoc(types.ActorId(bytes([7]) * 16), device="cpu")
+t = adoc.put_object("_root", "t", types.ObjType.TEXT)
+adoc.splice_text(t, 0, 0, "hello")
+adoc.mark(t, 0, 2, "bold", True)
+adoc.commit()
+saved = adoc.save()
+back = api.AutoDoc.load(saved, device="cpu")
+assert back.text(t) == "hello" and back.save() == saved and back.marks(t)
+document.Document.BULK_MIN_OPS = 100
+catch = api.AutoDoc(types.ActorId(bytes([8]) * 16), device="cpu")
+catch.apply_changes(changes)
+assert catch.doc._ops_stale
+assert catch.text(base.text_exid) == doc.text(base.text_exid)
+catch.splice_text(base.text_exid, 0, 0, "x")
+assert catch.text(base.text_exid) == "x" + doc.text(base.text_exid)
+assert DeviceDoc.merge([catch], device="cpu").text(base.text_exid) == \
+    catch.text(base.text_exid)
 maps = open("/proc/self/maps").read()
 assert str(native.library_path()) in maps
 bad = sorted(
@@ -181,6 +206,45 @@ for name, call in (("from_changes", lambda: OpLog.from_changes([base] + reps)),
         sys.exit(1)
 assert not list(native.BUILD_DIR.iterdir())
 """
+
+
+_NO_GXX_LOAD = r"""
+import sys, tempfile
+from pathlib import Path
+from automerge_tpu_torch import native
+native.BUILD_DIR = Path(tempfile.mkdtemp())
+from automerge_tpu_torch.api import AutoDoc
+data = Path(sys.argv[1]).read_bytes()
+for name, call in (("load", lambda: AutoDoc.load(data, device="cpu")),
+                   ("load_incremental", lambda: AutoDoc(device="cpu").load_incremental(data)),
+                   ("salvage", lambda: AutoDoc.load(data, on_error="salvage", device="cpu"))):
+    try:
+        call()
+    except native.NativeUnavailable as e:
+        print(name, "raised", str(e).splitlines()[0])
+    else:
+        print(name, "returned")
+        sys.exit(1)
+"""
+
+
+def test_no_native_library_no_document_load(tmp_path):
+    """Without g++, loading a saved document raises ``NativeUnavailable``
+    from every load route, the tolerant ones (``on_partial="ignore"``,
+    salvage) too: they skip malformed chunks, never a missing library."""
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.types import ActorId, ObjType
+
+    doc = AutoDoc(ActorId(bytes([1]) * 16), device="cpu")
+    doc.splice_text(doc.put_object("_root", "t", ObjType.TEXT), 0, 0, "saved")
+    saved = tmp_path / "doc.automerge"
+    saved.write_bytes(doc.save())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PATH"] = str(tmp_path)
+    r = subprocess.run([sys.executable, "-c", _NO_GXX_LOAD, str(saved)], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.count("raised g++ not found") == 3, r.stdout
 
 
 def test_no_native_library_no_log(tmp_path):
@@ -252,6 +316,16 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
     with pytest.raises(RuntimeError):
         CrossDocBatcher(mode="1").apply(doc, [sdeltas[0]])
     assert doc.log.n == len(W.serve_base_change(10).ops)  # nothing applied
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.core.document import Document
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Document()
+    with pytest.raises(RuntimeError):
+        AutoDoc()
+    saved = AutoDoc(device="cpu").save()
+    with pytest.raises(RuntimeError):
+        AutoDoc.load(saved)
 
 
 def test_served_document_stays_on_its_device(monkeypatch):
