@@ -16,8 +16,10 @@ wasm/JS surface is built on top of it).
 A document's batched work (the bulk rebuild after a large apply, the stale
 reads before it, the save's document order) runs through the merge kernels
 on ``device``: the card when it is None, and their plain PyTorch versions
-with ``device="cpu"``. Sync (``sync/``) and the durable open
-(``storage/durable.py``) are not part of the port yet.
+with ``device="cpu"``. Two documents sync by exchanging the bytes of
+``generate_sync_message(state).encode()`` (``sync/``); a ``SyncSession``
+adds framing, retries and a resident ``DeviceDoc`` feed. The durable open
+(``storage/durable.py``) is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -327,6 +329,26 @@ class AutoDoc:
 
     def reset_diff_cursor(self) -> None:
         self._diff_cursor = []
+
+    # -- sync ---------------------------------------------------------------
+
+    def generate_sync_message(self, state):
+        """Next sync message for the peer tracked by ``state`` (or None).
+
+        Commits any open transaction first (reference: autocommit.rs sync
+        adapter).
+        """
+        from .sync import generate_sync_message
+
+        self.commit()
+        return generate_sync_message(self.doc, state)
+
+    def receive_sync_message(self, state, message) -> None:
+        from .sync import receive_sync_message
+
+        self.commit()
+        receive_sync_message(self.doc, state, message)
+        self._notify_patches()
 
     # -- save / load -------------------------------------------------------
 

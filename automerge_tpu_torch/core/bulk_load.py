@@ -129,26 +129,20 @@ def _flatten_slow(changes: Sequence) -> Dict[str, object]:
     }
 
 
-def _export_via_device(stored, flat, device):
-    """Per-object element order from one merge of the history on
-    ``device``.
+def _export_via_device(log, elem_index, flat):
+    """Per-object element order from a merge of the history: ``log`` is
+    the history's OpLog, ``elem_index`` the merge's.
 
     The merge's ``elem_index`` IS the document order, for every insert op
     including tombstones, so it feeds the (obj_keys, obj_off, elem_rows)
     contract. flatten_changes and ops/oplog.py share the byte-rank id
-    packing, so rows translate with one searchsorted.
+    packing, so rows translate with one searchsorted; the two are separate
+    extractions of the history (the log Lamport-ordered, ``flat`` in
+    change order), so their op counts and ids are checked to agree.
     """
-    from ..ops.merge import merge_columns
-    from ..ops.oplog import OpLog
-
-    log = OpLog.from_changes(stored)
     if log.n != len(flat["op_id"]):
         raise ValueError("device export: op count mismatch with flat history")
-    res = merge_columns(
-        log.columns(), fetch=("elem_index",), n_objs=log.n_objs,
-        n_props=len(log.props), device=device,
-    )
-    elem_index = np.asarray(res["elem_index"][: log.n])
+    elem_index = np.asarray(elem_index[: log.n])
 
     flat_pos = np.argsort(flat["op_id"], kind="stable")
     sorted_flat = flat["op_id"][flat_pos]
@@ -300,10 +294,14 @@ def rebuild_op_store(doc) -> None:
             gc.enable()
 
 
-def _seq_export(stored, flat, device):
+def _seq_export(doc, flat):
     """(obj_keys, obj_off, elem_rows): every sequence object's element
-    order, from the merge kernels on ``device``."""
-    return _export_via_device(stored, flat, device)
+    order, from the document's merge of its history
+    (``Document._history_merge``, on ``doc.device``; shared with the stale
+    reads and the save at this history length). ``flat`` is
+    ``flatten_changes`` of the history."""
+    memo = doc._history_merge()
+    return _export_via_device(memo["log"], memo["res"]["elem_index"], flat)
 
 
 def _row_visibility(flat):
@@ -346,32 +344,24 @@ def _row_visibility(flat):
 
 
 def stale_read_state(doc):
-    """Shared intermediates for every stale read at one history length,
-    computed once and cached by the Document so N object reads pay one
-    history pass, not N. None when the array path cannot serve (an empty
-    history, or a log whose values are an eager list).
+    """Shared intermediates for every stale read at one history length:
+    the Document's memoised merge of its history
+    (``Document._history_merge``: one OpLog extraction + one merge on
+    ``doc.device``, shared with the rebuild and the save at that length),
+    so N object reads pay one history pass, not N. None when the array
+    path cannot serve (an empty history, or a log whose values are an
+    eager list).
 
-    One OpLog extraction + one merge of the whole history on
-    ``doc.device`` (ops/merge.merge_columns) supplies element order,
-    winners and visibility together: the same kernels the fan-in merge
-    runs."""
-    stored = [a.stored for a in doc.history]
-    if not stored:
+    The merge supplies element order, winners and visibility together:
+    the same kernels the fan-in merge runs."""
+    if not doc.history:
         return None
-    from ..ops.device_doc import DeviceDoc
-    from ..ops.merge import merge_columns
-    from ..ops.oplog import OpLog
-
-    log = OpLog.from_changes(stored)
-    if not hasattr(log.values, "code"):
+    memo = doc._history_merge()
+    if not hasattr(memo["log"].values, "code"):
         # eager-list values (per-op extraction fallback): no value heap to
         # gather from; let the materialized store answer
         return None
-    res = merge_columns(
-        log.columns(), fetch=DeviceDoc.READ_FETCH, n_objs=log.n_objs,
-        n_props=len(log.props), device=doc.device,
-    )
-    return {"log": log, "res": res}
+    return memo
 
 
 def stale_text(doc, obj_exid: str, state):
@@ -439,7 +429,7 @@ def stale_text(doc, obj_exid: str, state):
 def _rebuild_op_store(doc) -> None:
     stored = [a.stored for a in doc.history]
     flat = flatten_changes(stored)
-    obj_keys, obj_off, elem_rows = _seq_export(stored, flat, doc.device)
+    obj_keys, obj_off, elem_rows = _seq_export(doc, flat)
 
     # ---- build Op objects (linear pass over change ops) -------------------
     n = len(flat["op_id"])

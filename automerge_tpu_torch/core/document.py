@@ -128,9 +128,10 @@ class Document:
         # exid-string -> OpId memo: actor interning is append-only, so a
         # resolved id never changes (misses are NOT cached)
         self._exid_cache: Dict[str, OpId] = {}
-        # ((history length, obj), text) memo for stale-store text reads;
-        # history is append-only so the length keys the doc state
-        self._stale_text_memo = None
+        # the history's op log and one merge of it, with the stale text
+        # reads made from them (_history_merge); history is append-only so
+        # its length keys the doc state
+        self._merge_memo = None
         # live manual transactions (registered by Transaction); a device
         # merge or save while one is open would silently miss its ops.
         # Weak refs: an abandoned (unreachable, never committed) transaction
@@ -655,18 +656,43 @@ class Document:
     def _stale_text(self, obj: str):
         from .bulk_load import stale_read_state, stale_text
 
-        memo = self._stale_text_memo
-        if memo is None or memo[0] != len(self.history):
-            # state=False: not computed yet; None: path unavailable
-            memo = self._stale_text_memo = [len(self.history), False, {}]
-        cache = memo[2]
-        if obj in cache:
-            return cache[obj]
-        if memo[1] is False:
-            memo[1] = stale_read_state(self)
-        t = None if memo[1] is None else stale_text(self, obj, memo[1])
-        cache[obj] = t  # None memoized too: the store answers that object
-        return t
+        memo = self._history_merge()
+        cache = memo["text"]
+        if obj not in cache:
+            state = stale_read_state(self)
+            # None memoized too: the store answers that object
+            cache[obj] = None if state is None else stale_text(self, obj, state)
+        return cache[obj]
+
+    def _history_merge(self) -> dict:
+        """The whole history's op log (``OpLog.from_changes``) and one
+        merge of it on ``self.device`` (``merge_columns`` with
+        ``DeviceDoc.READ_FETCH``; None for an empty history), memoised by
+        the history's length: {"n", "log", "res", "text"}. The stale reads
+        (``bulk_load.stale_read_state``), the op-store rebuild's document
+        order (``bulk_load._seq_export``) and the save's
+        (``_doc_op_cols_fast``) at one history length share this one
+        merge; "text" keeps the stale reads' answers by object. A new
+        change lengthens the history and so drops the memo; a load or a
+        fork is a new document with none. A failed merge memoises
+        nothing."""
+        memo = self._merge_memo
+        if memo is not None and memo["n"] == len(self.history):
+            return memo
+        from ..ops.device_doc import DeviceDoc
+        from ..ops.merge import merge_columns
+        from ..ops.oplog import OpLog
+
+        n = len(self.history)
+        log = OpLog.from_changes([a.stored for a in self.history])
+        res = None
+        if log.n:
+            res = merge_columns(
+                log.columns(), fetch=DeviceDoc.READ_FETCH, n_objs=log.n_objs,
+                n_props=len(log.props), device=self.device,
+            )
+        self._merge_memo = {"n": n, "log": log, "res": res, "text": {}}
+        return self._merge_memo
 
     def list_items(self, obj: str, heads=None, clock=None) -> List[Tuple[object, str]]:
         obj_id = self.import_obj(obj)
@@ -995,7 +1021,9 @@ class Document:
         The change history (not the python op store) is the source: the
         native batch decoder flattens it into Lamport-ordered columns
         (ops/oplog.py), one merge of them on the document's device ranks
-        element order (the linearize kernel's ``elem_index``), and the
+        element order (the linearize kernel's ``elem_index``; the merge is
+        ``_history_merge``'s, shared with the stale reads and the rebuild
+        at this history length), and the
         document-order permutation + succ lists are numpy joins:
         byte-identical output to the per-op ``_doc_ops`` +
         ``encode_doc_ops`` path, without materializing a single python
@@ -1006,17 +1034,11 @@ class Document:
         import numpy as np
 
         from ..ops.extract import LazyValues
-        from ..ops.merge import merge_columns
-        from ..ops.oplog import (
-            ACTOR_BITS,
-            ACTOR_MASK,
-            ELEM_HEAD,
-            ELEM_MISSING,
-            OpLog,
-        )
+        from ..ops.oplog import ACTOR_BITS, ACTOR_MASK, ELEM_HEAD, ELEM_MISSING
         from ..storage.document import encode_doc_ops_arrays
 
-        log = OpLog.from_changes([a.stored for a in self.history])
+        memo = self._history_merge()
+        log = memo["log"]
         n = log.n
         if n == 0 or not isinstance(log.values, LazyValues):
             raise FastSaveUnavailable("needs a non-empty lazy value heap")
@@ -1031,10 +1053,7 @@ class Document:
 
         # document-order permutation: objects by packed id (root first),
         # map keys by string, sequence runs by element order, then Lamport
-        elem_index = merge_columns(
-            log.columns(), fetch=("elem_index",), n_objs=log.n_objs,
-            n_props=len(log.props), device=self.device,
-        )["elem_index"][:n].astype(np.int64)
+        elem_index = np.asarray(memo["res"]["elem_index"][:n]).astype(np.int64)
         is_map = log.prop >= 0
         if log.props:
             order_p = sorted(range(len(log.props)), key=lambda i: log.props[i])

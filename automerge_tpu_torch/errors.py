@@ -93,6 +93,7 @@ _LAZY = {
     "ExtractError": ".ops.extract",
     "LEBDecodeError": ".utils.leb128",
     "OpStoreError": ".core.op_store",
+    "SyncError": ".sync.protocol",
 }
 
 
@@ -124,4 +125,5 @@ __all__ = [
     "MissingDeps",
     "MissingHash",
     "OpStoreError",
+    "SyncError",
 ]

@@ -2,9 +2,11 @@
 merge of a text document, the fan-in of a record store, the record store
 served batch by batch, 128 documents' drained deltas resolved in
 packed launches (``ops/batched.py``), documents opened cold from ARSN
-run images (``storage/runsnap.py``) and the document layer catching up on
+run images (``storage/runsnap.py``), the document layer catching up on
 both fan-ins (``api.AutoDoc``, ``core/document.py``: the stale read, the
-op-store rebuild, save and load), end to end through hand-written
+op-store rebuild, save and load) and over sync sessions (``sync/``: a
+replica fed over lossy channels, and 128 served documents fed by their
+sessions through the cross-document batcher), end to end through hand-written
 CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
 over meshes of four and sixteen shards on the card, and historical views
@@ -166,8 +168,9 @@ Phases, each raising on failure (nothing is caught):
        kernels) equal to (a)'s text, expand_runs, succ_vis,
        scatter_winners, forest, radix_sort and linearize launched,
        sort_winners not; one local ``splice_text`` and ``commit()`` (the
-       op-store rebuild, its document order from the same kernels, which
-       must launch again), the text then (a)'s with the splice applied;
+       op-store rebuild, its document order from the stale read's merge,
+       memoised by history length in ``Document._history_merge``: it must
+       launch no kernel), the text then (a)'s with the splice applied;
        ``save()`` (its document order from the kernels) and
        ``AutoDoc.load(..., device="cuda")``: the same text and heads, and
        a second ``save()`` byte for byte the first; then (b)'s chunks into
@@ -181,6 +184,43 @@ Phases, each raising on failure (nothing is caught):
        (apply, stale read, rebuild, save, load, and the records' apply,
        materialize, reads) with the collector's seconds in each (a
        collection before each window), and each stage's launches;
+    l. sync catch-up (after (k)): a peer ``AutoDoc`` on the card holding
+       (a)'s 1,025 chunks and a replica ``AutoDoc`` holding the base chunk
+       (260,001 ops) beside a resident ``DeviceDoc.merge`` of it, synced
+       by ``SyncSession``s (the replica's with ``device_doc=``) over
+       seeded ``FaultyChannel``s that drop, duplicate, reorder, truncate
+       and bit-flip frames (SYNC_FAULTS), the replica draining each
+       tick's deliveries with ``receive_many``, the launch counts set to
+       0 just before and read just after: converged within SYNC_TICKS
+       ticks, the feed's launches those of the served path
+       (expand_runs, succ_vis, scatter_winners, forest, radix_sort,
+       linearize; not sort_winners or the packed transport's), the
+       resident document equal on every READ_FETCH array to a fresh
+       ``DeviceDoc.merge`` of the replica's history and its text (a)'s,
+       the sessions having seen a fault; the replica's stale ``text()``
+       (one merge) (a)'s text, then one local edit whose op-store rebuild
+       launches no kernel (the stale read's merge, memoised); then the
+       same catch-up over reliable ``Channel``s, timed alone. Printed:
+       seconds to converge, ticks, frames and bytes each way, each
+       session's counts (retries, duplicates, malformed frames, resyncs,
+       the device feeds by kind) and the launches;
+    m. sync cross-doc (after (l)): (i)'s 128 serve-shaped documents as
+       server ``AutoDoc``s on the card, each with a resident
+       ``DeviceDoc`` fed by its ``SyncSession``, and 128 client
+       ``AutoDoc``s; each of 16 cycles every client applies its cycle's
+       delta chunk, then one thread a document (holding its lock) runs
+       the conversation, the server draining with ``receive_many(frames,
+       now, device_feed=lambda b: batcher.apply(dev, b))`` into one
+       ``CrossDocBatcher(mode="1", max_docs=32)`` on the card (as (i)(c)),
+       the launch counts and ``batched.STATS`` set to 0 just before each
+       cycle and read just after: the launches those of the cycle's packed
+       merges and whales, every generation's documents summing to 128, no
+       packed path error, a whale in cycle 8; after every cycle each
+       server's resident document equal on READ_FETCH to a
+       ``DeviceDoc.merge`` of its history, its heads its client's; each
+       session fed its document once a cycle, by ``device_feed``.
+       Printed: frames and bytes each way, a cycle's wall (p50, max), the
+       packed launches a cycle, whales, generations and the launches;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -1970,6 +2010,16 @@ def document_record_counts(doc, entries) -> dict:
     return {"records": len(entries), "votes": votes, "conflict_keys": conflicts}
 
 
+def check_memo_rebuild(name: str, counts: dict) -> None:
+    """The op-store rebuild right after a stale read at the same history
+    length takes its document order from the read's merge
+    (``Document._history_merge``): it launches no kernel."""
+    launched = {k: v for k, v in counts.items() if v}
+    if launched:
+        raise AssertionError(f"{name}: the rebuild launched {launched}; it must "
+                             "reuse the stale read's merge")
+
+
 def document_paths(card: str, device) -> dict:
     """(k) the document layer catching up on (a)'s and (b)'s change chunks
     on the card (see the module docstring). Returns the launch counts by
@@ -2028,12 +2078,11 @@ def document_paths(card: str, device) -> dict:
         return doc.commit()
 
     stage("rebuild", edit, "text document rebuild")
-    if counts["text document rebuild"] != counts["text document read"]:
-        raise AssertionError("text document: the rebuild's launches are not the "
-                             "stale read's")
+    check_memo_rebuild("text document", counts["text document rebuild"])
     want = stale[:pos] + ins + stale[pos:]
     if doc.text(text_obj) != want:
-        raise AssertionError("text document: the edited text is not the splice's")
+        raise AssertionError("text document: the rebuilt text, edited, is not the "
+                             "stale read's with the splice")
     data = stage("save", doc.save, "text document save")
     check_launches("text document save", counts["text document save"], *text_must)
     loaded = stage("load", lambda: AutoDoc.load(data, device=device))
@@ -2071,6 +2120,333 @@ def document_paths(card: str, device) -> dict:
           f"and map_entries of the records map equal (b)'s", flush=True)
     print("document catch-up seconds " + json.dumps(
         {k: round(v, 6) for k, v in seconds.items()}) + f" on {card}", flush=True)
+    return counts
+
+
+# (l) sync catch-up: the replica's faults and tick budget
+SYNC_SEED = 5  # a schedule with drops, duplicates, corruption, retries and a resync
+SYNC_FAULTS = dict(drop=0.2, dup=0.2, reorder=0.2, truncate=0.05, bitflip=0.05)
+SYNC_TICKS = 400
+SYNC_ACTORS = (bytes([0x41]) * 16, bytes([0x42]) * 16)  # the peer, the replica
+
+
+def drive_sessions(sa, sb, ab, ba, settled, max_ticks: int) -> dict:
+    """Tick two sessions as ``sync.SyncDriver`` does, the replica ``sb``
+    draining each tick's deliveries with ``receive_many``, until
+    ``settled()``. Returns the ticks and the frames and bytes each side
+    put on the wire."""
+    wire = {"ab": [0, 0], "ba": [0, 0]}
+    for tick in range(1, max_ticks + 1):
+        for sess, ch, way in ((sa, ab, "ab"), (sb, ba, "ba")):
+            out = sess.poll(tick)
+            if out is not None:
+                ch.send(out, tick)
+                wire[way][0] += 1
+                wire[way][1] += len(out)
+        sb.receive_many(ab.drain(tick), tick)
+        for data in ba.drain(tick):
+            sa.receive(data, tick)
+        if settled():
+            return {"ticks": tick, "frames_ab": wire["ab"][0], "bytes_ab": wire["ab"][1],
+                    "frames_ba": wire["ba"][0], "bytes_ba": wire["ba"][1]}
+    raise AssertionError(f"sync: no convergence in {max_ticks} ticks")
+
+
+def session_counts(sess) -> dict:
+    return {k: sess.stats[k] for k in ("sent", "received", "retries", "dups",
+                                       "malformed", "resyncs", "resets", "rejected",
+                                       "coalesced_batches", "device_feeds")}
+
+
+def sync_catch_up(device, chunks, faulty: bool) -> tuple:
+    """One replica's catch-up over sessions (``faulty``: seeded lossy
+    channels, else reliable ones): the peer holds every chunk, the replica
+    the base chunk and a resident DeviceDoc of it, fed by its session.
+    Returns (the replica, its resident document, the drive's seconds,
+    launches and wire counts, the two sessions)."""
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.sync import Channel, FaultyChannel, SyncSession
+    from automerge_tpu_torch.types import ActorId
+
+    peer = AutoDoc(ActorId(SYNC_ACTORS[0]), device=device)
+    peer.apply_changes(chunks)
+    replica = AutoDoc(ActorId(SYNC_ACTORS[1]), device=device)
+    replica.apply_changes(chunks[:1])
+    resident = DeviceDoc.merge([chunks[0].raw_bytes], device=device)
+    sa = SyncSession(peer, epoch=1)
+    sb = SyncSession(replica, epoch=2, device_doc=resident)
+    if faulty:
+        ab = FaultyChannel(seed=SYNC_SEED, **SYNC_FAULTS)
+        ba = FaultyChannel(seed=SYNC_SEED + 1, **SYNC_FAULTS)
+    else:
+        ab, ba = Channel(), Channel()
+
+    def settled():
+        return (replica.get_heads() == peer.get_heads() and sa.converged()
+                and sb.converged() and not ab.pending and not ba.pending)
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    with gc_pauses() as pauses:
+        t0 = time.perf_counter()
+        wire = drive_sessions(sa, sb, ab, ba, settled, SYNC_TICKS)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    wire["gc"] = sum(s for _, s in pauses)
+    return replica, resident, seconds, counts, wire, (sa, sb)
+
+
+def sync_catch_up_paths(card: str, device) -> dict:
+    """(l) the text fan-in caught up over sync sessions (see the module
+    docstring). Returns the launch counts by path."""
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.storage.change import parse_change
+
+    held = FANINS["text"]
+    blobs, text_obj, text = held["blobs"], held["text_obj"], held["text"]
+    chunks = [parse_change(b)[0] for b in blobs]
+    base_ops = len(chunks[0].ops)
+    counts = {}
+    served_must = (RUN_NATIVE + ("scatter_winners",), ("sort_winners",) + TRANSPORT_ONLY)
+    for faulty, path in ((True, "sync catch-up"), (False, "sync catch-up reliable")):
+        replica, resident, seconds, launched, wire, (sa, sb) = sync_catch_up(
+            device, chunks, faulty)
+        counts[path] = launched
+        check_launches(path, launched, *served_must)
+        fed = sb.stats["device_feeds"]
+        if not any(fed.values()):
+            raise AssertionError(f"{path}: the session never fed the resident document")
+        if replica.doc._ops_stale is not True:
+            raise AssertionError(f"{path}: the catch-up did not take the bulk path")
+        fresh = DeviceDoc.merge([replica], device=device)
+        check_serve_equal(path, [resident], [fresh], -1)
+        if resident.text(text_obj) != text:
+            raise AssertionError(f"{path}: the resident document's text is not (a)'s")
+        print(f"{path} ({'seeded faults ' + json.dumps(SYNC_FAULTS) if faulty else 'reliable channels'}): "
+              f"{len(chunks) - 1} chunks onto a replica holding the base ({base_ops} ops) in "
+              f"{seconds:.6f} s, {wire['ticks']} ticks; frames and bytes peer to replica "
+              f"{wire['frames_ab']}, {wire['bytes_ab']}, replica to peer {wire['frames_ba']}, "
+              f"{wire['bytes_ba']}; gc {wire['gc']:.6f} s on {card}", flush=True)
+        print(f"{path} sessions: peer {json.dumps(session_counts(sa))}; replica "
+              f"{json.dumps(session_counts(sb))}", flush=True)
+        print(f"{path} launches {json.dumps({k: v for k, v in launched.items() if v})}",
+              flush=True)
+        print(f"{path}: the resident document equals a fresh DeviceDoc.merge of the "
+              f"replica's history ({resident.log.n} rows) on READ_FETCH; its text is "
+              f"(a)'s", flush=True)
+        if not faulty:
+            continue
+        s = sb.stats
+        if s["retries"] + sa.stats["retries"] + s["dups"] + s["malformed"] == 0:
+            raise AssertionError(f"{path}: the channels injected no fault the sessions saw")
+        # the stale read, then one edit whose rebuild reuses its merge
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        stale = replica.text(text_obj)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        counts[f"{path} read"] = kernels.launch_counts()
+        if stale != text or not replica.doc._ops_stale:
+            raise AssertionError(f"{path}: the stale read is not (a)'s text, or it "
+                                 "built the op store")
+        check_launches(f"{path} read", counts[f"{path} read"],
+                       RUN_NATIVE + ("scatter_winners",), ("sort_winners",) + TRANSPORT_ONLY)
+        pos, ins = DOC_SPLICE
+        gc.collect()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        replica.splice_text(text_obj, pos, 0, ins)
+        replica.commit()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_edit = time.perf_counter() - t0
+        counts[f"{path} rebuild"] = kernels.launch_counts()
+        check_memo_rebuild(path, counts[f"{path} rebuild"])
+        if replica.text(text_obj) != stale[:pos] + ins + stale[pos:]:
+            raise AssertionError(f"{path}: the rebuilt text, edited, is not the stale "
+                                 "read's with the splice")
+        read_launched = {k: v for k, v in counts[f"{path} read"].items() if v}
+        print(f"{path}: the replica's stale read is (a)'s {len(stale)} characters "
+              f"({t_read:.6f} s, launches {json.dumps(read_launched)}); its "
+              f"first edit rebuilt the op store from that read's merge in "
+              f"{t_edit:.6f} s with no launch", flush=True)
+    return counts
+
+
+# (m) the cross-document drain fed by sync sessions
+SYNC_SERVE_ACTOR = 0x30  # servers' actors 0x30.., clients' 0xb0..
+
+
+def converse(client, server, now, feed, wire) -> None:
+    """Rounds of client poll, server ``receive_many`` (into ``feed``),
+    server poll and client receive until both have converged."""
+    for k in range(20):
+        frame = client.poll(now + k)
+        frames = [frame] if frame is not None else []
+        for f in frames:
+            wire[0] += 1
+            wire[1] += len(f)
+        server.receive_many(frames, now + k, device_feed=feed)
+        reply = server.poll(now + k)
+        if reply is not None:
+            wire[2] += 1
+            wire[3] += len(reply)
+            client.receive(reply, now + k)
+        if client.converged() and server.converged():
+            return
+    raise AssertionError("sync cross-doc: a document's sessions did not converge")
+
+
+def sync_cross_doc_paths(card: str, device) -> dict:
+    """(m) SERVE_DOCS server documents fed by their sync sessions through
+    one ``CrossDocBatcher`` (see the module docstring). Returns the launch
+    counts by path."""
+    import threading
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.storage.change import parse_change
+    from automerge_tpu_torch.sync import SyncSession
+    from automerge_tpu_torch.types import ActorId
+
+    doc0, cycle0, n0 = SERVE_BURST
+    t_phase = time.perf_counter()
+    base, deltas, texts = W.serve_workload(
+        SERVE_DOCS, SERVE_CYCLES, SERVE_OPS, SERVE_BALLAST, burst={(doc0, cycle0): n0})
+    base_ch = parse_change(base)[0]
+    servers, clients = [], []
+    for i in range(SERVE_DOCS):
+        for out, a in ((servers, SYNC_SERVE_ACTOR), (clients, SYNC_SERVE_ACTOR + 0x80)):
+            d = AutoDoc(ActorId(bytes([a, i]) * 8), device=device)
+            d.apply_changes([base_ch])
+            out.append(d)
+    devs = [DeviceDoc.merge([base], device=device) for _ in range(SERVE_DOCS)]
+    ss = [SyncSession(s, epoch=1, device_doc=d) for s, d in zip(servers, devs)]
+    cs = [SyncSession(c, epoch=2) for c in clients]
+    wire = [[0, 0, 0, 0] for _ in range(SERVE_DOCS)]
+    for i in range(SERVE_DOCS):
+        converse(cs[i], ss[i], 0, None, wire[i])
+    if any(s.stats["device_feeds"][k] for s in ss for k in s.stats["device_feeds"]):
+        raise AssertionError("sync cross-doc: settling the sessions fed a document")
+    generations = []
+
+    class NotingBatcher(B.CrossDocBatcher):
+        def _flush(self, gen):
+            generations.append(len(gen.subs) + len(gen.stages))
+            super()._flush(gen)
+
+    batcher = NotingBatcher(mode="1", window_ms=1000.0, max_docs=SERVE_PER_LAUNCH,
+                            fallback_ratio=SERVE_FALLBACK, device=device)
+    locks = [threading.Lock() for _ in range(SERVE_DOCS)]
+    seconds, launches_a_cycle, whales, gens_a_cycle = [], [], [], []
+    totals, gcs = {}, 0.0
+    wire_before = [list(w) for w in wire]
+    t_check = 0.0
+    for c in range(SERVE_CYCLES):
+        for i in range(SERVE_DOCS):
+            clients[i].apply_changes([parse_change(deltas[i][c])[0]])
+        errs = []
+        now = 100 * (c + 1)
+
+        def worker(i):
+            try:
+                with locks[i]:
+                    converse(cs[i], ss[i], now,
+                             lambda b, i=i: batcher.apply(devs[i], b), wire[i])
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        gc.collect()
+        kernels.reset_launches()
+        B.reset_stats()
+        n_gen = len(generations)
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(SERVE_DOCS)]
+        with gc_pauses() as pauses:
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        gcs += sum(s for _, s in pauses)
+        if errs:
+            raise errs[0]
+        counts, st = kernels.launch_counts(), B.stats()
+        _add_counts(totals, counts)
+        check_merges(f"sync cross-doc cycle {c}", counts,
+                     st["launches"] + st["batched_fallback"])
+        if st["batched_error"] or st["scalar_docs"] or st["demoted_docs"] \
+                or st["extract_error"] or st["vectorized_docs"] != SERVE_DOCS:
+            raise AssertionError(f"sync cross-doc cycle {c}: {json.dumps(st)}: an error, "
+                                 "or an admitted document on the scalar path")
+        gens = generations[n_gen:]
+        if sum(gens) != SERVE_DOCS or st["launches"] < SERVE_DOCS // SERVE_PER_LAUNCH:
+            raise AssertionError(f"sync cross-doc cycle {c}: generations {gens}, "
+                                 f"{st['launches']} packed launches")
+        launches_a_cycle.append(st["launches"])
+        whales.append(st["batched_fallback"])
+        gens_a_cycle.append(gens)
+        # after every cycle: each server document a merge of its history,
+        # its heads its client's
+        t0 = time.perf_counter()
+        fresh = [DeviceDoc.merge([s], device=device) for s in servers]
+        check_serve_equal("sync cross-doc", devs, fresh, c)
+        for i in range(SERVE_DOCS):
+            if servers[i].get_heads() != clients[i].get_heads():
+                raise AssertionError(f"sync cross-doc cycle {c} document {i}: the "
+                                     "server's heads are not its client's")
+        del fresh
+        t_check += time.perf_counter() - t0
+    fed = [s.stats["device_feeds"] for s in ss]
+    if any(f != {"apply_changes": 0, "apply_batches": 0, "device_feed": SERVE_CYCLES}
+           for f in fed):
+        raise AssertionError(f"sync cross-doc: feeds by kind {fed[:4]}...: not one "
+                             "device_feed a cycle a document")
+    if whales[cycle0] < 1:
+        raise AssertionError(f"sync cross-doc: whales by cycle {whales}: none in cycle "
+                             f"{cycle0}")
+    for i, d in enumerate(devs):
+        if d.text(W.SERVE_LIVE) != texts[i] or d.text(W.SERVE_ARCHIVE) != "x" * SERVE_BALLAST:
+            raise AssertionError(f"sync cross-doc document {i}: live or archive differs "
+                                 "from the generator's")
+    w = [sum(x[k] - y[k] for x, y in zip(wire, wire_before)) for k in range(4)]
+    print(f"sync cross-doc: {SERVE_DOCS} server AutoDocs with resident documents on "
+          f"{card}, their clients applying one delta chunk a cycle for {SERVE_CYCLES} "
+          f"cycles; frames and bytes client to server {w[0]}, {w[1]}, server to client "
+          f"{w[2]}, {w[3]}", flush=True)
+    print(f"sync cross-doc: a cycle ({SERVE_DOCS} threads, receive_many into the batcher) p50 "
+          f"{statistics.median(seconds):.6f} s max {max(seconds):.6f} s, drain "
+          f"{sum(seconds):.6f} s, gc {gcs:.6f} s; packed launches a cycle "
+          f"{launches_a_cycle}, whales by cycle {whales}, generations {gens_a_cycle[0]} "
+          f"(cycle 0) on {card}", flush=True)
+    print(f"sync cross-doc: after every cycle each server's resident document equals "
+          f"a DeviceDoc.merge of its history on READ_FETCH ({t_check:.3f} s of merges), "
+          f"its heads its client's; live and archive as the generator's", flush=True)
+    print(f"sync cross-doc launches {json.dumps({k: v for k, v in totals.items() if v})}",
+          flush=True)
+    print(f"sync cross-doc: the phase took {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+    return {"sync cross-doc": totals}
+
+
+def sync_paths(card: str, device) -> dict:
+    """(l) and (m). Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    counts = sync_catch_up_paths(card, device)
+    print(f"sync catch-up: the phase took {time.perf_counter() - t0:.3f} s", flush=True)
+    counts.update(sync_cross_doc_paths(card, device))
     return counts
 
 
@@ -3127,6 +3503,7 @@ def main() -> int:
         (record_log, record_out, expect))
     del text_out, record_out
     document_counts = document_paths(card, device)
+    sync_counts = sync_paths(card, device)
     cold_counts = cold_open_paths(card, device)
     sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
                                    record_log)
@@ -3137,7 +3514,7 @@ def main() -> int:
     from automerge_tpu_torch.ops.merge import condensed_caps
 
     by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
-               **document_counts, **cold_counts, **sharded_counts}
+               **document_counts, **sync_counts, **cold_counts, **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,

@@ -117,7 +117,10 @@ def test_seq_export_equals_both_reference_engines(fanins, monkeypatch):
     for blobs, _ in fanins.values():
         pst = [pparse(b)[0] for b in blobs]
         rst = [rparse(b)[0] for b in blobs]
-        got = PB._seq_export(pst, PB.flatten_changes(pst), "cpu")
+        doc = PDocument(PT.ActorId(bytes([CATCH_UP]) * 16), device="cpu")
+        doc.apply_changes(pst)
+        assert [a.stored.hash for a in doc.history] == [c.hash for c in pst]
+        got = PB._seq_export(doc, PB.flatten_changes(pst))
         rflat = RB.flatten_changes(rst)
         device = RB._export_via_device(rst, rflat)
         host = rnative.seq_apply_export(
@@ -291,3 +294,66 @@ def test_malformed_bulk_change_replays_per_op_and_fails_on_every_read(monkeypatc
             d.keys()
         assert d.doc._ops_stale
     assert refused and len(replays) == 2
+
+
+def _counting(monkeypatch):
+    calls = []
+    real = M.merge_columns
+    monkeypatch.setattr(M, "merge_columns",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("edit", [False, True], ids=["read_save", "read_edit_save"])
+def test_memo_one_merge_a_history_length(fanins, edit, monkeypatch):
+    """A catch-up's stale read, rebuild and save at one history length
+    share one merge (``Document._history_merge``): read -> save merges
+    once; read -> edit -> save merges once for the read and the rebuild,
+    once more for the save at the edited length. The results equal the
+    reference's."""
+    blobs, text = fanins["under the gate"]
+    ref, port = catch_up(blobs, None, monkeypatch)
+    calls = _counting(monkeypatch)
+    assert port.text(text) == ref.text(text) and calls == [1]
+    assert port.text(text) == ref.text(text) and calls == [1]  # the memo
+    if edit:
+        for d in (ref, port):
+            d.splice_text(text, 5, 2, "<edit>")
+            d.commit(timestamp=3)
+        assert not port.doc._ops_stale and calls == [1]  # the rebuild: none
+        assert dump(port.doc) == dump(ref.doc)
+    else:
+        assert port.doc._ops_stale
+    assert port.save() == ref.save()
+    assert len(calls) == (2 if edit else 1)
+    assert port.save() == ref.save() and len(calls) == (2 if edit else 1)
+
+
+def test_memo_dropped_by_a_new_change_a_load_and_a_fork(fanins, monkeypatch):
+    blobs, text = fanins["under the gate"]
+    ref, port = catch_up(blobs[:-1], None, monkeypatch)
+    calls = _counting(monkeypatch)
+    port.text(text)
+    memo = port.doc._merge_memo
+    assert calls == [1] and memo["n"] == len(port.doc.history)
+    # a new change: the history grows, the next read merges again
+    for d, parse in ((ref, rparse), (port, pparse)):
+        d.apply_changes([parse(blobs[-1])[0]])
+    assert port.text(text) == ref.text(text) and len(calls) == 2
+    assert port.doc._merge_memo is not memo
+    # a fork and a load are new documents: their memo starts empty
+    fork = port.fork(PT.ActorId(bytes([9]) * 16))
+    assert fork.doc._merge_memo is None and fork.doc._ops_stale
+    assert fork.text(text) == ref.text(text) and len(calls) == 3
+    loaded = PA.AutoDoc.load(port.save(), device="cpu")
+    assert loaded.doc._merge_memo is not port.doc._merge_memo
+    assert loaded.text(text) == ref.text(text)
+    # a failed merge memoises nothing
+    n = len(calls)
+    monkeypatch.setattr(M, "merge_columns", _broken)
+    other = port.fork(PT.ActorId(bytes([10]) * 16))
+    with pytest.raises(KernelFault):
+        other.text(text)
+    assert other.doc._merge_memo is None
+    monkeypatch.undo()
+    assert other.text(text) == ref.text(text) and len(calls) == n

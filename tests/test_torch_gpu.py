@@ -1552,9 +1552,11 @@ def _doc_merge_launched(counts):
 def test_document_catch_up_on_card_equals_cpu(cuda, name, monkeypatch):
     """A bulk catch-up into an ``AutoDoc`` on the card: its stale text
     reads, the op-store rebuild a read then makes, a local edit and the
-    save equal the same catch-up on the CPU, and each of the three runs
-    the merge kernels on the card. The save made on the card loads on the
-    CPU."""
+    save equal the same catch-up on the CPU. The stale reads run the merge
+    kernels on the card; the rebuild at the same history length reuses
+    their merge (``Document._history_merge``) and launches nothing, or
+    runs the kernels itself where no text was read; the save after the
+    edit runs them again. The save made on the card loads on the CPU."""
     from automerge_tpu_torch.api import AutoDoc
     from automerge_tpu_torch.core.document import Document
     from automerge_tpu_torch.types import ActorId
@@ -1576,7 +1578,10 @@ def test_document_catch_up_on_card_equals_cpu(cuda, name, monkeypatch):
         assert _doc_merge_launched(launch_counts())
     reset_launches()
     assert card.hydrate() == cpu.hydrate()
-    assert _doc_merge_launched(launch_counts())
+    if texts:
+        assert not any(launch_counts().values())
+    else:
+        assert _doc_merge_launched(launch_counts())
     for d in (card, cpu):
         d.put("_root", "caught up", True)
         d.commit(timestamp=1)
@@ -1589,3 +1594,143 @@ def test_document_catch_up_on_card_equals_cpu(cuda, name, monkeypatch):
     assert loaded.get_heads() == card.get_heads()
     assert loaded.hydrate() == card.hydrate()
     assert AutoDoc.load(cpu.save(), device=cuda).save() == data
+
+
+def _sync_catch_up(device, base, deltas, seed):
+    """A replica holding ``base`` catches up with a peer holding ``base``
+    and ``deltas`` through sessions over seeded lossy channels, its
+    resident ``DeviceDoc`` on ``device`` fed by ``receive_many``. Returns
+    (the replica, its resident document, the peer)."""
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.sync import FaultyChannel, SyncSession
+    from automerge_tpu_torch.types import ActorId
+
+    a = AutoDoc(ActorId(bytes([0x61]) * 16), device=device)
+    b = AutoDoc(ActorId(bytes([0x62]) * 16), device=device)
+    a.apply_changes([parse_change(x)[0] for x in [base] + deltas])
+    b.apply_changes([parse_change(base)[0]])
+    dev = DeviceDoc.merge([base], device=device)
+    sa, sb = SyncSession(a, epoch=1), SyncSession(b, epoch=2, device_doc=dev)
+    ab = FaultyChannel(seed=seed, drop=0.2, dup=0.2, reorder=0.2, bitflip=0.1)
+    ba = FaultyChannel(seed=seed + 1, drop=0.2, dup=0.2, reorder=0.2, bitflip=0.1)
+    for tick in range(1, 3000):
+        out = sa.poll(tick)
+        if out is not None:
+            ab.send(out, tick)
+        out = sb.poll(tick)
+        if out is not None:
+            ba.send(out, tick)
+        sb.receive_many(ab.drain(tick), tick)
+        for data in ba.drain(tick):
+            sa.receive(data, tick)
+        if a.get_heads() == b.get_heads() and sa.converged() and sb.converged() \
+                and not ab.pending and not ba.pending:
+            return b, dev, a
+    raise AssertionError("no convergence")
+
+
+def test_sync_catch_up_feeds_a_device_doc_on_card_equal_to_cpu(cuda, monkeypatch):
+    """A session catch-up with the replica's resident ``DeviceDoc`` on the
+    card equals the same run on the CPU (the same frames arrive: the
+    channels are seeded), and a fresh merge of the replica's history; the
+    feed ran the merge kernels on the card. The replica takes the bulk
+    path: its stale read merges on the card, the edit's rebuild reuses
+    that merge and launches nothing."""
+    from automerge_tpu_torch.core.document import Document
+
+    monkeypatch.setattr(Document, "BULK_MIN_OPS", 1)
+    trace = W.load_trace(3000)
+    base = W.build_base(trace, 2000)
+    reps = W.synth_fanin(base, trace, 12, 40, 2000)
+    blob = [c.raw_bytes for c in base.changes]
+    assert len(blob) == 1
+    deltas = [c.raw_bytes for c in reps]
+    reset_launches()
+    card, card_dev, _ = _sync_catch_up(cuda, blob[0], deltas, 5)
+    assert _doc_merge_launched(launch_counts())
+    cpu, cpu_dev, peer = _sync_catch_up("cpu", blob[0], deltas, 5)
+    _equal_docs(card_dev, cpu_dev, "card against cpu")
+    fresh = DeviceDoc.merge([card], device=cuda)
+    _equal_docs(card_dev, fresh, "card against a fresh merge")
+    t = base.text_exid
+    assert card.doc._ops_stale
+    reset_launches()
+    assert card.text(t) == cpu.text(t) == peer.text(t) == card_dev.text(t)
+    assert _doc_merge_launched(launch_counts()) and card.doc._ops_stale
+    reset_launches()
+    for d in (card, cpu):
+        d.splice_text(t, 3, 0, "<edit>")
+        d.commit(timestamp=1)
+    assert not any(launch_counts().values()) and not card.doc._ops_stale
+    assert card.text(t) == cpu.text(t) and card.save() == cpu.save()
+
+
+def test_receive_many_feeds_the_cross_doc_batcher_on_card(cuda):
+    """Serve-shaped server sessions drained by ``receive_many`` with
+    ``device_feed`` into a ``CrossDocBatcher`` on the card, one thread a
+    document: packed launches on the card, each resident document equal to
+    its own ``apply_batches`` on the CPU after every cycle."""
+    import threading
+
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.sync import SyncSession
+    from automerge_tpu_torch.types import ActorId
+
+    n, cycles = 8, 3
+    base, deltas, texts = W.serve_workload(n, cycles, 12, 300)
+    servers = [AutoDoc(ActorId(bytes([100 + i]) * 16), device=cuda) for i in range(n)]
+    clients = [AutoDoc(ActorId(bytes([150 + i]) * 16), device=cuda) for i in range(n)]
+    for d in servers + clients:
+        d.apply_changes([parse_change(base)[0]])
+    devs = [DeviceDoc.merge([base], device=cuda) for _ in range(n)]
+    twins = [DeviceDoc.merge([base], device="cpu") for _ in range(n)]
+    ss = [SyncSession(s, epoch=1, device_doc=d) for s, d in zip(servers, devs)]
+    cs = [SyncSession(c, epoch=2) for c in clients]
+    batcher = B.CrossDocBatcher(mode="1", window_ms=2000.0, max_docs=4, device=cuda)
+
+    def converse(i, now, feed):
+        for k in range(20):
+            frame = cs[i].poll(now + k)
+            ss[i].receive_many([frame] if frame is not None else [], now + k,
+                               device_feed=feed)
+            reply = ss[i].poll(now + k)
+            if reply is not None:
+                cs[i].receive(reply, now + k)
+            if cs[i].converged() and ss[i].converged():
+                return
+        raise AssertionError("no convergence")
+
+    for i in range(n):
+        converse(i, 0, None)
+    for c in range(cycles):
+        fed = [[] for _ in range(n)]
+        errs = []
+        for i in range(n):
+            clients[i].apply_changes([parse_change(deltas[i][c])[0]])
+
+        def worker(i):
+            def feed(batches):
+                fed[i].extend(list(b) for b in batches)
+                return batcher.apply(devs[i], batches)
+            try:
+                converse(i, 100 * (c + 1), feed)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        B.reset_stats()
+        reset_launches()
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        assert not errs, errs
+        s, counts = B.stats(), launch_counts()
+        assert s["launches"] >= 2 and s["batched_error"] == 0, s
+        assert counts["linearize"] == L.LAUNCHES * (s["launches"] + s["batched_fallback"])
+        for i in range(n):
+            twins[i].apply_batches(fed[i])
+            _equal_docs(devs[i], twins[i], (c, i))
+            assert servers[i].get_heads() == clients[i].get_heads()
+    assert [d.text(W.SERVE_LIVE) for d in devs] == texts

@@ -172,6 +172,36 @@ catch.splice_text(base.text_exid, 0, 0, "x")
 assert catch.text(base.text_exid) == "x" + doc.text(base.text_exid)
 assert DeviceDoc.merge([catch], device="cpu").text(base.text_exid) == \
     catch.text(base.text_exid)
+# sync: two sessions over lossy channels, one feeding a resident document
+from automerge_tpu_torch import expanded, functional as F, sync
+sa = api.AutoDoc(types.ActorId(bytes([9]) * 16), device="cpu")
+sb = api.AutoDoc(types.ActorId(bytes([10]) * 16), device="cpu")
+st = sa.put_object("_root", "t", types.ObjType.TEXT)
+sa.splice_text(st, 0, 0, "sync me")
+sa.commit()
+sdev = DeviceDoc.resolve(OpLog.from_changes([]), device="cpu")
+drv = sync.SyncDriver(sa, sb, sync.FaultyChannel(seed=1, drop=0.3, dup=0.2),
+                      sync.FaultyChannel(seed=2, drop=0.3, dup=0.2),
+                      session_b=sync.SyncSession(sb, epoch=2, device_doc=sdev))
+assert drv.run().converged and sb.text(st) == "sync me" == sdev.text(st)
+assert drv.session_b.stats["device_feeds"]["apply_changes"] >= 1
+ch = sa.get_changes([])[0]
+assert expanded.collapse_change(expanded.expand_change(ch)).raw_bytes == ch.raw_bytes
+fa = F.from_dict({"k": [1, 2], "t": F.Text("ab")}, actor=bytes([11]) * 16, device="cpu")
+fb = F.init(actor=bytes([12]) * 16, device="cpu")
+xa, xb = F.init_sync_state(), F.init_sync_state()
+for _ in range(10):
+    xa, m = F.generate_sync_message(fa, xa)
+    if m is not None:
+        fb, xb = F.receive_sync_message(fb, xb, m)
+    xb, m2 = F.generate_sync_message(fb, xb)
+    if m2 is not None:
+        fa, xa = F.receive_sync_message(fa, xa, m2)
+    if m is None and m2 is None:
+        break
+assert F.to_dict(fb) == {"k": [1, 2], "t": "ab"}
+raw = F.get_all_changes(fa)[0]
+assert F.encode_change(F.decode_change(raw)) == raw
 maps = open("/proc/self/maps").read()
 assert str(native.library_path()) in maps
 bad = sorted(
@@ -326,6 +356,23 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
     saved = AutoDoc(device="cpu").save()
     with pytest.raises(RuntimeError):
         AutoDoc.load(saved)
+
+
+def test_sync_and_functional_without_device_raise_when_no_gpu(monkeypatch):
+    """Functional documents and synced ``AutoDoc``s live on the card by
+    default: without a GPU they raise, and nothing falls back to the CPU."""
+    from automerge_tpu_torch import functional as F
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.sync import SyncSession
+
+    saved = F.save(F.from_dict({"k": 1}, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (F.init, lambda: F.from_dict({"k": 1}), lambda: F.load(saved),
+                 lambda: SyncSession(AutoDoc())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    doc = F.load(saved, device="cpu")
+    assert F.clone(doc)._auto.doc.device == torch.device("cpu")
 
 
 def test_served_document_stays_on_its_device(monkeypatch):
