@@ -72,6 +72,7 @@ class FastSaveUnavailable(ValueError):
 
 # the typed hierarchy lives in automerge_tpu.errors (error.rs analogue);
 # re-exported here because this module historically defined it
+from .. import obs  # noqa: E402
 from ..errors import AutomergeError, DuplicateSeqNumber  # noqa: E402,F401
 
 
@@ -262,6 +263,11 @@ class Document:
 
     def apply_changes(self, changes: Iterable[StoredChange]) -> None:
         changes = list(changes)
+        if obs.enabled():
+            obs.event(
+                "apply_changes", changes=len(changes),
+                ops=sum(len(c.ops) for c in changes),
+            )
         if self._bulk_eligible(changes):
             try:
                 self._apply_changes_bulk(changes)
@@ -974,7 +980,8 @@ class Document:
         cycle (reference: SaveOptions{retain_orphans}, automerge.rs:959-963)
         unless ``retain_orphans=False``."""
         self._check_no_pending_tx("save")
-        data = self._save_document(deflate)
+        with obs.span("save"):
+            data = self._save_document(deflate)
         if retain_orphans:
             for orphan in self.queue:
                 if orphan.raw_bytes:
@@ -1233,7 +1240,8 @@ class Document:
         if on_error is not None:
             on_partial = on_error
         doc = cls(actor, text_encoding=text_encoding, device=device)
-        doc.load_incremental(data, verify=verify, on_partial=on_partial)
+        with obs.span("load", bytes=len(data)):
+            doc.load_incremental(data, verify=verify, on_partial=on_partial)
         if string_migration == "convert_to_text":
             doc.convert_scalar_strings_to_text()
         elif string_migration != "none":
@@ -1328,6 +1336,9 @@ class Document:
                 )
         report.applied_chunks = applied
         self.salvage_report = report
+        obs.count("load.salvaged_chunks", n=applied)
+        if report.dropped:
+            obs.count("load.dropped_chunks", n=len(report.dropped))
         return applied
 
 

@@ -38,6 +38,7 @@ from ..types import (
 )
 from .clock import Clock
 from .document import AppliedChange, AutomergeError, Document, ROOT
+from .. import obs
 from ..errors import InvalidOp, MissingCounter
 from .op_store import LIST_ENC, TEXT_ENC, MapObject, Op, ROOT_OBJ, SeqObject
 
@@ -588,6 +589,8 @@ class Transaction:
         self.doc.open_transactions.discard(self)
         if not self.operations and self.message is None:
             return None
+        if obs.enabled():
+            obs.event("commit", ops=self.pending_ops(), seq=self.seq)
         change = self._export_change()
         applied = AppliedChange(
             change, self.actor_idx, self._export_actor_map(change)

@@ -145,7 +145,7 @@ def load() -> ctypes.CDLL:
         ("am_delta_decode_batch", [u8p, i64p, i64p, i64p, i64, i64p, u8p]),
         ("am_bool_decode_batch", [u8p, i64p, i64p, i64p, i64, u8p]),
         ("am_rle_decode_batch_strtab",
-         [u8p, i64p, i64p, i64p, i64, i32p, i64p, i64p, i64]),
+         [u8p, i64p, i64p, i64p, i64, i32p, i64p, i64p, i64, i64]),
         ("am_localize_ids", [i32p, i64p, i64, i64, i32p, i32p, i64p, i64p]),
         ("am_leb_decode_rows", [u8p, i64, i64p, i64p, i32p, i64, i64p]),
         ("am_join_rows_i64", [i64p, i64, i64p, i64, ctypes.c_int32, i32p]),

@@ -155,11 +155,14 @@ i64 am_bool_decode_batch(const u8* buf, const i64* off, const i64* len,
 // one pass. Per row: the interned string id (or -1 for null). The table is
 // returned as (tab_off, tab_len) slices of `buf` in first-seen order.
 // Returns the table size, or -(c+1) on error, or -1000000000 - needed if
-// the table overflows max_tab.
+// the table overflows max_tab. A column's rows past its change's row count
+// are cut, as a change chunk's parser ignores a column's tail; with
+// `strict` (a document chunk's key-string column) a null run or a value
+// run past the row count is an error instead, -(c+1).
 i64 am_rle_decode_batch_strtab(const u8* buf, const i64* off, const i64* len,
                                const i64* row_off, i64 n_changes,
                                i32* out_ids, i64* tab_off, i64* tab_len,
-                               i64 max_tab) {
+                               i64 max_tab, i64 strict) {
   std::unordered_map<std::string, i32> intern;
   i64 tab_n = 0;
   for (i64 c = 0; c < n_changes; c++) {
@@ -167,7 +170,7 @@ i64 am_rle_decode_batch_strtab(const u8* buf, const i64* off, const i64* len,
     size_t cap = (size_t)(hi - lo), row = 0, pos = 0;
     const u8* p = buf + off[c];
     size_t n = (size_t)len[c];
-    while (pos < n && row < cap) {
+    while (pos < n && (strict || row < cap)) {
       int64_t header;
       int k = dec_sleb(p + pos, n - pos, &header);
       if (k < 0) return -(c + 1);
@@ -177,13 +180,14 @@ i64 am_rle_decode_batch_strtab(const u8* buf, const i64* off, const i64* len,
         k = dec_uleb(p + pos, n - pos, &nulls);
         if (k < 0) return -(c + 1);
         pos += (size_t)k;
+        if (strict && nulls > cap - row) return -(c + 1);
         for (uint64_t i = 0; i < nulls && row < cap; i++) out_ids[lo + row++] = -1;
         continue;
       }
       // a run stores its string once; a literal one string a row
       const uint64_t count = header > 0 ? (uint64_t)header : 0 - (uint64_t)header;
       const uint64_t strings = header > 0 ? 1 : count;
-      for (uint64_t rep = 0; rep < strings && row < cap; rep++) {
+      for (uint64_t rep = 0; rep < strings && (strict || row < cap); rep++) {
         uint64_t slen;
         k = dec_uleb(p + pos, n - pos, &slen);
         if (k < 0) return -(c + 1);
@@ -204,6 +208,7 @@ i64 am_rle_decode_batch_strtab(const u8* buf, const i64* off, const i64* len,
         }
         pos += (size_t)slen;
         const uint64_t reps = header > 0 ? count : 1;
+        if (strict && reps > cap - row) return -(c + 1);
         for (uint64_t i = 0; i < reps && row < cap; i++) out_ids[lo + row++] = id;
       }
     }

@@ -206,7 +206,13 @@ def ensure_change_cols(changes: Sequence) -> List[ChangeCols]:
     caches: List[Optional[ChangeCols]] = [ch.cached_cols for ch in changes]
     missing = [i for i, c in enumerate(caches) if c is None]
     if missing:
+        from .. import obs
         from .extract import batch_arrays
+
+        # the reference looks each one up in a hash-keyed cache first; the
+        # port keeps a change's columns on the change object alone, so
+        # every change without them is a miss
+        obs.count("extract.change_cache_miss", n=len(missing))
 
         subset = [changes[i] for i in missing]
         for ch in subset:

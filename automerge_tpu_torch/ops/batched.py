@@ -50,7 +50,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
+from ..obs import prof as _prof
+from ..obs.views import CounterView
 from .device_doc import DeviceDoc, _stage
 from .merge import prepare_resolution
 from .oplog import pad_columns
@@ -75,28 +78,39 @@ _PACK_COLS = (
     "value_i32", "width", "covered", "pred_src", "pred_tgt",
 )
 
-# what the packed path did since the last reset: packed launches, their
-# useful and padded rows, documents peeled as whales, generations whose
-# packed path failed (each of their documents then resolved on its own),
-# and the host staging's documents by path (host_batch.stage_docs)
+# what the packed path did since the last reset, read from ``obs`` under
+# the reference's names: packed launches, their useful and padded rows,
+# documents peeled as whales, generations whose packed path failed (each
+# of their documents then resolved on its own)
+_OBS_STATS = CounterView({
+    "launches": ("device.kernel_launches", {"path": ("batched",)}, None),
+    "useful_rows": ("device.batch_rows", None, None),
+    "padded_rows": ("device.batch_padding_rows", None, None),
+    "batched_fallback": ("device.batched_fallback", None, None),
+    "batched_error": ("device.batched_error", None, None),
+})
+# the host staging's documents by path (host_batch.stage_docs), which the
+# reference counts differently (``host_batch.docs``,
+# ``host_batch.fallback_docs{reason}``, counted there too)
 STATS = dict.fromkeys((
-    "launches", "useful_rows", "padded_rows", "batched_fallback",
-    "batched_error", "vectorized_docs", "scalar_docs", "demoted_docs",
-    "extract_error",
+    "vectorized_docs", "scalar_docs", "demoted_docs", "extract_error",
 ), 0)
 _STATS_LOCK = threading.Lock()
 
 
 def stats() -> dict:
-    """A copy of ``STATS``."""
+    """The counts since ``reset_stats()``."""
     with _STATS_LOCK:
-        return dict(STATS)
+        out = dict(STATS)
+    out.update(_OBS_STATS.read())
+    return out
 
 
 def reset_stats() -> None:
     with _STATS_LOCK:
         for k in STATS:
             STATS[k] = 0
+    _OBS_STATS.reset()
 
 
 def count(name: str, n: int = 1) -> None:
@@ -122,13 +136,15 @@ class BatchStage:
     objects' rows (``rows``, log rows) and dense ids (``dirty``), and the
     document to scatter into."""
 
-    __slots__ = ("doc", "rows", "dirty", "error")
+    __slots__ = ("doc", "rows", "dirty", "error", "trace")
 
     def __init__(self, doc, rows: np.ndarray, dirty: np.ndarray):
         self.doc = doc
         self.rows = rows
         self.dirty = dirty
         self.error: Optional[BaseException] = None
+        # the submitter's trace context, linked from the shared launch
+        self.trace = None
 
     @property
     def n_rows(self) -> int:
@@ -186,15 +202,22 @@ def _dispatch_packed(cols, n_objs: int, n_props: int, device, staging: str,
     reading it back (as ``DeviceDoc._dispatch_async`` does for one
     document); the outputs stay on the device until ``_collect_packed``."""
     useful = len(cols["action"])
-    with _stage(phases, "pack"):
+    with _stage(phases, "pack"), obs.span("device.pack", rows=useful):
         cols = pad_columns(cols, n_objs)
     P = len(cols["action"])
+    # occupancy at the pack site
+    obs.count("device.batch_rows", n=useful)
+    obs.count("device.batch_padding_rows", n=P - useful)
+    _prof.note("useful_rows", useful)
+    _prof.note("padded_rows", P - useful)
+    _prof.note("launches")
+    obs.count("device.kernel_launches", labels={"path": "batched"})
     with _stage(phases, "launch"):
-        out = prepare_resolution(cols, n_objs, n_props, device, staging)()
-    with _STATS_LOCK:
-        STATS["launches"] += 1
-        STATS["useful_rows"] += useful
-        STATS["padded_rows"] += P - useful
+        dispatch = prepare_resolution(cols, n_objs, n_props, device, staging)
+        # queued without a sync: the readback holds the wait
+        with obs.span("device.kernel", rows=P), \
+                _prof.annotate("amtpu.batched_launch"):
+            out = dispatch()
     # the per-object stats past the objects' two pad slots are never read
     fetch = {k: out[k][: n_objs + 2] if k.startswith("obj_") else out[k]
              for k in DeviceDoc.READ_FETCH}
@@ -203,7 +226,8 @@ def _dispatch_packed(cols, n_objs: int, n_props: int, device, staging: str,
 
 def _collect_packed(handle, phases=None) -> dict:
     """Read a packed launch's outputs back (the blocking half)."""
-    with _stage(phases, "readback"):
+    with _stage(phases, "readback"), obs.span("device.readback",
+                                              rows=handle["P"]):
         return {k: v.cpu().numpy() for k, v in handle["out"].items()}
 
 
@@ -239,28 +263,36 @@ def dispatch_stages(stages: Sequence[BatchStage], fallback_ratio: Optional[float
     _check_device([st.doc for st in stages], device)
     batch, whales = plan_stages(stages, fallback_ratio)
     for w in whales:
-        count("batched_fallback")
+        obs.count("device.batched_fallback")
         with _stage(phases, "whale"):
             w.doc._reresolve(w.dirty)
     launches = []
     by_staging = {}
     for st in batch:
         by_staging.setdefault(st.doc.staging, []).append(st)
-    for staging, group in by_staging.items():
-        with _stage(phases, "pack"):
-            cols, metas, _, n_objs = _pack(group)
-        n_props = max(max(len(st.doc.log.props) for st in group), 1)
-        launches.append((_dispatch_packed(cols, n_objs, n_props, device, staging,
-                                          phases), metas))
+    if batch:
+        links = [st.trace for st in batch if st.trace is not None]
+        with obs.span("device.batched", links=links, docs=len(batch)):
+            obs.observe("device.batch_docs", len(batch))
+            for staging, group in by_staging.items():
+                with _stage(phases, "pack"), obs.span("device.pack",
+                                                      docs=len(group)):
+                    cols, metas, _, n_objs = _pack(group)
+                n_props = max(max(len(st.doc.log.props) for st in group), 1)
+                launches.append((_dispatch_packed(
+                    cols, n_objs, n_props, device, staging, phases), metas))
     return {"batched": len(batch), "fallback": len(whales), "launches": launches}
 
 
 def collect_stages(disp: dict, phases=None) -> dict:
     """Read the packed launches back and scatter them into the documents."""
-    for handle, metas in disp["launches"]:
-        res = _collect_packed(handle, phases)
-        with _stage(phases, "scatter"):
-            _scatter(metas, res)
+    if disp["launches"]:
+        with obs.span("device.batched", docs=disp["batched"]):
+            for handle, metas in disp["launches"]:
+                res = _collect_packed(handle, phases)
+                with _stage(phases, "scatter"), obs.span(
+                        "device.scatter", docs=disp["batched"]):
+                    _scatter(metas, res)
     return {"batched": disp["batched"], "fallback": disp["fallback"]}
 
 
@@ -309,7 +341,7 @@ def apply_cross_doc(work, *, fallback_ratio: Optional[float] = None,
             order.append(k)
     _check_device([merged[k][0] for k in order], device)
 
-    def stage_chunk(keys):
+    def stage_chunk(keys, idx0):
         applied = 0
         stages: List[BatchStage] = []
         if host_batch.enabled():
@@ -320,9 +352,12 @@ def apply_cross_doc(work, *, fallback_ratio: Optional[float] = None,
                     raise r.error
                 applied += r.applied
         else:
-            for k in keys:
+            for i, k in enumerate(keys):
                 dev, batches = merged[k]
+                t0 = time.perf_counter()
                 n, st = dev.stage_batches(batches)
+                _prof.note_doc(getattr(dev, "obs_name", None) or f"doc{idx0 + i}",
+                               time.perf_counter() - t0)
                 applied += n
                 if st is not None:
                     stages.append(st)
@@ -342,14 +377,15 @@ def apply_cross_doc(work, *, fallback_ratio: Optional[float] = None,
         try:
             for lo in range(0, len(order), step):
                 t0 = time.perf_counter()
-                stages, n = stage_chunk(order[lo : lo + step])
+                stages, n = stage_chunk(order[lo : lo + step], lo)
                 out["applied"] += n
                 d = dispatch_stages(stages, fallback_ratio, device, phases)
                 if pending is not None:
                     # everything since the loop top ran under pending's launch
+                    overlap = time.perf_counter() - t0
+                    _prof.note("overlap_s", overlap)
                     if phases is not None:
-                        phases["overlap"] = (phases.get("overlap", 0.0)
-                                             + time.perf_counter() - t0)
+                        phases["overlap"] = phases.get("overlap", 0.0) + overlap
                     account(collect_stages(pending, phases))
                 pending = d
         except BaseException:
@@ -360,12 +396,14 @@ def apply_cross_doc(work, *, fallback_ratio: Optional[float] = None,
         if pending is not None:
             account(collect_stages(pending, phases))
     else:
-        stages, n = stage_chunk(order)
+        stages, n = stage_chunk(order, 0)
         out["applied"] += n
         sstep = max_docs_per_launch or len(stages) or 1
         for lo in range(0, len(stages), sstep):
             account(resolve_stages(stages[lo : lo + sstep], fallback_ratio, device,
                                    phases))
+    _prof.note("docs", len(order))
+    _prof.note("changes", out["applied"])
     return out
 
 
@@ -376,13 +414,14 @@ class _Submission:
     """One document's raw batches awaiting the leader's staging; the
     submitter holds its document's lock meanwhile."""
 
-    __slots__ = ("dev", "batches", "applied", "error")
+    __slots__ = ("dev", "batches", "applied", "error", "trace")
 
-    def __init__(self, dev, batches):
+    def __init__(self, dev, batches, trace=None):
         self.dev = dev
         self.batches = batches
         self.applied = 0
         self.error: Optional[BaseException] = None
+        self.trace = trace
 
 
 class _Generation:
@@ -448,14 +487,21 @@ class CrossDocBatcher:
         from . import host_batch
 
         if host_batch.enabled():
-            sub = _Submission(dev, list(batches))
+            sub = _Submission(dev, list(batches), obs.current_trace_context())
             self._join(lambda gen: gen.subs.append(sub))
             if sub.error is not None:
                 raise sub.error
             return sub.applied
+        t0 = time.perf_counter()
         applied, stage = dev.stage_batches(batches)
+        _prof.note("docs")
+        _prof.note("changes", applied)
+        _prof.note_doc(getattr(dev, "obs_name", None), time.perf_counter() - t0)
         if stage is None:
             return applied
+        # the shared launch (perhaps on another thread) links back to
+        # this submitter's trace, if one is active
+        stage.trace = obs.current_trace_context()
         self._join(lambda gen: gen.stages.append(stage))
         if stage.error is not None:
             raise stage.error
@@ -497,7 +543,7 @@ class CrossDocBatcher:
         """Stage the leader-staged submissions in one pass, launch once (a
         wide generation as two half-launches), release every waiter. On
         failure each document is resolved on its own on its device, and
-        the failure is counted (``batched_error``)."""
+        the failure is counted (``device.batched_error``)."""
         from . import host_batch
 
         device = resolve_device(self.device)
@@ -508,17 +554,28 @@ class CrossDocBatcher:
                 more, results = host_batch.stage_docs(
                     [(s.dev, s.batches) for s in gen.subs])
                 subs_staged = True
+                trace_of = {}
+                n_changes = 0
                 for s in gen.subs:
                     r = results.get(id(s.dev))
                     if r is not None:
                         s.applied = r.applied
                         s.error = r.error
+                        n_changes += r.applied
+                    if s.trace is not None:
+                        trace_of.setdefault(id(s.dev), s.trace)
+                for st in more:
+                    st.trace = trace_of.get(id(st.doc))
+                _prof.note("docs", len(gen.subs))
+                _prof.note("changes", n_changes)
                 stages.extend(more)
             if DRAIN_PIPELINE and len(stages) >= self.pipeline_min_docs:
                 mid = len(stages) // 2
                 d1 = dispatch_stages(stages[:mid], self.fallback_ratio, device)
                 try:
+                    t0 = time.perf_counter()
                     d2 = dispatch_stages(stages[mid:], self.fallback_ratio, device)
+                    _prof.note("overlap_s", time.perf_counter() - t0)
                 except BaseException:
                     collect_stages(d1)
                     raise
@@ -527,12 +584,14 @@ class CrossDocBatcher:
             else:
                 resolve_stages(stages, self.fallback_ratio, device)
         except Exception as e:  # noqa: BLE001 - every document degrades alone
-            count("batched_error")
+            obs.count("device.batched_error")
+            recovered = True
             for st in stages:
                 try:
                     st.doc._reresolve(st.dirty)
                 except Exception as e2:  # noqa: BLE001
                     st.error = e2
+                    recovered = False
             if not subs_staged:
                 # the staging itself failed: every leader-staged submitter sees it
                 for s in gen.subs:
@@ -543,5 +602,7 @@ class CrossDocBatcher:
                     for s in gen.subs:
                         if s.dev is st.doc and s.error is None:
                             s.error = st.error
+            if recovered and stages:
+                obs.event("device.batched_recovered", error=str(e)[:200])
         finally:
             gen.done.set()

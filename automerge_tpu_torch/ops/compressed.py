@@ -17,7 +17,7 @@ encoded image:
   keys (``StrideRuns.join``).
 * **dense** for whatever does not compress: a column whose run count
   crosses the ratio gate, or whose runs would not undercut its dense
-  bytes, demotes (counted in ``STATS["compress_fallback"]`` by column).
+  bytes, demotes (counted as ``oplog.compress_fallback{column,reason=ratio}``).
 
 Tail appends, the dominant shape (``OpLog.append_changes``,
 ``host_batch._splice_doc``), extend the last run in place instead of
@@ -38,21 +38,27 @@ oracle the tests compare against.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Optional
 
 import numpy as np
+
+from .. import obs
+from ..obs.views import CounterView
 
 # compressed residency on (False: dense everywhere)
 ENABLED = True
 # a column with more runs than this share of its rows ships dense
 GATE_RATIO = 0.5
 
-# counts the reference sends to its ``obs`` layer: columns demoted by the
-# gate (by column), rows joined over the id runs, snapshots written dense
-# without a sync (``storage/runsnap.py``)
-STATS = {"compress_fallback": {}, "ovc_join": 0, "dense_shortcut": 0}
-_STATS_LOCK = threading.Lock()
+# what ``stats()`` reads from ``obs``: columns demoted by the gate (by
+# column), rows joined over the id runs, snapshots written dense without a
+# sync (``storage/runsnap.py``)
+_STATS = CounterView({
+    "compress_fallback": ("oplog.compress_fallback", {"reason": ("ratio",)},
+                          "column"),
+    "ovc_join": ("oplog.ovc_join", None, None),
+    "dense_shortcut": ("compact.dense_shortcut", None, None),
+})
 
 
 def enabled() -> bool:
@@ -61,26 +67,14 @@ def enabled() -> bool:
 
 
 def stats() -> dict:
-    """A copy of ``STATS``."""
-    with _STATS_LOCK:
-        return {k: (dict(v) if isinstance(v, dict) else v)
-                for k, v in STATS.items()}
+    """The counts since ``reset_stats()``: ``compress_fallback`` by
+    column, ``ovc_join`` rows, ``dense_shortcut`` snapshots (read from
+    ``obs``)."""
+    return _STATS.read()
 
 
 def reset_stats() -> None:
-    with _STATS_LOCK:
-        STATS["compress_fallback"] = {}
-        STATS["ovc_join"] = 0
-        STATS["dense_shortcut"] = 0
-
-
-def count(name: str, n: int = 1, column: Optional[str] = None) -> None:
-    with _STATS_LOCK:
-        if column is None:
-            STATS[name] += n
-        else:
-            d = STATS[name]
-            d[column] = d.get(column, 0) + n
+    _STATS.reset()
 
 
 def run_gate(n_runs: int, n_rows: int) -> bool:
@@ -334,7 +328,7 @@ class CompressedOpColumns:
     def all_dense(self, names) -> bool:
         """True when every tracked column of ``names`` is demoted: the
         snapshot writer then has no run table to write and skips the sync
-        (``STATS["dense_shortcut"]``). A column of zero rows (an empty
+        (``compact.dense_shortcut``). A column of zero rows (an empty
         pred column) holds no runs either way and does not count."""
         seen_dense = False
         for nm in names:
@@ -381,7 +375,8 @@ class CompressedOpColumns:
             ent.run_count > GATE_RATIO * total
             or ent.nbytes >= total * itemsize
         ):
-            count("compress_fallback", column=name)
+            obs.count("oplog.compress_fallback",
+                      labels={"column": name, "reason": "ratio"})
             self.entries[name] = _DENSE
             self.demoted[name] = "ratio"
         else:

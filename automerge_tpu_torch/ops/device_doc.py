@@ -31,8 +31,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..core.marks import Mark
 from ..device import resolve_device
+from ..obs import prof as _prof
 from ..patches.patch import (
     DeleteMap,
     DeleteSeq,
@@ -240,8 +242,11 @@ class DeviceDoc:
     def resolve(cls, log: OpLog, device=None, phases=None,
                 staging: str = "run_native", transport: str = "dict") -> "DeviceDoc":
         dev = resolve_device(device)
-        return cls(log, _resolve_log(log, dev, phases, staging, transport), dev,
-                   staging)
+        obs.count("device.kernel_launches", labels={"path": "per_doc"})
+        _prof.note("launches")
+        with _prof.annotate("amtpu.resolve"):
+            res = _resolve_log(log, dev, phases, staging, transport)
+        return cls(log, res, dev, staging)
 
     # -- incremental updates ------------------------------------------------
     #
@@ -264,18 +269,28 @@ class DeviceDoc:
         the base (current-state) document."""
         if self._base is not self:
             raise ValueError("apply_changes on a historical view; use the base doc")
-        ready = self._take_ready(_parsed(changes))
-        if not ready:
-            return 0
-        # an empty resident log has no actor table to splice into: the
-        # rebuild IS the initial build
-        info = self.log.append_changes(ready) if incremental and self.log.n else None
-        if info is None:
-            self._rebuild(list(self.log.changes) + ready)
-            return len(ready)
-        self._apply_append(info, ready)
-        if info.n_new and not self._delta_resolve(info):
-            self._reresolve(info.dirty_objs)
+        # the umbrella span covers the whole host apply (dedup, causal
+        # order, splice, delta resolution), so a drain cycle's report
+        # attributes the staging wall clock without gaps
+        with obs.span("device.apply", changes=len(changes)):
+            ready = self._take_ready(_parsed(changes))
+            if not ready:
+                return 0
+            # an empty resident log has no actor table to splice into: the
+            # rebuild IS the initial build
+            if incremental and self.log.n:
+                with obs.span("device.stage.splice", changes=len(ready)):
+                    info = self.log.append_changes(ready)
+            else:
+                info = None
+            if info is None:
+                obs.count("device.apply_rebuild")
+                self._rebuild(list(self.log.changes) + ready)
+                return len(ready)
+            self._apply_append(info, ready)
+            if info.n_new and not self._delta_resolve(info):
+                self._reresolve(info.dirty_objs)
+            self._export_doc_gauges()
         return len(ready)
 
     def apply_batches(self, batches: Sequence[Sequence], phases=None) -> int:
@@ -296,6 +311,9 @@ class DeviceDoc:
             raise ValueError("apply_batches on a historical view; use the base doc")
         if phases is not None:
             phases.setdefault("batches", [])
+        if len(batches) > 1:
+            # how many per-message applies a drain amortized
+            obs.count("device.coalesced_batches", n=len(batches))
         if self.device.type != "cpu":
             return self._apply_pipelined(batches, phases)
         total = 0
@@ -315,7 +333,7 @@ class DeviceDoc:
         inflight = None
         for chs in batches:
             t0 = time.perf_counter()
-            applied, inflight = self._pipeline_step(chs, inflight, phases)
+            applied, inflight = self._pipeline_step(chs, inflight, phases, t0)
             total += applied
             if phases is not None:
                 phases.setdefault("batches", []).append(time.perf_counter() - t0)
@@ -324,13 +342,23 @@ class DeviceDoc:
             self._collect_async(inflight, phases)
             if phases and phases["batches"]:
                 phases["batches"][-1] += time.perf_counter() - t0
+        self._export_doc_gauges()
         return total
 
-    def _pipeline_step(self, chs: Sequence, inflight, phases=None):
+    def _pipeline_step(self, chs: Sequence, inflight, phases=None, t0=None):
         """One batch of the card's pipeline: splice it, launch its subset
         resolution, then read back the one launched before (``inflight``).
         Returns (changes applied, the handle now in flight). ``phases``, a
-        dict when given, sums the seconds of each stage."""
+        dict when given, sums the seconds of each stage. ``t0``: when
+        this step's host work began; the host seconds from there to a
+        readback of ``inflight`` ran under its launch (the cycle
+        profiler's ``overlap_s``)."""
+
+        def collect_inflight():
+            if t0 is not None:
+                _prof.note("overlap_s", time.perf_counter() - t0)
+            self._collect_async(inflight, phases)
+
         with _stage(phases, "parse"):
             parsed = _parsed(chs)
         with _stage(phases, "order"):
@@ -338,10 +366,15 @@ class DeviceDoc:
         if not ready:
             return 0, inflight
         with _stage(phases, "splice"):
-            info = self.log.append_changes(ready) if self.log.n else None
+            if self.log.n:
+                with obs.span("device.stage.splice", changes=len(ready)):
+                    info = self.log.append_changes(ready)
+            else:
+                info = None
         if info is None:
             if inflight is not None:
-                self._collect_async(inflight, phases)
+                collect_inflight()
+            obs.count("device.apply_rebuild")
             with _stage(phases, "rebuild"):
                 self._rebuild(list(self.log.changes) + ready)
             return len(ready), None
@@ -359,13 +392,13 @@ class DeviceDoc:
                 # the full re-resolve reads the CURRENT log: anything in
                 # flight was computed from an older one and must land first
                 if inflight is not None:
-                    self._collect_async(inflight, phases)
+                    collect_inflight()
                     inflight = None
                 with _stage(phases, "full"):
                     self._reresolve(info.dirty_objs)
             else:
                 if inflight is not None:
-                    self._collect_async(inflight, phases)
+                    collect_inflight()
                 inflight = handle
         return len(ready), inflight
 
@@ -383,8 +416,11 @@ class DeviceDoc:
         device or mesh). Only valid on the base document."""
         if self._base is not self:
             raise ValueError("stage_batches on a historical view; use the base doc")
-        ready = self._take_ready(_parsed([ch for b in batches for ch in b]))
-        return self._stage_ready(ready)
+        # the same umbrella as apply_changes: the whole host half is one
+        # device.apply region for cycle attribution
+        with obs.span("device.apply", batches=len(batches)):
+            ready = self._take_ready(_parsed([ch for b in batches for ch in b]))
+            return self._stage_ready(ready)
 
     def stage_ready(self, ready: Sequence):
         """``stage_batches`` over changes already deduplicated and in
@@ -393,15 +429,21 @@ class DeviceDoc:
         halves of ``_take_ready`` itself, and its oracle."""
         if self._base is not self:
             raise ValueError("stage_ready on a historical view; use the base doc")
-        return self._stage_ready(ready)
+        with obs.span("device.apply", changes=len(ready)):
+            return self._stage_ready(ready)
 
     def _stage_ready(self, ready):
         from .batched import BatchStage
 
         if not ready:
             return 0, None
-        info = self.log.append_changes(ready) if self.log.n else None
+        if self.log.n:
+            with obs.span("device.stage.splice", changes=len(ready)):
+                info = self.log.append_changes(ready)
+        else:
+            info = None
         if info is None:
+            obs.count("device.apply_rebuild")
             self._rebuild(list(self.log.changes) + list(ready))
             return len(ready), None
         self._apply_append(info, ready)
@@ -412,7 +454,9 @@ class DeviceDoc:
         if (len(rows) / self.log.n > DIRTY_FRACTION_LIMIT
                 or len(dirty) >= self.log.n_objs):
             self._reresolve(dirty)
+            self._export_doc_gauges()
             return len(ready), None
+        self._export_doc_gauges()
         return len(ready), BatchStage(self, rows, dirty)
 
     def pending_changes(self) -> int:
@@ -421,9 +465,15 @@ class DeviceDoc:
 
     def _take_ready(self, changes: Sequence) -> list:
         """Dedup + causal-order the incoming batch against what the log
-        already holds; buffer changes with missing deps."""
-        self._dedup_into_pending(changes)
-        return self._drain_ready_pending()
+        already holds; buffer changes with missing deps. The two halves
+        are timed apart (``device.stage.dedup`` /
+        ``device.stage.causal_order``); the cross-document staging
+        (``ops/host_batch.py``) calls them span-free and wraps each once
+        for a whole drain."""
+        with obs.span("device.stage.dedup", changes=len(changes)):
+            self._dedup_into_pending(changes)
+        with obs.span("device.stage.causal_order", pending=len(self._pending)):
+            return self._drain_ready_pending()
 
     def _dedup_into_pending(self, changes: Sequence) -> None:
         have = self._hash_index
@@ -449,6 +499,8 @@ class DeviceDoc:
                     ready_set.add(h)
                     del pend[h]
                     progress = True
+        if pend:
+            obs.count("device.apply_deferred", n=len(pend))
         return ready
 
     def _rebuild(self, changes: list) -> None:
@@ -456,10 +508,19 @@ class DeviceDoc:
         pend = self._pending
         mesh = self._mesh, self._mesh_min_rows
         log = OpLog.from_changes(changes)
-        self.__init__(log, _resolve_log(log, self.device, staging=self.staging),
-                      self.device, self.staging)
+        obs.count("device.kernel_launches", labels={"path": "per_doc"})
+        _prof.note("launches")
+        with _prof.annotate("amtpu.rebuild"):
+            res = _resolve_log(log, self.device, staging=self.staging)
+        self.__init__(log, res, self.device, self.staging)
         self._pending = pend
         self._mesh, self._mesh_min_rows = mesh
+        self._export_doc_gauges()
+
+    # the document's label on the per-document gauges (doc.resident_ops,
+    # doc.device_bytes, doc.compress_ratio): set by whoever serves this
+    # resident document under a name; None (the default) exports nothing
+    obs_name = None
 
     # -- residency (ops/compressed.py) --------------------------------------
 
@@ -512,6 +573,21 @@ class DeviceDoc:
             return []  # dense mode is the oracle: nothing is encoded
         return comp.verify_against(self.log)
 
+    def _export_doc_gauges(self) -> None:
+        if self.obs_name is None:
+            return
+        labels = {"doc": self.obs_name}
+        obs.gauge_set("doc.resident_ops", self.log.n, labels=labels)
+        # the true resident bytes (the compressed image a drain ships),
+        # not the dense equivalent; the ratio rides along
+        resident = self.resident_nbytes()
+        obs.gauge_set("doc.device_bytes", resident, labels=labels)
+        obs.gauge_set(
+            "doc.compress_ratio",
+            round(self.dense_nbytes() / resident, 4) if resident else 1.0,
+            labels=labels,
+        )
+
     def _apply_append(self, info, ready: Sequence) -> None:
         """Splice the resolution arrays and host caches through an
         AppendInfo (positions move; values of clean objects are reused)."""
@@ -538,110 +614,111 @@ class DeviceDoc:
             if info.actors_changed:
                 self._all_elems_cache.clear()
             return
-        nr = np.asarray(info.new_rows, np.int64)
-        mk = nr[np.isin(np.asarray(log.action)[nr], MAKE_ACTIONS)]
-        for r in mk:
-            self._obj_type[int(log.id_key[r])] = objtype_for_action(int(log.action[r]))
+        with obs.span("device.materialize", rows=info.n_new):
+            nr = np.asarray(info.new_rows, np.int64)
+            mk = nr[np.isin(np.asarray(log.action)[nr], MAKE_ACTIONS)]
+            for r in mk:
+                self._obj_type[int(log.id_key[r])] = objtype_for_action(int(log.action[r]))
 
-        # resolution arrays: old values carried, positions remapped; the
-        # new rows' objects are all dirty and re-resolved next.
-        # Capacity-bucketed buffers make the tail append O(delta): only the
-        # k new slots are written.
-        win_old = self.winner
-        if rm is not None:
-            safe = max(n_old - 1, 0)
-            win_old = np.where(
-                self.winner >= 0, rm[np.clip(self.winner, 0, safe)], -1
-            ).astype(np.int32)
-        vis = self._res_splice("visible", np.asarray(self.visible, np.bool_),
-                               m, rm, n_old, False)
-        win = self._res_splice("winner", np.asarray(win_old, np.int32),
-                               m, rm, n_old, -1)
-        con = self._res_splice("conflicts", np.asarray(self.conflicts, np.int32),
-                               m, rm, n_old, 0)
-        ei = self._res_splice("elem_index", np.asarray(self.elem_index, np.int32),
-                              m, rm, n_old, -1)
-        orm = info.obj_remap
-        n_objs_old = len(orm) if orm is not None else log.n_objs
-        ovl = np.zeros(log.n_objs + 2, np.int32)
-        otw = np.zeros(log.n_objs + 2, np.int32)
-        old_ovl = np.asarray(self.res["obj_vis_len"])
-        old_otw = np.asarray(self.res["obj_text_width"])
-        take = min(n_objs_old, len(old_ovl))
-        if orm is None:
-            ovl[:take] = old_ovl[:take]
-            otw[:take] = old_otw[:take]
-        else:
-            ovl[orm[:take]] = old_ovl[:take]
-            otw[orm[:take]] = old_otw[:take]
-        self.res = {
-            "visible": vis, "winner": win, "conflicts": con,
-            "elem_index": ei, "obj_vis_len": ovl, "obj_text_width": otw,
-        }
-        self.visible = vis
-        self.winner = win
-        self.conflicts = con
-        self.elem_index = ei
-        # the base covers every op, the new ones too
-        self.covered = self._res_splice("covered", self.covered, m, rm, n_old,
-                                        True)
+            # resolution arrays: old values carried, positions remapped; the
+            # new rows' objects are all dirty and re-resolved next.
+            # Capacity-bucketed buffers make the tail append O(delta): only the
+            # k new slots are written.
+            win_old = self.winner
+            if rm is not None:
+                safe = max(n_old - 1, 0)
+                win_old = np.where(
+                    self.winner >= 0, rm[np.clip(self.winner, 0, safe)], -1
+                ).astype(np.int32)
+            vis = self._res_splice("visible", np.asarray(self.visible, np.bool_),
+                                   m, rm, n_old, False)
+            win = self._res_splice("winner", np.asarray(win_old, np.int32),
+                                   m, rm, n_old, -1)
+            con = self._res_splice("conflicts", np.asarray(self.conflicts, np.int32),
+                                   m, rm, n_old, 0)
+            ei = self._res_splice("elem_index", np.asarray(self.elem_index, np.int32),
+                                  m, rm, n_old, -1)
+            orm = info.obj_remap
+            n_objs_old = len(orm) if orm is not None else log.n_objs
+            ovl = np.zeros(log.n_objs + 2, np.int32)
+            otw = np.zeros(log.n_objs + 2, np.int32)
+            old_ovl = np.asarray(self.res["obj_vis_len"])
+            old_otw = np.asarray(self.res["obj_text_width"])
+            take = min(n_objs_old, len(old_ovl))
+            if orm is None:
+                ovl[:take] = old_ovl[:take]
+                otw[:take] = old_otw[:take]
+            else:
+                ovl[orm[:take]] = old_ovl[:take]
+                otw[orm[:take]] = old_otw[:take]
+            self.res = {
+                "visible": vis, "winner": win, "conflicts": con,
+                "elem_index": ei, "obj_vis_len": ovl, "obj_text_width": otw,
+            }
+            self.visible = vis
+            self.winner = win
+            self.conflicts = con
+            self.elem_index = ei
+            # the base covers every op, the new ones too
+            self.covered = self._res_splice("covered", self.covered, m, rm, n_old,
+                                            True)
 
-        # successor bookkeeping and exact counter totals ride the same
-        # splice, then absorb the delta's edges (kept fresh whichever
-        # resolution path runs)
-        self.succ_count = self._res_splice("succ_count", self.succ_count,
-                                           m, rm, n_old, 0)
-        self.inc_count = self._res_splice("inc_count", self.inc_count,
-                                          m, rm, n_old, 0)
-        value_int = np.asarray(log.value_int)
-        cv = self._res_splice("counter_val", self.counter_val, m, rm, n_old, 0)
-        cv[nr] = value_int[nr]
-        self.counter_val = cv
-        ps = np.asarray(log.pred_src)
-        pt = np.asarray(log.pred_tgt)
-        eidx = np.concatenate([
-            np.arange(info.n_pred_old, len(ps), dtype=np.int64),
-            np.asarray(info.rere_pred_edges, np.int64),
-        ])
-        if len(eidx):
-            src = ps[eidx]
-            tgt = pt[eidx]
-            ok = tgt >= 0
-            src, tgt = src[ok], tgt[ok]
-            is_inc = np.asarray(log.action)[src] == Action.INCREMENT
-            np.add.at(self.succ_count, tgt[~is_inc], 1)
-            np.add.at(self.inc_count, tgt[is_inc], 1)
-            np.add.at(self.counter_val, tgt[is_inc], value_int[src[is_inc]])
+            # successor bookkeeping and exact counter totals ride the same
+            # splice, then absorb the delta's edges (kept fresh whichever
+            # resolution path runs)
+            self.succ_count = self._res_splice("succ_count", self.succ_count,
+                                               m, rm, n_old, 0)
+            self.inc_count = self._res_splice("inc_count", self.inc_count,
+                                              m, rm, n_old, 0)
+            value_int = np.asarray(log.value_int)
+            cv = self._res_splice("counter_val", self.counter_val, m, rm, n_old, 0)
+            cv[nr] = value_int[nr]
+            self.counter_val = cv
+            ps = np.asarray(log.pred_src)
+            pt = np.asarray(log.pred_tgt)
+            eidx = np.concatenate([
+                np.arange(info.n_pred_old, len(ps), dtype=np.int64),
+                np.asarray(info.rere_pred_edges, np.int64),
+            ])
+            if len(eidx):
+                src = ps[eidx]
+                tgt = pt[eidx]
+                ok = tgt >= 0
+                src, tgt = src[ok], tgt[ok]
+                is_inc = np.asarray(log.action)[src] == Action.INCREMENT
+                np.add.at(self.succ_count, tgt[~is_inc], 1)
+                np.add.at(self.inc_count, tgt[is_inc], 1)
+                np.add.at(self.counter_val, tgt[is_inc], value_int[src[is_inc]])
 
-        # object-sorted row index: merge the (already sorted) old order
-        # with the delta's rows, no full argsort
-        old_rbo = self._rows_by_obj
-        if rm is not None:
-            old_rbo = rm[old_rbo]
-        obj_key = np.asarray(log.obj_key)
-        old_keys = obj_key[old_rbo]
-        d_keys = obj_key[nr]
-        ordx = np.lexsort((nr, d_keys))
-        d_rows = nr[ordx]
-        d_keys = d_keys[ordx]
-        pos = np.searchsorted(old_keys, d_keys, side="right")
-        cnt = np.bincount(pos, minlength=n_old + 1)
-        rbo = np.empty(m, np.int64)
-        keys = np.empty(m, np.int64)
-        old_pos = np.arange(n_old, dtype=np.int64) + np.cumsum(cnt[:n_old])
-        rbo[old_pos] = old_rbo
-        keys[old_pos] = old_keys
-        new_pos = pos + np.arange(len(d_rows), dtype=np.int64)
-        rbo[new_pos] = d_rows
-        keys[new_pos] = d_keys
-        self._rows_by_obj = rbo
-        self._obj_sorted = keys
+            # object-sorted row index: merge the (already sorted) old order
+            # with the delta's rows, no full argsort
+            old_rbo = self._rows_by_obj
+            if rm is not None:
+                old_rbo = rm[old_rbo]
+            obj_key = np.asarray(log.obj_key)
+            old_keys = obj_key[old_rbo]
+            d_keys = obj_key[nr]
+            ordx = np.lexsort((nr, d_keys))
+            d_rows = nr[ordx]
+            d_keys = d_keys[ordx]
+            pos = np.searchsorted(old_keys, d_keys, side="right")
+            cnt = np.bincount(pos, minlength=n_old + 1)
+            rbo = np.empty(m, np.int64)
+            keys = np.empty(m, np.int64)
+            old_pos = np.arange(n_old, dtype=np.int64) + np.cumsum(cnt[:n_old])
+            rbo[old_pos] = old_rbo
+            keys[old_pos] = old_keys
+            new_pos = pos + np.arange(len(d_rows), dtype=np.int64)
+            rbo[new_pos] = d_rows
+            keys[new_pos] = d_keys
+            self._rows_by_obj = rbo
+            self._obj_sorted = keys
 
-        if info.tail and not info.actors_changed:
-            for d in np.asarray(info.dirty_objs):
-                self._all_elems_cache.pop(int(log.obj_table[d]), None)
-        else:
-            self._all_elems_cache.clear()
+            if info.tail and not info.actors_changed:
+                for d in np.asarray(info.dirty_objs):
+                    self._all_elems_cache.pop(int(log.obj_table[d]), None)
+            else:
+                self._all_elems_cache.clear()
 
     # host delta resolution ---------------------------------------------------
     #
@@ -689,77 +766,79 @@ class DeviceDoc:
         if len(c_seq) and np.any(~insert[c_seq] & (er[c_seq] < 0)):
             return False  # sentinel-keyed update groups: let the kernel decide
 
-        # group membership (two vectorized passes over the columns)
-        heads = np.unique(np.where(insert[c_seq], c_seq, er[c_seq]))
-        member = np.zeros(m, np.bool_)
-        if len(heads):
-            head_mask = np.zeros(m, np.bool_)
-            head_mask[heads] = True
-            member |= head_mask
-            member |= (~insert) & (er >= 0) & head_mask[np.clip(er, 0, m - 1)]
-        n_props = max(len(log.props), 1)
-        if np.any(c_map):
-            mkeys = np.unique(
-                od[cand[c_map]].astype(np.int64) * n_props + prop[cand[c_map]]
+        with obs.span("device.delta_resolve", rows=len(cand)):
+            # group membership (two vectorized passes over the columns)
+            heads = np.unique(np.where(insert[c_seq], c_seq, er[c_seq]))
+            member = np.zeros(m, np.bool_)
+            if len(heads):
+                head_mask = np.zeros(m, np.bool_)
+                head_mask[heads] = True
+                member |= head_mask
+                member |= (~insert) & (er >= 0) & head_mask[np.clip(er, 0, m - 1)]
+            n_props = max(len(log.props), 1)
+            if np.any(c_map):
+                mkeys = np.unique(
+                    od[cand[c_map]].astype(np.int64) * n_props + prop[cand[c_map]]
+                )
+                gid_all = od.astype(np.int64) * n_props + prop
+                pos = np.searchsorted(mkeys, gid_all)
+                posc = np.clip(pos, 0, len(mkeys) - 1)
+                member |= (prop >= 0) & (mkeys[posc] == gid_all)
+            rows = np.flatnonzero(member)
+
+            # visibility over the affected rows (the succ_vis rule; the
+            # current state covers every op)
+            vt = np.asarray(log.value_tag)
+            act = action[rows]
+            never = ((act == Action.DELETE) | (act == Action.INCREMENT)
+                     | (act == Action.MARK))
+            is_counter = (act == Action.PUT) & (vt[rows] == TAG_COUNTER)
+            sc = self.succ_count[rows]
+            ic = self.inc_count[rows]
+            vis = ~never & np.where(is_counter, sc == 0, (sc + ic) == 0)
+            self.visible[rows] = vis
+
+            # winners/conflicts per affected group (rows ascend = Lamport)
+            gkey = np.where(
+                prop[rows] >= 0,
+                np.int64(m) + od[rows].astype(np.int64) * n_props + prop[rows],
+                np.where(insert[rows], rows, er[rows].astype(np.int64)),
             )
-            gid_all = od.astype(np.int64) * n_props + prop
-            pos = np.searchsorted(mkeys, gid_all)
-            posc = np.clip(pos, 0, len(mkeys) - 1)
-            member |= (prop >= 0) & (mkeys[posc] == gid_all)
-        rows = np.flatnonzero(member)
+            order = np.argsort(gkey, kind="stable")
+            gs = gkey[order]
+            vs = vis[order]
+            rr = rows[order]
+            newseg = np.concatenate([[True], gs[1:] != gs[:-1]])
+            seg = np.cumsum(newseg) - 1
+            nseg = int(seg[-1]) + 1 if len(seg) else 0
+            win = np.full(nseg, -1, np.int64)
+            np.maximum.at(win, seg, np.where(vs, rr, -1))
+            cnt = np.zeros(nseg, np.int64)
+            np.add.at(cnt, seg, vs.astype(np.int64))
 
-        # visibility over the affected rows (the succ_vis rule; the
-        # current state covers every op)
-        vt = np.asarray(log.value_tag)
-        act = action[rows]
-        never = ((act == Action.DELETE) | (act == Action.INCREMENT)
-                 | (act == Action.MARK))
-        is_counter = (act == Action.PUT) & (vt[rows] == TAG_COUNTER)
-        sc = self.succ_count[rows]
-        ic = self.inc_count[rows]
-        vis = ~never & np.where(is_counter, sc == 0, (sc + ic) == 0)
-        self.visible[rows] = vis
+            # per-object stats adjust by the member elements' before/after
+            # contributions: winners only ever change inside member groups
+            el_rows = rr[insert[rr]]
+            w = np.asarray(log.width)
+            wold = self.winner[el_rows]
+            old_len = wold >= 0
+            old_w = np.where(old_len, w[np.clip(wold, 0, m - 1)], 0)
 
-        # winners/conflicts per affected group (rows ascend = Lamport)
-        gkey = np.where(
-            prop[rows] >= 0,
-            np.int64(m) + od[rows].astype(np.int64) * n_props + prop[rows],
-            np.where(insert[rows], rows, er[rows].astype(np.int64)),
-        )
-        order = np.argsort(gkey, kind="stable")
-        gs = gkey[order]
-        vs = vis[order]
-        rr = rows[order]
-        newseg = np.concatenate([[True], gs[1:] != gs[:-1]])
-        seg = np.cumsum(newseg) - 1
-        nseg = int(seg[-1]) + 1 if len(seg) else 0
-        win = np.full(nseg, -1, np.int64)
-        np.maximum.at(win, seg, np.where(vs, rr, -1))
-        cnt = np.zeros(nseg, np.int64)
-        np.add.at(cnt, seg, vs.astype(np.int64))
+            self.winner[rr] = win[seg]
+            self.conflicts[rr] = cnt[seg]
 
-        # per-object stats adjust by the member elements' before/after
-        # contributions: winners only ever change inside member groups
-        el_rows = rr[insert[rr]]
-        w = np.asarray(log.width)
-        wold = self.winner[el_rows]
-        old_len = wold >= 0
-        old_w = np.where(old_len, w[np.clip(wold, 0, m - 1)], 0)
+            wnew = self.winner[el_rows]
+            new_len = wnew >= 0
+            new_w = np.where(new_len, w[np.clip(wnew, 0, m - 1)], 0)
+            o = od[el_rows]
+            np.add.at(self.res["obj_vis_len"], o,
+                      new_len.astype(np.int32) - old_len.astype(np.int32))
+            np.add.at(self.res["obj_text_width"], o, (new_w - old_w).astype(np.int32))
 
-        self.winner[rr] = win[seg]
-        self.conflicts[rr] = cnt[seg]
-
-        wnew = self.winner[el_rows]
-        new_len = wnew >= 0
-        new_w = np.where(new_len, w[np.clip(wnew, 0, m - 1)], 0)
-        o = od[el_rows]
-        np.add.at(self.res["obj_vis_len"], o,
-                  new_len.astype(np.int32) - old_len.astype(np.int32))
-        np.add.at(self.res["obj_text_width"], o, (new_w - old_w).astype(np.int32))
-
-        # document order: splice the new subtrees in by anchor position
-        if len(ni):
-            self._splice_elem_order(ni)
+            # document order: splice the new subtrees in by anchor position
+            if len(ni):
+                self._splice_elem_order(ni)
+        obs.count("device.delta_resolve")
         return True
 
     def _splice_elem_order(self, ni: np.ndarray) -> None:
@@ -916,11 +995,18 @@ class DeviceDoc:
         if m == 0 or not len(dirty):
             return
         rows = self._subset_rows(dirty)
-        if len(rows) / m > DIRTY_FRACTION_LIMIT or len(dirty) >= log.n_objs:
+        frac = len(rows) / m
+        if frac > DIRTY_FRACTION_LIMIT or len(dirty) >= log.n_objs:
             # re-resolving everything is cheaper than the bookkeeping
+            obs.count("device.reresolve_full")
+            obs.event("device.reresolve", mode="full", rows=m,
+                      dirty_rows=len(rows), frac=round(frac, 4))
             res = self._mesh_resolve()
             if res is None:
-                res = _resolve_log(log, self.device, staging=self.staging)
+                obs.count("device.kernel_launches", labels={"path": "per_doc"})
+                _prof.note("launches")
+                with _prof.annotate("amtpu.reresolve_full"):
+                    res = _resolve_log(log, self.device, staging=self.staging)
             for k in ("visible", "winner", "conflicts", "elem_index"):
                 self.res[k][:] = np.asarray(res[k])[:m]
             for k in ("obj_vis_len", "obj_text_width"):
@@ -928,12 +1014,19 @@ class DeviceDoc:
                 take = min(len(v), len(self.res[k]))
                 self.res[k][:take] = v[:take]
             return
-        res_sub = merge_columns(
-            self._subset_cols(rows, dirty), fetch=self.READ_FETCH,
-            n_objs=len(dirty), n_props=len(log.props), device=self.device,
-            staging=self.staging,
-        )
-        self._scatter_subset(rows, dirty, res_sub)
+        obs.count("device.reresolve_subset")
+        obs.event("device.reresolve", mode="subset", rows=m,
+                  dirty_rows=len(rows), frac=round(frac, 4))
+        cols = self._subset_cols(rows, dirty)
+        obs.count("device.kernel_launches", labels={"path": "per_doc"})
+        _prof.note("launches")
+        with _prof.annotate("amtpu.reresolve_subset"):
+            res_sub = merge_columns(
+                cols, fetch=self.READ_FETCH, n_objs=len(dirty),
+                n_props=len(log.props), device=self.device, staging=self.staging,
+            )
+        with obs.span("device.scatter", rows=len(rows)):
+            self._scatter_subset(rows, dirty, res_sub)
 
     # -- mesh residency -------------------------------------------------------
     #
@@ -959,6 +1052,7 @@ class DeviceDoc:
             raise ValueError("enable_mesh on a historical view; use the base doc")
         mesh = default_mesh(n_devices, devices)
         if mesh.size < 2:
+            obs.count("device.mesh_unavailable", labels={"reason": "single_device"})
             raise ValueError(f"enable_mesh needs two shards or more, got {mesh.size}")
         self._mesh = mesh
         self._mesh_min_rows = int(min_rows)
@@ -978,9 +1072,10 @@ class DeviceDoc:
         from ..parallel import sharded_merge_columns
 
         log = self.log
-        return sharded_merge_columns(
-            pad_columns(log.columns(), log.n_objs), mesh=self._mesh,
-            n_objs=log.n_objs, n_props=len(log.props))
+        with obs.span("device.mesh_resolve", rows=log.n):
+            return sharded_merge_columns(
+                pad_columns(log.columns(), log.n_objs), mesh=self._mesh,
+                n_objs=log.n_objs, n_props=len(log.props))
 
     # staged async subset resolution (apply_batches) --------------------------
 
@@ -1006,17 +1101,25 @@ class DeviceDoc:
         with _stage(phases, "subset"):
             cols = pad_columns(self._subset_cols(rows, dirty), D)
         with _stage(phases, "launch"):
-            out = prepare_resolution(cols, D, len(log.props), self.device,
-                                     self.staging)()
+            dispatch = prepare_resolution(cols, D, len(log.props), self.device,
+                                          self.staging)
+            obs.count("device.kernel_launches", labels={"path": "per_doc"})
+            _prof.note("launches")
+            # queued without a sync (document order included: the linearize
+            # kernel); the readback in _collect_async holds the wait
+            with obs.span("device.kernel", rows=len(cols["action"])), \
+                    _prof.annotate("amtpu.dispatch_async"):
+                out = dispatch()
         return {"rows": rows, "dirty": dirty,
                 "out": {k: out[k] for k in self.READ_FETCH}}
 
     def _collect_async(self, handle, phases=None) -> None:
         if handle is None:
             return
-        with _stage(phases, "readback"):
+        S = len(handle["rows"])
+        with _stage(phases, "readback"), obs.span("device.readback", rows=S):
             res_sub = {k: v.cpu().numpy() for k, v in handle["out"].items()}
-        with _stage(phases, "scatter"):
+        with _stage(phases, "scatter"), obs.span("device.scatter", rows=S):
             self._scatter_subset(handle["rows"], handle["dirty"], res_sub)
 
     # -- historical views -----------------------------------------------------
@@ -1062,11 +1165,14 @@ class DeviceDoc:
         if view is None:
             log = base.log
             covered = log.covered_mask(base._clock_vec(heads))
-            res = merge_columns(
-                log.padded_columns(covered=covered), fetch=self.VIEW_FETCH,
-                n_objs=log.n_objs, n_props=len(log.props), device=base.device,
-                staging=base.staging, phases=phases,
-            )
+            obs.count("device.kernel_launches", labels={"path": "per_doc"})
+            _prof.note("launches")
+            with _prof.annotate("amtpu.at_view"):
+                res = merge_columns(
+                    log.padded_columns(covered=covered), fetch=self.VIEW_FETCH,
+                    n_objs=log.n_objs, n_props=len(log.props),
+                    device=base.device, staging=base.staging, phases=phases,
+                )
             view = DeviceDoc(log, res, covered=covered, base=base)
             base._views[key] = view
         return view

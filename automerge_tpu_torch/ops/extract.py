@@ -130,8 +130,11 @@ def _decode_pool():
     return _POOL
 
 
-def _strtab_decode(buf: bytes, off, ln, row_off, nc: int, n_rows: int):
-    """Drive am_rle_decode_batch_strtab: (ids per row, string table)."""
+def _strtab_decode(buf: bytes, off, ln, row_off, nc: int, n_rows: int,
+                   strict: bool = False):
+    """Drive am_rle_decode_batch_strtab: (ids per row, string table).
+    ``strict`` refuses rows past a change's row count instead of cutting
+    them (a document chunk's key-string column, as the reference does)."""
     lib = native.load()
     ids = np.empty(max(n_rows, 1), np.int32)
     max_tab = max(n_rows, 1)  # each distinct string takes at least one row
@@ -141,7 +144,7 @@ def _strtab_decode(buf: bytes, off, ln, row_off, nc: int, n_rows: int):
     tn = lib.am_rle_decode_batch_strtab(
         native._u8(bufa), native._i64(off), native._i64(ln),
         native._i64(row_off), nc, native._i32(ids), native._i64(tab_off),
-        native._i64(tab_len), max_tab,
+        native._i64(tab_len), max_tab, int(strict),
     )
     if tn < 0:
         raise ExtractError(f"malformed string column ({tn})")
@@ -496,16 +499,19 @@ def doc_op_arrays(col_data) -> Dict[str, object]:
     insert = bools(col(D.OP_INSERT))
     expand = bools(col(D.OP_EXPAND))
 
-    def strtab(buf):
+    def strtab(buf, strict):
         if not len(buf):
             return np.full(n, -1, np.int32), []
         return _strtab_decode(
             buf, np.zeros(1, np.int64), np.asarray([len(buf)], np.int64),
-            np.asarray([0, n], np.int64), 1, n,
+            np.asarray([0, n], np.int64), 1, n, strict,
         )
 
-    key_ids, key_table = strtab(col(D.OP_KEY_STR))
-    mark_ids, mark_table = strtab(col(D.OP_MARK_NAME))
+    # a key-string column past the action column's rows is refused (the
+    # per-op decoder then raises as the reference's does); the mark-name
+    # column's tail is ignored by both decoders, so it keeps its cut
+    key_ids, key_table = strtab(col(D.OP_KEY_STR), True)
+    mark_ids, mark_table = strtab(col(D.OP_MARK_NAME), False)
 
     vm, vmm = pad_to_n(*rle_full(col(D.OP_VAL_META)))
     if not vmm.all():

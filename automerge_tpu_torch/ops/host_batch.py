@@ -39,10 +39,13 @@ drops it.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
+from ..obs import prof as _prof
 from ..types import ACTOR_BITS, Action, ActorId, objtype_for_action
 from . import compressed as _C
 from .device_doc import DIRTY_FRACTION_LIMIT, _parsed, _stage
@@ -83,13 +86,14 @@ class _DocPlan:
     """One document's slot in the shared staging pass."""
 
     __slots__ = (
-        "dev", "ready", "c0", "c1", "r0", "r1", "p0", "p1", "k",
+        "dev", "ready", "label", "c0", "c1", "r0", "r1", "p0", "p1", "k",
         "rank_of", "all_bytes", "actors_changed",
     )
 
-    def __init__(self, dev, ready):
+    def __init__(self, dev, ready, label=None):
         self.dev = dev
         self.ready = ready
+        self.label = label
         self.c0 = self.c1 = self.r0 = self.r1 = self.p0 = self.p1 = 0
         self.k = 0
         # the document's actor universe after this delta: new actors
@@ -110,7 +114,7 @@ class DocResult:
         self.vectorized = False
 
 
-def _admit(dev, ready) -> Optional[_DocPlan]:
+def _admit(dev, ready, label=None) -> Optional[_DocPlan]:
     """The fast path's admission: every assumption its splice relies on,
     checked before anything is touched. Returns the document's plan (with
     its actor universe) or None for the scalar path."""
@@ -124,7 +128,7 @@ def _admit(dev, ready) -> Optional[_DocPlan]:
             return None
     if not log._ensure_ref_keys():
         return None
-    p = _DocPlan(dev, ready)
+    p = _DocPlan(dev, ready, label)
     old_rank = dev._rank_of
     delta_bytes = {bytes(a) for ch in ready for a in ch.actors}
     if delta_bytes <= old_rank.keys():
@@ -211,7 +215,9 @@ def stage_docs(work, vectorized: Optional[bool] = None, phases=None
 
     if vectorized is None:
         vectorized = VECTORIZED
-    with _stage(phases, "dedup"):
+    # dedup, causal order and admission: one span each for the whole drain
+    with _stage(phases, "dedup"), obs.span(
+            "device.stage.dedup", docs=len(work) if isinstance(work, list) else 0):
         merged: Dict[int, tuple] = {}
         order: List[int] = []
         for dev, batches in work:
@@ -228,75 +234,101 @@ def stage_docs(work, vectorized: Optional[bool] = None, phases=None
             dev, batches = merged[key]
             dev._dedup_into_pending(_parsed([ch for b in batches for ch in b]))
     vec: List[_DocPlan] = []
-    scalar: List[tuple] = []  # (key, dev, ready)
-    with _stage(phases, "causal_order"):
-        for key in order:
+    scalar: List[tuple] = []  # (key, dev, ready, label)
+    with _stage(phases, "causal_order"), obs.span(
+            "device.stage.causal_order", docs=len(order)):
+        for i, key in enumerate(order):
             dev = merged[key][0]
             ready = dev._drain_ready_pending()
             if not ready:
                 continue
-            plan = _admit(dev, ready) if vectorized else None
+            label = getattr(dev, "obs_name", None) or f"doc{i}"
+            plan = _admit(dev, ready, label) if vectorized else None
             if plan is not None:
                 vec.append(plan)
                 results[key].vectorized = True
             else:
-                scalar.append((key, dev, ready))
+                scalar.append((key, dev, ready, label))
 
     def demote(plans):
         for p in plans:
             results[id(p.dev)].vectorized = False
-            scalar.append((id(p.dev), p.dev, p.ready))
+            scalar.append((id(p.dev), p.dev, p.ready, p.label))
         batched.count("demoted_docs", len(plans))
 
     stages: List = []
     pending_reresolve: List[tuple] = []  # (plan, dirty)
     g = None
     if vec:
-        with _stage(phases, "host_pack"):
+        with _stage(phases, "host_pack"), obs.span("host.pack", docs=len(vec)):
             g = _pack_global(vec)
         if g is None:
             demote(vec)
+            obs.count("host_batch.fallback_docs",
+                      n=len(vec), labels={"reason": "extract"})
             vec = []
     if vec:
-        with _stage(phases, "host_sort"):
+        with _stage(phases, "host_sort"), obs.span(
+                "host.sort", rows=g["N"], docs=len(vec)):
             demoted = _sort_global(vec, g)
         demote(demoted)
+        if demoted:
+            obs.count("host_batch.fallback_docs",
+                      n=len(demoted), labels={"reason": "order"})
         dem_ids = {id(p) for p in demoted}
         vec = [p for p in vec if id(p) not in dem_ids]
     if vec:
-        with _stage(phases, "host_splice"):
+        rows_total = spliced = 0
+        with _stage(phases, "host_splice"), obs.span("host.splice", docs=len(vec)):
             for p in vec:
                 res = results[id(p.dev)]
+                t0 = time.perf_counter()
                 try:
                     outcome = _splice_doc(p, g)
                 except Exception as e:  # noqa: BLE001 - isolate the document
                     res.error = e
+                    obs.count("host_batch.fallback_docs",
+                              labels={"reason": "error"})
                     continue
+                finally:
+                    _prof.note_doc(p.label, time.perf_counter() - t0)
                 kind = outcome[0]
                 if kind == "scalar":
                     # a check before any mutation failed: the scalar path takes it
                     demote([p])
                     continue
                 res.applied = len(p.ready)
+                rows_total += p.k
+                spliced += 1
                 if kind == "stage":
                     stages.append(BatchStage(p.dev, outcome[1], outcome[2]))
                 elif kind == "reresolve":
                     pending_reresolve.append((p, outcome[1]))
+        obs.count("oplog.append_rows", n=rows_total)
+        obs.count("host_batch.docs", n=spliced)
+        obs.event("host_batch.splice", docs=spliced, rows=rows_total)
+    # the per-document device work runs outside the host spans, so its
+    # kernel spans attribute to the device side of a cycle's split
     with _stage(phases, "reresolve"):
         for p, dirty in pending_reresolve:
+            t0 = time.perf_counter()
             try:
                 p.dev._reresolve(dirty)
+                p.dev._export_doc_gauges()
             except Exception as e:  # noqa: BLE001 - isolate the document
                 results[id(p.dev)].error = e
+            _prof.note_doc(p.label, time.perf_counter() - t0)
     with _stage(phases, "scalar"):
-        for key, dev, ready in scalar:
+        for key, dev, ready, label in scalar:
             res = results[key]
+            t0 = time.perf_counter()
             try:
                 res.applied, st = dev.stage_ready(ready)
                 if st is not None:
                     stages.append(st)
             except Exception as e:  # noqa: BLE001 - isolate the document
                 res.error = e
+            _prof.note_doc(label, time.perf_counter() - t0)
     batched.count("vectorized_docs", sum(r.vectorized for r in results.values()))
     batched.count("scalar_docs", len(scalar))
     return stages, results
@@ -494,6 +526,7 @@ def _splice_doc(p: _DocPlan, g):
         add = np.unique(np.concatenate(add_parts))
     if len(add) and int(add[0]) <= int(old_table[-1]):
         # a new object id inside the table would renumber resident rows
+        obs.count("host_batch.fallback_docs", labels={"reason": "obj_order"})
         return ("scalar",)
     m = n + k
 
@@ -549,7 +582,7 @@ def _splice_doc(p: _DocPlan, g):
     # -- row-reference columns, through the id join
     def _id_join(keys):
         if idruns is not None:
-            _C.count("ovc_join", len(keys))
+            obs.count("oplog.ovc_join", n=len(keys))
             return idruns.join(keys, ELEM_MISSING)
         return join_rows(id_new, keys, ELEM_MISSING)
 

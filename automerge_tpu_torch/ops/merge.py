@@ -50,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from .. import obs
 from ..convert import columns_from_numpy
 from ..device import resolve_device
 from ..kernels.emit_packed import BIT_OUTPUTS, OBJ_STATS, emit_packed
@@ -60,6 +61,7 @@ from ..kernels.linearize_condensed import linearize_condensed
 from ..kernels.scatter_winners import scatter_winners
 from ..kernels.sort_winners import sort_winners
 from ..kernels.succ_vis import succ_vis
+from ..obs import prof as _prof
 from .compressed import run_gate
 from .oplog import _capacity, _next_pow2, pad_columns
 
@@ -275,7 +277,12 @@ def _run_table(encs, n: int, rcap: int):
 
 def _note_h2d(phases, actual: int, dense: int) -> None:
     """Byte accounting of every staging: the bytes copied to the card and
-    the bytes the dense columns would have taken."""
+    the bytes the dense columns would have taken (the ``obs`` counter
+    pair, the cycle profiler's notes and ``phases``)."""
+    obs.count("device.h2d_bytes", n=actual)
+    obs.count("device.h2d_dense_bytes", n=dense)
+    _prof.note("h2d_bytes", actual)
+    _prof.note("h2d_dense_bytes", dense)
     _count(phases, "h2d_bytes", actual)
     _count(phases, "h2d_dense_bytes", dense)
 
@@ -295,16 +302,31 @@ def _encode_columns(cols_np, run_native: bool):
     ``compressed.run_gate``. Returns the dense {name: array} and the coded
     columns grouped into stacks, {key: [(name, (w, cum, slope), is_bool)]}
     keyed by length, or for the run-native staging by (length, "rle" |
-    "delta")."""
+    "delta"). A coded column's demotion counts as
+    ``oplog.compress_fallback{column,reason=h2d}``; on the run-native
+    staging every dense column counts as
+    ``device.run_native_fallback{column,reason}`` (short, dtype, ratio)."""
     dense, groups = {}, {}
     for k, v in cols_np.items():
         n = len(v)
         enc = None
-        if n >= 32 and v.dtype in (np.int32, np.bool_):
+        reason = None
+        if n < 32:
+            reason = "short"
+        elif v.dtype not in (np.int32, np.bool_):
+            reason = "dtype"
+        else:
             enc = _slope_rle(v if v.dtype == np.int32 else v.astype(np.int32))
             if run_native and enc is not None and run_gate(len(enc[0]), n):
                 enc = None
+            if enc is None:
+                reason = "ratio"
+                obs.count("oplog.compress_fallback",
+                          labels={"column": k, "reason": "h2d"})
         if enc is None:
+            if run_native:
+                obs.count("device.run_native_fallback",
+                          labels={"column": k, "reason": reason})
             dense[k] = v
             continue
         key = (n, "rle" if enc[2] == 0 else "delta") if run_native else n
@@ -327,20 +349,24 @@ def stage_cols_device(cols_np, device, phases=None):
     dense. Returns {name: tensor} on ``device``."""
     dev = torch.device(device)
     cols_np = {k: np.asarray(v) for k, v in cols_np.items()}
+    P = len(cols_np["action"])
     with _phase(phases, "encode", dev):
         dense, groups = _encode_columns(cols_np, run_native=False)
         stacks = [(n, cols, _stack(n, cols)[1:]) for n, cols in groups.items()]
-    with _phase(phases, "h2d", dev):
+    h2d_bytes = (sum(v.nbytes for v in dense.values())
+                 + sum(a.nbytes for _, _, arrs in stacks for a in arrs))
+    with _phase(phases, "h2d", dev), obs.span("device.h2d", rows=P,
+                                              bytes=h2d_bytes):
         out = columns_from_numpy(dense, dev)
         dev_stacks = [(n, cols, _to_device(arrs, dev)) for n, cols, arrs in stacks]
-    with _phase(phases, "expand", dev):
-        for n, cols, (W, C, S) in dev_stacks:
-            expanded = expand_runs(W, C, S, n, tuple(b for _, _, b in cols))
-            for (k, _, _), col in zip(cols, expanded):
-                out[k] = col
-    _note_h2d(phases, sum(v.nbytes for v in dense.values())
-              + sum(a.nbytes for _, _, arrs in stacks for a in arrs),
-              sum(v.nbytes for v in cols_np.values()))
+    if dev_stacks:
+        with _phase(phases, "expand", dev), obs.span(
+                "device.expand", rows=P, stacks=len(dev_stacks)):
+            for n, cols, (W, C, S) in dev_stacks:
+                expanded = expand_runs(W, C, S, n, tuple(b for _, _, b in cols))
+                for (k, _, _), col in zip(cols, expanded):
+                    out[k] = col
+    _note_h2d(phases, h2d_bytes, sum(v.nbytes for v in cols_np.values()))
     return out
 
 
@@ -356,6 +382,7 @@ def stage_cols_run_native(cols_np, device, phases=None):
     enc, names, bools)`` entry per stack."""
     dev = torch.device(device)
     cols_np = {k: np.asarray(v) for k, v in cols_np.items()}
+    P = len(cols_np["action"])
     with _phase(phases, "encode", dev):
         dense, groups = _encode_columns(cols_np, run_native=True)
         plan, host_stacks = [], []
@@ -364,12 +391,16 @@ def stage_cols_run_native(cols_np, device, phases=None):
             plan.append((n, rcap, cls, tuple(k for k, _, _ in cols),
                          tuple(b for _, _, b in cols)))
             host_stacks.append((W, C) if cls == "rle" else (W, C, S))
-    with _phase(phases, "h2d", dev):
+    h2d_bytes = (sum(v.nbytes for v in dense.values())
+                 + sum(a.nbytes for arrs in host_stacks for a in arrs))
+    dense_bytes = sum(v.nbytes for v in cols_np.values())
+    with _phase(phases, "h2d", dev), obs.span("device.h2d", rows=P,
+                                              bytes=h2d_bytes):
         dense_dev = columns_from_numpy(dense, dev)
         stacks = tuple(_to_device(arrs, dev) for arrs in host_stacks)
-    _note_h2d(phases, sum(v.nbytes for v in dense.values())
-              + sum(a.nbytes for arrs in host_stacks for a in arrs),
-              sum(v.nbytes for v in cols_np.values()))
+    _note_h2d(phases, h2d_bytes, dense_bytes)
+    obs.count("device.kernel_input_bytes", n=h2d_bytes)
+    obs.count("device.kernel_input_dense_bytes", n=dense_bytes)
     return dense_dev, stacks, tuple(plan)
 
 
@@ -420,15 +451,17 @@ def prepare_resolution(cols_np, n_objs=None, n_props=None, device=None,
     if staging == "run_native":
         dense, stacks, plan = stage_cols_run_native(cols_np, dev, phases)
         if plan:
+            obs.count("device.kernel_launches", labels={"path": "run_native"})
             fn = run_native_kernel(plan, geom)
             return lambda: fn(dense, stacks, phases)
         cols = dense  # nothing run-eligible: plain dense launch
     elif staging == "expand":
         cols = stage_cols_device(cols_np, dev, phases)
     elif staging == "dense":
-        with _phase(phases, "h2d", dev):
-            cols = columns_from_numpy(cols_np, dev)
         nbytes = sum(np.asarray(v).nbytes for v in cols_np.values())
+        with _phase(phases, "h2d", dev), obs.span("device.h2d", rows=P,
+                                                  bytes=nbytes):
+            cols = columns_from_numpy(cols_np, dev)
         _note_h2d(phases, nbytes, nbytes)
     else:
         raise ValueError(f"staging must be one of {STAGINGS}, not {staging!r}")
@@ -546,20 +579,25 @@ def _packed_merge(cols_np, fetch, n_objs, n_props, dev, phases=None):
     fetch = tuple(fetch)
     with _phase(phases, "encode", dev):
         static_key, arrays = encode_transport(cols_np)
-    with _phase(phases, "h2d", dev):
+    pk_bytes = sum(a.nbytes for a in arrays.values())
+    with _phase(phases, "h2d", dev), obs.span("device.h2d", rows=P,
+                                              bytes=pk_bytes):
         names = tuple(arrays)
         arrays_dev = dict(zip(names, _to_device([arrays[k] for k in names], dev)))
-    _note_h2d(phases, sum(a.nbytes for a in arrays.values()),
+    _note_h2d(phases, pk_bytes,
               sum(np.asarray(v).nbytes for v in cols_np.values()))
-    with _phase(phases, "expand", dev):
-        c = _unpack_transport(static_key, arrays_dev, P, Q)
-    core = merge_kernel(c, n_objs, n_props, phases)
-    with _phase(phases, "emit", dev):
-        flat_dev = emit_packed(core, fetch, obj_cap)
-    with _phase(phases, "readback", dev):
+    # the launches are queued without a sync; the readback holds the wait
+    with obs.span("device.kernel", rows=P):
+        with _phase(phases, "expand", dev):
+            c = _unpack_transport(static_key, arrays_dev, P, Q)
+        core = merge_kernel(c, n_objs, n_props, phases)
+        with _phase(phases, "emit", dev):
+            flat_dev = emit_packed(core, fetch, obj_cap)
+    with _phase(phases, "readback", dev), obs.span("device.readback", rows=P):
         flat = flat_dev.cpu().numpy()
     _count(phases, "d2h_bytes", flat.nbytes)
-    return _split_flat(flat, fetch, P, obj_cap)
+    with obs.span("device.materialize", rows=P):
+        return _split_flat(flat, fetch, P, obj_cap)
 
 
 def merge_columns(cols_np, fetch=None, n_objs=None, n_props=None, device=None,
@@ -606,8 +644,11 @@ def merge_columns(cols_np, fetch=None, n_objs=None, n_props=None, device=None,
         return _packed_merge(cols_np, need, n_objs, n_props, dev, phases)
     dispatch = prepare_resolution(cols_np, n_objs_eff, max(n_props_eff, 0), dev,
                                   staging, phases)
-    out = dispatch()
-    with _phase(phases, "readback", dev):
+    P = len(cols_np["action"])
+    # the launches are queued without a sync; the readback holds the wait
+    with obs.span("device.kernel", rows=P):
+        out = dispatch()
+    with _phase(phases, "readback", dev), obs.span("device.readback", rows=P):
         host = {}
         for k in need:
             v = out[k]

@@ -37,7 +37,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
-from .. import native
+from .. import native, obs
 from ..storage.change import StoredChange
 from ..types import ACTOR_BITS, ActorId, ScalarValue, str_width
 from . import compressed as C
@@ -188,15 +188,18 @@ class OpLog:
         """
         log, deduped, rank_of = cls._start(changes)
         if not fast:
-            return cls._collect(log, deduped, rank_of)
+            with obs.span("device.extract", changes=len(deduped)):
+                return cls._collect(log, deduped, rank_of)
         from . import assemble as A
 
         way = A.route(deduped)
         if way == A.ROUTE_OVERFLOW:
             raise A.AssembleError("counter outside packed range")
         if way == A.ROUTE_BATCH:
-            return cls._collect_fast(log, deduped, rank_of)
-        return A.assemble_log(log, deduped, rank_of)
+            with obs.span("device.extract", changes=len(deduped)):
+                return cls._collect_fast(log, deduped, rank_of)
+        with obs.span("device.extract", changes=len(deduped)):
+            return A.assemble_log(log, deduped, rank_of)
 
     @classmethod
     def from_documents(cls, docs: Sequence) -> "OpLog":
@@ -642,6 +645,7 @@ class OpLog:
             return AppendInfo(self.n, 0, np.empty(0, np.int64), None, True,
                               np.empty(0, np.int64), None, False)
         if not self._ensure_ref_keys():
+            obs.count("oplog.append_fallback", labels={"reason": "missing_refs"})
             return None
 
         # -- actor universe (monotone rank remap keeps old order sorted) --
@@ -652,6 +656,7 @@ class OpLog:
         if actors_changed:
             all_bytes = sorted(old_bytes_set | delta_bytes)
             if len(all_bytes) >= (1 << ACTOR_BITS):
+                obs.count("oplog.append_fallback", labels={"reason": "too_many_actors"})
                 return None
         else:
             all_bytes = old_bytes
@@ -674,7 +679,9 @@ class OpLog:
                 return np.asarray(key, np.int64)
 
         # -- extract ONLY the fresh changes -------------------------------
-        r = self._extract_delta(fresh, rank_of) if fast else _flatten(fresh, rank_of)
+        with obs.span("device.extract", changes=len(fresh)):
+            r = (self._extract_delta(fresh, rank_of) if fast
+                 else _flatten(fresh, rank_of))
         k = len(r["id_key"])
 
         n = self.n
@@ -691,11 +698,13 @@ class OpLog:
         order = np.argsort(r["id_key"], kind="stable")
         d_id = r["id_key"][order]
         if np.any(d_id[1:] == d_id[:-1]):
+            obs.count("oplog.append_fallback", labels={"reason": "dup_op_id"})
             return None  # duplicate op ids within the delta
         pos = np.searchsorted(old_id, d_id)
         if n:
             posc = np.clip(pos, 0, n - 1)
             if np.any(old_id[posc] == d_id):
+                obs.count("oplog.append_fallback", labels={"reason": "id_collision"})
                 return None  # an op id the log already holds
         tail = n == 0 or pos[0] == n
         m = n + k
@@ -745,7 +754,7 @@ class OpLog:
 
         def rows_of(keys):
             if idruns is not None:
-                C.count("ovc_join", len(keys))
+                obs.count("oplog.ovc_join", n=len(keys))
                 return idruns.join(keys, ELEM_MISSING)
             return join_rows(id_new, keys, ELEM_MISSING)
 
@@ -879,6 +888,11 @@ class OpLog:
             self._comp = None
         self.changes.extend(fresh)
         known.update(batch_seen)
+        obs.count("oplog.append_rows", n=k)
+        obs.event(
+            "oplog.append", rows=k, total=m, tail=int(tail),
+            dirty_objs=len(dirty), actors_changed=int(actors_changed),
+        )
         return AppendInfo(n, k, new_rows, row_map, tail, dirty, obj_remap,
                           actors_changed, n_pred_old=q,
                           rere_elem_rows=rere_rows, rere_pred_edges=rere_pred)

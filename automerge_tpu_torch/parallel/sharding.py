@@ -50,6 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..convert import columns_from_numpy
 from ..kernels import linearize as L
 from ..kernels.forest import forest
@@ -57,6 +58,7 @@ from ..kernels.scatter_winners import winners_gather, winners_partial
 from ..kernels.sharded import cond_expand, cond_init, cond_succ
 from ..kernels.sort_winners import sort_winners
 from ..kernels.succ_vis import succ_partial, visibility
+from ..obs import prof as _prof
 from ..ops.merge import ALL_OUTPUTS, _unpack_transport, encode_transport
 from ..ops.oplog import host_forest
 from . import collectives as C
@@ -340,28 +342,34 @@ def _run(mesh: Mesh, cols_np, n_objs2: int, n_props: int, transport: str,
     Pl = P // n
     Q = len(cols_np["pred_src"])
     Ql = Q // n
-    R2, cond_np = (condense_host(cols_np, n_objs2, n) if linearize == "condensed"
-                   else (0, None))
-    if transport == "packed":
-        # the run tables decoded on each device, the pred stream sliced
-        # per shard from the decoded columns
-        static_key, arrays = encode_transport(cols_np)
-        cols = C.replicate(mesh, lambda d: _unpack_transport(
-            static_key, {k: torch.from_numpy(v).to(d) for k, v in arrays.items()},
-            P, Q))
-        preds = C.per_shard(mesh, lambda i, d: tuple(
-            cols[d][k][i * Ql:(i + 1) * Ql] for k in ("pred_src", "pred_tgt")))
-    else:
-        rep = {k: v for k, v in cols_np.items() if COLUMN_SPECS[k] == REPLICATED}
-        cols = C.replicate(mesh, lambda d: columns_from_numpy(rep, d))
-        preds = C.per_shard(mesh, lambda i, d: tuple(
-            torch.from_numpy(np.ascontiguousarray(cols_np[k][i * Ql:(i + 1) * Ql],
-                                                  np.int32)).to(d)
-            for k in ("pred_src", "pred_tgt")))
-    cond = (C.replicate(mesh, lambda d: {k: torch.from_numpy(cond_np[k]).to(d)
-                                         for k in _COND_KEYS})
-            if cond_np is not None else None)
-    out = _sharded_merge(mesh, cols, preds, Pl, n_objs2, n_props, cond, R2 // n)
+    R2, cond_np = 0, None
+    if linearize == "condensed":
+        with obs.span("parallel.condense", rows=P):
+            R2, cond_np = condense_host(cols_np, n_objs2, n)
+    with obs.span("parallel.h2d", rows=P):
+        if transport == "packed":
+            # the run tables decoded on each device, the pred stream sliced
+            # per shard from the decoded columns
+            static_key, arrays = encode_transport(cols_np)
+            cols = C.replicate(mesh, lambda d: _unpack_transport(
+                static_key, {k: torch.from_numpy(v).to(d)
+                             for k, v in arrays.items()},
+                P, Q))
+            preds = C.per_shard(mesh, lambda i, d: tuple(
+                cols[d][k][i * Ql:(i + 1) * Ql] for k in ("pred_src", "pred_tgt")))
+        else:
+            rep = {k: v for k, v in cols_np.items() if COLUMN_SPECS[k] == REPLICATED}
+            cols = C.replicate(mesh, lambda d: columns_from_numpy(rep, d))
+            preds = C.per_shard(mesh, lambda i, d: tuple(
+                torch.from_numpy(np.ascontiguousarray(
+                    cols_np[k][i * Ql:(i + 1) * Ql], np.int32)).to(d)
+                for k in ("pred_src", "pred_tgt")))
+        cond = (C.replicate(mesh, lambda d: {k: torch.from_numpy(cond_np[k]).to(d)
+                                             for k in _COND_KEYS})
+                if cond_np is not None else None)
+    with obs.span("parallel.kernel", rows=P, devices=n), \
+            _prof.annotate("amtpu.sharded_launch"):
+        out = _sharded_merge(mesh, cols, preds, Pl, n_objs2, n_props, cond, R2 // n)
     return out[mesh.distinct[0]]
 
 
@@ -399,5 +407,8 @@ def sharded_merge_columns(cols_np, mesh: Optional[Mesh] = None,
     P = len(cols_np["action"])
     n_objs2 = n_objs + 2 if n_objs is not None else P + 2
     np_eff = n_props if n_props is not None else P
+    obs.count("device.kernel_launches", labels={"path": "sharded"})
+    _prof.note("launches")
     out = _run(mesh, cols_np, n_objs2, np_eff, transport, linearize)
-    return {k: out[k].cpu().numpy() for k in ALL_OUTPUTS}
+    with obs.span("parallel.readback", rows=P):
+        return {k: out[k].cpu().numpy() for k in ALL_OUTPUTS}

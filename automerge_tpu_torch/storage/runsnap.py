@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..utils.leb128 import decode_sleb, decode_uleb, sleb_bytes, uleb_bytes
 from . import columns as colio
 from .change import LazyOps, StoredChange
@@ -180,7 +181,7 @@ def encode_snapshot(log, heads: List[bytes]) -> bytes:
         if existing is not None and existing.entries and existing.all_dense(live):
             # every live column already demoted: skip the compressed
             # sync/encode walk entirely and write dense directly
-            C.count("dense_shortcut")
+            obs.count("compact.dense_shortcut")
             comp = None
         else:
             comp = log.compressed(sync=True)

@@ -34,7 +34,11 @@ Every recovery path is counted in ``SyncSession.stats`` (``retries``,
 (``coalesced_batches``: the batches ``receive_many`` collected;
 ``device_feeds``: the calls by kind, ``apply_changes``, ``apply_batches``
 and ``device_feed``). The reference's ``obs`` spans and labeled counters
-wait for the port's ``obs/``.
+are recorded beside them (``sync.generate``, ``sync.receive`` and
+``sync.apply`` spans; ``sync.retry``, ``sync.reset{source}``,
+``sync.resync``, ``sync.dup``, ``sync.malformed{stage}``,
+``sync.rejected``, ``sync.persist_error``, ``sync.coalesced_batches``,
+``sync.device_feed_error``).
 
 A session may carry a resident ``DeviceDoc`` (``device_doc=``): changes
 received off the wire feed its incremental append/re-resolve path
@@ -42,9 +46,9 @@ received off the wire feed its incremental append/re-resolve path
 a device-resident replica tracks the host document at O(delta) per round
 instead of rebuilding from the full change history. Unlike the
 reference, which counts a failed feed (``sync.device_feed_error``) and
-carries on, the port lets a failure of the feed (the kernels, the native
-library, the cross-document batcher) propagate out of ``receive`` /
-``receive_many``. By then the host document holds the message's changes
+carries on, the port counts it the same way and then lets the failure
+of the feed (the kernels, the native library, the cross-document batcher)
+propagate out of ``receive`` / ``receive_many``. By then the host document holds the message's changes
 and the frame has been accepted and counted; the resident document is
 behind the host one and it is the caller's to rebuild or drop it. For
 the same reason only the document's own refusal of a message's changes
@@ -66,6 +70,7 @@ import zlib
 from collections import OrderedDict
 from typing import Optional
 
+from .. import obs
 from ..errors import AutomergeError
 from ..utils.leb128 import decode_uleb, encode_uleb
 from .protocol import (
@@ -218,7 +223,8 @@ class SyncSession:
         # empty change lists forever) → renegotiate from scratch
         if self._noprogress >= self.config.stall_rounds and not self.converged():
             return self._force_resync(now)
-        msg = generate_sync_message(self._doc, self.state)
+        with obs.span("sync.generate"):
+            msg = generate_sync_message(self._doc, self.state)
         if msg is not None:
             return self._send(msg, now)
 
@@ -252,7 +258,8 @@ class SyncSession:
         Never raises on untrusted input; a failure of the resident
         document's feed, or of the document's own machinery, propagates
         (see the module docstring)."""
-        return self._receive(data, now)
+        with obs.span("sync.receive", bytes=len(data)):
+            return self._receive(data, now)
 
     def receive_many(self, frames, now: float = 0.0, device_feed=None) -> list:
         """Drain a run of pending wire frames in arrival order, coalescing
@@ -288,30 +295,39 @@ class SyncSession:
             self._device_batches = None
         if batches:
             self.stats["coalesced_batches"] += len(batches)
-            if device_feed is not None:
-                self.stats["device_feeds"]["device_feed"] += 1
-                device_feed(batches)
-            else:
-                self.stats["device_feeds"]["apply_batches"] += 1
-                self.device_doc.apply_batches(batches)
+            obs.count("sync.coalesced_batches", n=len(batches))
+            try:
+                if device_feed is not None:
+                    self.stats["device_feeds"]["device_feed"] += 1
+                    device_feed(batches)
+                else:
+                    self.stats["device_feeds"]["apply_batches"] += 1
+                    self.device_doc.apply_batches(batches)
+            except Exception as e:
+                # counted as the reference counts it, then propagated
+                obs.count("sync.device_feed_error", error=str(e)[:200])
+                raise
         return accepted
 
     def _receive(self, data: bytes, now: float) -> bool:
         try:
             epoch, flags, _seq, inner = decode_frame(data)
-        except SyncError:
+        except SyncError as e:
             # tolerate a bare protocol message for interop with plain
             # SyncState peers (no envelope, no resilience semantics)
             try:
                 msg = Message.decode(data)
             except SyncError:
                 self.stats["malformed"] += 1
+                obs.count("sync.malformed", labels={"stage": "frame"},
+                          error=str(e))
                 return False
             return self._apply(msg, now)
 
         digest = hashlib.sha256(data).digest()[:16]
         if digest in self._seen:
             self.stats["dups"] += 1
+            obs.count("sync.dup")
             self._want_retransmit = True
             return False
         self._seen[digest] = None
@@ -326,13 +342,16 @@ class SyncSession:
         if flags & FLAG_RESET:
             self._hard_reset(keep_shared=False)
             self.stats["resets"] += 1
+            obs.count("sync.reset", labels={"source": "peer"})
 
         if not inner:
             return True  # pure control frame (reset/ack)
         try:
             msg = Message.decode(inner)
-        except SyncError:
+        except SyncError as e:
             self.stats["malformed"] += 1
+            obs.count("sync.malformed", labels={"stage": "message"},
+                      error=str(e))
             return False
         return self._apply(msg, now)
 
@@ -389,12 +408,17 @@ class SyncSession:
                 self.config.max_timeout,
             )
         )
+        obs.count("sync.retry", attempt=self._retries)
         return self._last_frame
 
     def _with_jitter(self, timeout: float) -> float:
         return timeout * (1.0 + self.config.jitter * self._rng.random())
 
     def _apply(self, msg: Message, now: float) -> bool:
+        with obs.span("sync.apply", changes=len(msg.changes)):
+            return self._apply_inner(msg, now)
+
+    def _apply_inner(self, msg: Message, now: float) -> bool:
         if self._autodoc is not None:
             self._autodoc.commit()
         before = self._doc.get_heads()
@@ -406,7 +430,7 @@ class SyncSession:
         with scope() if scope is not None else contextlib.nullcontext():
             try:
                 receive_sync_message(self._doc, self.state, msg)
-            except AutomergeError:
+            except AutomergeError as e:
                 # a well-framed message whose changes the document rejects
                 # (e.g. duplicate (actor, seq) from a peer that lost its
                 # doc and re-created divergent history): absorb, count,
@@ -417,6 +441,7 @@ class SyncSession:
                 # native library is not the message's fault; both
                 # propagate (neither is an AutomergeError).
                 self.stats["rejected"] += 1
+                obs.count("sync.rejected", error=str(e))
                 return False
             # persist inside the scope: the meta record rides the same
             # single boundary fsync as the message's change records
@@ -443,7 +468,11 @@ class SyncSession:
                 # feed the resident device document incrementally, once
                 # the frame is accepted and counted: a failure propagates
                 self.stats["device_feeds"]["apply_changes"] += 1
-                self.device_doc.apply_changes(msg.changes)
+                try:
+                    self.device_doc.apply_changes(msg.changes)
+                except Exception as e:
+                    obs.count("sync.device_feed_error", error=str(e)[:200])
+                    raise
         return True
 
     def _maybe_persist(self) -> None:
@@ -454,10 +483,11 @@ class SyncSession:
             return
         try:
             self.persist(self.encode())
-        except Exception:  # noqa: BLE001 — persistence is best-effort
+        except Exception as e:  # noqa: BLE001 — persistence is best-effort
             # NOT marked persisted: a transient failure retries on the
             # next call even if shared_heads never change again
             self.stats["persist_errors"] += 1
+            obs.count("sync.persist_error", error=str(e)[:200])
         else:
             self._persisted_shared = cur
 
@@ -465,6 +495,7 @@ class SyncSession:
         self.peer_epoch = new_epoch
         self._hard_reset(keep_shared=True)
         self.stats["resets"] += 1
+        obs.count("sync.reset", labels={"source": "epoch"})
 
     def _hard_reset(self, keep_shared: bool) -> None:
         shared = list(self.state.shared_heads) if keep_shared else []
@@ -485,6 +516,7 @@ class SyncSession:
         """Divergence detected: renegotiate from nothing and tell the peer
         (RESET flag) to drop its suppressing sent_hashes too."""
         self.stats["resyncs"] += 1
+        obs.count("sync.resync")
         self._hard_reset(keep_shared=False)
         self._send_reset = True
         msg = generate_sync_message(self._doc, self.state)

@@ -15,6 +15,7 @@ mask with false rows), their reads, ``diff`` and ``make_patches``.
 
     python3 chip_smoke.py            # full width, as below
     python3 chip_smoke.py --cards    # on four cards: phases 1, 2 and (g) only
+    python3 chip_smoke.py --obs-cost TREE WORKLOAD   # one process of (q)
 
 Phases, each raising on failure (nothing is caught):
 
@@ -114,7 +115,7 @@ Phases, each raising on failure (nothing is caught):
        characters a cycle, document 0 4,096 in cycle 8), every base
        resident on the card, built three times from the same bytes and
        drained over 16 cycles, in turns each cycle, with the launch counts
-       and ``batched.STATS`` set to 0 just before each drain and read just
+       and ``batched.stats()`` set to 0 just before each drain and read just
        after: (a) ``apply_cross_doc`` in packed launches of 32 documents,
        pipelined, fallback_ratio 0.25 (at 0.5 no whale can exist at these
        sizes; see SERVE_FALLBACK); (b) each document's own
@@ -140,7 +141,7 @@ Phases, each raising on failure (nothing is caught):
        ``apply_batches``: after every cycle both equal (b); (d) peels the
        whales (a) peels; after the drain every image is faithful
        (``audit_columns()`` empty) and rows were joined over the
-       compressed id runs (``compressed.STATS["ovc_join"]``, read around
+       compressed id runs (``compressed.stats()["ovc_join"]``, read around
        each drain) in (d)'s staged splice and in (e)'s
        ``OpLog.append_changes``; each drain's rows joined so are
        printed with its wall;
@@ -212,7 +213,7 @@ Phases, each raising on failure (nothing is caught):
        the conversation, the server draining with ``receive_many(frames,
        now, device_feed=lambda b: batcher.apply(dev, b))`` into one
        ``CrossDocBatcher(mode="1", max_docs=32)`` on the card (as (i)(c)),
-       the launch counts and ``batched.STATS`` set to 0 just before each
+       the launch counts and ``batched.stats()`` set to 0 just before each
        cycle and read just after: the launches those of the cycle's packed
        merges and whales, every generation's documents summing to 128, no
        packed path error, a whale in cycle 8; after every cycle each
@@ -221,6 +222,39 @@ Phases, each raising on failure (nothing is caught):
        session fed its document once a cycle, by ``device_feed``.
        Printed: frames and bytes each way, a cycle's wall (p50, max), the
        packed launches a cycle, whales, generations and the launches;
+    n. observability (after (i), before (e); ``obs_paths``): (a)'s
+       1,025 chunks merged again between ``prof.torch_profile_start`` and
+       ``torch_profile_stop`` (``obs/prof.py``: a ``torch.profiler``
+       capture with CPU and CUDA activity, a ``record_function`` and an
+       NVTX range at every kernel-launch site), inside a ``smoke.window``
+       range: the trace (``prof.read_capture``) must hold
+       ``amtpu.resolve`` with CUDA kernels inside it, the text (a)'s;
+       printed: the window, its kernels and the device busy share (the
+       union of the kernel intervals over the window's wall);
+    o. the served drain of (c) (the record base, 64 batches of 16) again,
+       one ``prof.cycle`` a batch (a step of ``apply_batches``' pipeline:
+       the batch spliced and launched, the one before read back): every
+       READ_FETCH array (b)'s, the cycles' ``launches`` notes equal to
+       ``obs``' ``device.kernel_launches{path=per_doc}``; printed: the
+       cycles' ``attributed_frac``, host and device seconds and shares,
+       overlap, stages and the collector's seconds inside the cycles; then
+       the drain once more under a capture
+       (``amtpu.dispatch_async`` 64 times, with kernels) and its busy
+       share;
+    p. (i)'s 128 documents drained again by ``apply_cross_doc`` as (i)(a),
+       one ``prof.cycle`` a cycle (the notes' launches those of
+       ``batched.stats()``, no packed-path error, the texts the
+       generator's), the same figures printed; then under a capture
+       (``amtpu.batched_launch`` 64 times, with kernels) and its busy
+       share;
+    q. what the instruments cost (``obs_cost``): fresh processes of
+       ``chip_smoke.py --obs-cost TREE WORKLOAD`` (the served drain's first
+       16 batches through ``apply_batches``, then (p)'s drain), two an
+       arm in turns: this tree with spans recorded, this tree with
+       ``AUTOMERGE_TPU_SPAN_BUFFER=0`` and, where a parent checkout is
+       unpacked under ``build/parent``, the parent; printed: each
+       process's served p50 a batch and cross-doc p50 a cycle, and each
+       arm's p50 and quartiles over all its batches and cycles;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -297,6 +331,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1241,9 +1276,9 @@ def record_paths(card: str, device):
         dirty_sets.append(np.array(dirty, np.int64) if subset else None)
         return handle
 
-    def counting_step(self, chs, inflight, phases=None):
+    def counting_step(self, chs, inflight, phases=None, t0=None):
         before = kernels.launch_counts()["expand_runs"]
-        out = step(self, chs, inflight, phases)
+        out = step(self, chs, inflight, phases, t0)
         batch_decodes.append(kernels.launch_counts()["expand_runs"] - before)
         return out
 
@@ -2450,6 +2485,288 @@ def sync_paths(card: str, device) -> dict:
     return counts
 
 
+# -- observability on the card (phases n-q) -------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OBS_DIR = os.path.join(ROOT, "build", "obs")  # captures, the cost workload
+PARENT_TREE = os.path.join(ROOT, "build", "parent")  # joins (q) when unpacked
+OBS_COST_BATCHES = 16  # (q): the served drain's first batches a process
+OBS_COST_ROUNDS = 2  # (q): processes an arm, in turns
+
+
+def capture(name: str, fn):
+    """``fn()`` under a ``prof`` capture into ``OBS_DIR/name``, inside a
+    ``smoke.window`` range, synchronised before the range closes. Returns
+    (fn's value, ``prof.read_capture`` of the window)."""
+    import shutil
+
+    from automerge_tpu_torch.obs import prof
+
+    d = os.path.join(OBS_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    start = prof.torch_profile_start(d)
+    if not start["ok"]:
+        raise AssertionError(f"{name}: the capture did not start: {start}")
+    try:
+        with torch.profiler.record_function("smoke.window"):
+            out = fn()
+            torch.cuda.synchronize()
+    finally:
+        stop = prof.torch_profile_stop()
+    if not stop["ok"]:
+        raise AssertionError(f"{name}: the capture did not stop: {stop}")
+    return out, prof.read_capture(stop["trace"], "smoke.window")
+
+
+def check_ranges(name: str, cap: dict, want: dict) -> None:
+    """Each range of ``want`` ({name: least count}) is in the capture
+    that often, with CUDA kernels inside it."""
+    for r, least in want.items():
+        got = cap["ranges"].get(r)
+        if got is None or got["count"] < least or got["kernels"] < got["count"]:
+            raise AssertionError(f"{name}: range {r} {got}, want {least} or more "
+                                 f"with kernels inside: {json.dumps(cap['ranges'])}")
+    if not 0 < cap["busy_share"] < 1:
+        raise AssertionError(f"{name}: busy share {cap['busy_share']}")
+
+
+def cycle_summary(reports) -> dict:
+    """The cycle reports' aggregate (``prof.summarize_reports``) with the
+    per-cycle wall's p50 and max and the attributed fraction's p50."""
+    from automerge_tpu_torch.obs import prof
+
+    s = prof.summarize_reports(reports)
+    walls = [r["wall_s"] for r in reports]
+    return {"cycles": s["cycles"], "wall_p50": statistics.median(walls),
+            "wall_max": max(walls), "attributed_frac": s["attributed_frac"],
+            "attributed_frac_p50": statistics.median(
+                r["attributed_frac"] for r in reports),
+            "host_s": s["host_s"], "device_s": s["device_s"],
+            "host_pct": s["host_pct"], "device_pct": s["device_pct"],
+            "host_share_of_wall": s["host_s"] / s["wall_s"],
+            "device_share_of_wall": s["device_s"] / s["wall_s"],
+            "overlap_fraction": s["overlap_fraction"], "launches": s["launches"],
+            "docs": s["docs"], "occupancy": s["occupancy"],
+            "stages_s": {k: v["seconds"] for k, v in s["stages"].items()}}
+
+
+def print_cap(name: str, cap: dict, card: str) -> None:
+    print(f"{name} capture: window {cap['window_s']:.6f} s, {cap['kernels']} kernels, "
+          f"device busy {cap['busy_s']:.6f} s, busy share {cap['busy_share']:.7f}; "
+          f"ranges {json.dumps(cap['ranges'])} on {card}", flush=True)
+
+
+def obs_paths(card: str, device) -> None:
+    """(n) the text fan-in under a capture, (o) the served drain and (p)
+    the cross-document drain under ``prof.cycle``, each drain again under
+    a capture."""
+    from automerge_tpu_torch import obs
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.obs import prof
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    t_phase = time.perf_counter()
+    # (n) one text fan-in
+    text = FANINS["text"]
+    gc.collect()
+    doc, cap = capture("text_fanin", lambda: DeviceDoc.merge(text["blobs"],
+                                                             device=device))
+    if doc.text(text["text_obj"]) != text["text"]:
+        raise AssertionError("obs (n): the captured fan-in's text differs from (a)'s")
+    check_ranges("obs (n) text fan-in", cap, {"amtpu.resolve": 1})
+    print_cap("obs (n) text fan-in", cap, card)
+    del doc
+
+    # (o) the served drain, one cycle a batch, then again under a capture
+    records = FANINS["records"]
+    base, reps = records["blobs"][0], records["blobs"][1:]
+    batches = W.record_batches(reps, RECORD_BATCH)
+    served = DeviceDoc.merge([base], device=device)
+    torch.cuda.synchronize()
+    gc.collect()
+    obs.reset_all()
+    prof.profiler.reset()
+    reports, inflight = [], None
+    with gc_pauses() as pauses:
+        for i, b in enumerate(batches):
+            # the steps of apply_batches' pipeline on the card: batch k
+            # spliced and launched, batch k-1 read back, in one cycle
+            with prof.cycle(kind="serve", docs=1) as c:
+                _, inflight = served._pipeline_step(b, inflight, None,
+                                                    time.perf_counter())
+                if i == len(batches) - 1 and inflight is not None:
+                    served._collect_async(inflight)
+            reports.append(c.report)
+    check_serve_equal("obs (o) served, cycled", [served], [records["doc"]], -1)
+    kl = obs.counter_values("device.kernel_launches", "path")
+    so = cycle_summary(reports)
+    so["gc_s"] = sum(t for _, t in pauses)
+    if so["launches"] != kl.get("per_doc", 0) or so["launches"] < len(batches):
+        raise AssertionError(f"obs (o): cycle notes {so['launches']} launches, "
+                             f"obs counted {kl}")
+    print(f"obs (o) served drain, {len(batches)} batches of {RECORD_BATCH}, one "
+          f"prof.cycle a batch: {json.dumps(so)} on {card}", flush=True)
+    del served
+    gc.collect()
+    served = DeviceDoc.merge([base], device=device)
+    torch.cuda.synchronize()
+    gc.collect()
+    _, cap = capture("served_drain", lambda: served.apply_batches(batches))
+    check_serve_equal("obs (o) served, captured", [served], [records["doc"]], -1)
+    check_ranges("obs (o) served drain", cap, {"amtpu.dispatch_async": len(batches)})
+    print_cap("obs (o) served drain", cap, card)
+    del served
+
+    # (p) the cross-document drain, one cycle a cycle, then under a capture
+    doc0, cycle0, n0 = SERVE_BURST
+    sbase, deltas, texts = W.serve_workload(
+        SERVE_DOCS, SERVE_CYCLES, SERVE_OPS, SERVE_BALLAST, burst={(doc0, cycle0): n0})
+
+    def drain(docs, c):
+        B.apply_cross_doc([(d, [[deltas[i][c]]]) for i, d in enumerate(docs)],
+                          max_docs_per_launch=SERVE_PER_LAUNCH,
+                          fallback_ratio=SERVE_FALLBACK, device=device)
+
+    def check_texts(name, docs):
+        for i, d in enumerate(docs):
+            if d.text(W.SERVE_LIVE) != texts[i] \
+                    or d.text(W.SERVE_ARCHIVE) != "x" * SERVE_BALLAST:
+                raise AssertionError(f"{name} document {i}: live or archive differs")
+
+    docs = [DeviceDoc.merge([sbase], device=device) for _ in range(SERVE_DOCS)]
+    torch.cuda.synchronize()
+    prof.profiler.reset()
+    B.reset_stats()
+    reports, gc_s = [], 0.0
+    for c in range(SERVE_CYCLES):
+        gc.collect()
+        with gc_pauses() as pauses, prof.cycle(kind="cross_doc") as cyc:
+            drain(docs, c)
+        reports.append(cyc.report)
+        gc_s += sum(t for _, t in pauses)
+    st = B.stats()
+    sp = cycle_summary(reports)
+    sp["gc_s"] = gc_s
+    if st["batched_error"] or sp["launches"] != st["launches"] + st["batched_fallback"] \
+            or sp["docs"] != SERVE_DOCS * SERVE_CYCLES:
+        raise AssertionError(f"obs (p): cycle notes {sp}, batched.stats() {st}")
+    check_texts("obs (p) cross-doc, cycled", docs)
+    print(f"obs (p) cross-doc drain, {SERVE_DOCS} documents x {SERVE_CYCLES} cycles, "
+          f"one prof.cycle a cycle: {json.dumps(sp)} on {card}", flush=True)
+    docs = [DeviceDoc.merge([sbase], device=device) for _ in range(SERVE_DOCS)]
+    torch.cuda.synchronize()
+    gc.collect()
+    _, cap = capture("cross_doc_drain",
+                     lambda: [drain(docs, c) for c in range(SERVE_CYCLES)])
+    check_texts("obs (p) cross-doc, captured", docs)
+    check_ranges("obs (p) cross-doc drain", cap,
+                 {"amtpu.batched_launch": SERVE_CYCLES * SERVE_DOCS // SERVE_PER_LAUNCH})
+    print_cap("obs (p) cross-doc drain", cap, card)
+    del docs
+    gc.collect()
+
+    # the cost phase's workload, for its fresh processes
+    import pickle
+
+    os.makedirs(OBS_DIR, exist_ok=True)
+    with open(os.path.join(OBS_DIR, "cost_workload.pkl"), "wb") as f:
+        pickle.dump({"record": records["blobs"], "record_batch": RECORD_BATCH,
+                     "serve": [sbase, deltas], "serve_per_launch": SERVE_PER_LAUNCH,
+                     "serve_fallback": SERVE_FALLBACK}, f)
+    print(f"obs (n)-(p): the phases took {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+
+
+def obs_cost_child(tree: str, workload: str) -> int:
+    """One process of (q): the served drain's first OBS_COST_BATCHES
+    batches and the cross-document drain's SERVE_CYCLES cycles of the
+    package under ``tree`` on the card; prints one JSON line."""
+    import pickle
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import automerge_tpu_torch
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    if not os.path.abspath(automerge_tpu_torch.__file__).startswith(tree + os.sep):
+        raise SystemExit(f"imported {automerge_tpu_torch.__file__}, not {tree}'s")
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    device = torch.device("cuda", 0)
+    with open(workload, "rb") as f:
+        wl = pickle.load(f)
+    record = wl["record"]
+    batches = W.record_batches(record[1:], wl["record_batch"])[:OBS_COST_BATCHES]
+    served = DeviceDoc.merge([record[0]], device=device)
+    torch.cuda.synchronize()
+    gc.collect()
+    phases = {}
+    served.apply_batches(batches, phases)
+    torch.cuda.synchronize()
+    base, deltas = wl["serve"]
+    docs = [DeviceDoc.merge([base], device=device) for _ in deltas]
+    torch.cuda.synchronize()
+    cross = []
+    for c in range(len(deltas[0])):
+        gc.collect()
+        t0 = time.perf_counter()
+        B.apply_cross_doc([(d, [[deltas[i][c]]]) for i, d in enumerate(docs)],
+                          max_docs_per_launch=wl["serve_per_launch"],
+                          fallback_ratio=wl["serve_fallback"], device=device)
+        torch.cuda.synchronize()
+        cross.append(time.perf_counter() - t0)
+    print(json.dumps({"served_s": phases["batches"], "cross_s": cross}), flush=True)
+    return 0
+
+
+def quartiles(xs) -> list:
+    q = statistics.quantiles(xs, n=4)
+    return [q[0], q[2]]
+
+
+def obs_cost(card: str) -> None:
+    """(q) what the instruments cost: fresh processes of ``obs_cost_child``
+    in turns, OBS_COST_ROUNDS a tree: this tree with spans recorded, this
+    tree with ``AUTOMERGE_TPU_SPAN_BUFFER=0``, and, where a parent
+    checkout is unpacked under PARENT_TREE, the parent."""
+    t_phase = time.perf_counter()
+    workload = os.path.join(OBS_DIR, "cost_workload.pkl")
+    arms = {"spans": (ROOT, {}), "no spans": (ROOT, {"AUTOMERGE_TPU_SPAN_BUFFER": "0"})}
+    if os.path.isdir(os.path.join(PARENT_TREE, "automerge_tpu_torch")):
+        arms["parent"] = (PARENT_TREE, {})
+    else:
+        print(f"obs (q): no parent tree under {PARENT_TREE}: this tree's arms only",
+              flush=True)
+    names = list(arms)
+    runs = {a: [] for a in names}
+    for r in range(OBS_COST_ROUNDS):
+        for a in (names if r % 2 == 0 else names[::-1]):
+            tree, env = arms[a]
+            out = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--obs-cost",
+                 tree, workload], env={**os.environ, **env}, capture_output=True,
+                text=True, timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"obs (q) {a}: exit {out.returncode}\n"
+                                     f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+            runs[a].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    for a in names:
+        served = [statistics.median(x["served_s"]) for x in runs[a]]
+        cross = [statistics.median(x["cross_s"]) for x in runs[a]]
+        every_s = [s for x in runs[a] for s in x["served_s"]]
+        every_c = [s for x in runs[a] for s in x["cross_s"]]
+        print(f"obs (q) {a}: served per batch p50 by process {served} (all "
+              f"{len(every_s)} batches: p50 {statistics.median(every_s):.6f} s, "
+              f"quartiles {quartiles(every_s)}); cross-doc per cycle p50 by process "
+              f"{cross} (all {len(every_c)} cycles: p50 {statistics.median(every_c):.6f}"
+              f" s, quartiles {quartiles(every_c)}) on {card}", flush=True)
+    print(f"obs (q): {OBS_COST_ROUNDS} processes an arm in turns ({names}); the phase "
+          f"took {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+
 def cold_open_paths(card: str, device) -> dict:
     """(j) the three fan-ins opened cold from images; releases them."""
     counts = {f"{name} cold open": cold_open(name, card, device) for name in COLD_ORDER}
@@ -2649,7 +2966,7 @@ def cross_doc_paths(card: str, device):
     capture = [False]
     drains = "abcde"
     totals = {p: {} for p in drains}
-    stats = {p: dict.fromkeys(B.STATS, 0) for p in drains}
+    stats = {p: dict.fromkeys(B.stats(), 0) for p in drains}
     seconds = {p: [] for p in drains}
     gcs = {p: 0.0 for p in drains}
     ovc = {p: 0 for p in drains}  # rows joined over the id runs
@@ -3458,6 +3775,8 @@ def kernel_report(paths, by_path, device, reps: int):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--obs-cost"]:  # one process of phase (q)
+        return obs_cost_child(*sys.argv[2:4])
     # 1. the card
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -3498,6 +3817,8 @@ def main() -> int:
     record_log, last, record_counts, record_out, expect = record_paths(card, device)
     check_reference_fault(device)
     cross_counts, cross_spec = cross_doc_paths(card, device)
+    obs_paths(card, device)
+    obs_cost(card)
     typing_log, condensed_counts = condensed_paths(
         card, device, (text_log, text_out, text, text_obj),
         (record_log, record_out, expect))

@@ -1515,7 +1515,7 @@ def test_cross_doc_drain_of_documents_opened_from_images_on_card(cuda):
     """Serve-shaped documents opened from images on the card and drained
     by ``apply_cross_doc``: equal after every cycle to each change-built
     document's own ``apply_batches`` on the card, with the staged splice
-    joining over the id runs (``compressed.STATS["ovc_join"]``)."""
+    joining over the id runs (``compressed.stats()["ovc_join"]``)."""
     from automerge_tpu_torch.ops import batched as B
     from automerge_tpu_torch.ops import compressed as C
 
@@ -1734,3 +1734,59 @@ def test_receive_many_feeds_the_cross_doc_batcher_on_card(cuda):
             _equal_docs(devs[i], twins[i], (c, i))
             assert servers[i].get_heads() == clients[i].get_heads()
     assert [d.text(W.SERVE_LIVE) for d in devs] == texts
+
+
+# -- observability on the card (obs/prof.py) ----------------------------------
+
+
+def test_capture_finds_the_ranges_and_their_kernels(cuda, tmp_path):
+    """A ``torch.profiler`` capture around one small merge: the
+    ``amtpu.resolve`` range holds the merge's CUDA kernels, and the
+    window's busy share is a fraction of its wall."""
+    from automerge_tpu_torch.obs import prof
+
+    base, deltas, _ = W.serve_workload(4, 2, 8, 400)
+    blobs = [base] + [d for ds in deltas for d in ds]
+    DeviceDoc.merge(blobs, device=cuda)  # built and warm
+    start = prof.torch_profile_start(str(tmp_path / "cap"))
+    assert start["ok"], start
+    try:
+        with torch.profiler.record_function("test.window"):
+            doc = DeviceDoc.merge(blobs, device=cuda)
+            torch.cuda.synchronize()
+    finally:
+        stop = prof.torch_profile_stop()
+    assert stop["ok"], stop
+    cap = prof.read_capture(stop["trace"], "test.window")
+    r = cap["ranges"]["amtpu.resolve"]
+    assert r["count"] == 1 and r["kernels"] >= L.LAUNCHES, cap
+    assert cap["kernels"] >= r["kernels"] and 0 < cap["busy_share"] < 1, cap
+    assert doc.text(W.SERVE_LIVE) == DeviceDoc.merge(blobs, device="cpu").text(
+        W.SERVE_LIVE)
+
+
+def test_cycle_over_a_served_batch_notes_the_wrappers_launches(cuda):
+    """``prof.cycle`` over one served batch on the card: its ``launches``
+    note is the merges the kernels' counts show (``linearize`` runs
+    LAUNCHES a merge, ``expand_runs`` once), and its device stages are
+    there."""
+    from automerge_tpu_torch import obs
+    from automerge_tpu_torch.obs import prof
+
+    base, reps, _ = _record_store()
+    batches = W.record_batches(reps, 8)
+    doc = DeviceDoc.merge([base], device=cuda)
+    doc.apply_batches(batches[:1])
+    obs.reset_all()
+    reset_launches()
+    with prof.cycle(kind="serve", docs=1) as c:
+        doc.apply_batches(batches[1:3])
+    r, counts = c.report, launch_counts()
+    assert r["launches"] == 2 and counts["linearize"] == L.LAUNCHES * r["launches"]
+    assert counts["expand_runs"] == r["launches"]
+    assert obs.counter_values("device.kernel_launches", "path") == {
+        "per_doc": 2, "run_native": 2}
+    for stage in ("dedup", "splice", "materialize", "h2d", "kernel", "readback",
+                  "scatter"):
+        assert stage in r["stages"], r["stages"]
+    assert 0 < r["attributed_frac"] <= 1 and r["device_s"] > 0

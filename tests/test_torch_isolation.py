@@ -2,9 +2,10 @@
 of automerge_tpu (its sharded merge, ``parallel/``, its cross-document
 batching, ``ops/batched.py`` and ``ops/host_batch.py``, its compressed
 residency and run image, ``ops/compressed.py`` and
-``storage/runsnap.py``, and its document layer, ``api.py``, ``core/``,
-``storage/document.py`` and ``patches/``, included), and its entry points
-refuse to fall back to the CPU."""
+``storage/runsnap.py``, its document layer, ``api.py``, ``core/``,
+``storage/document.py`` and ``patches/``, and its observability layer,
+``obs/`` and ``trace.py``, included), and its entry points refuse to fall
+back to the CPU."""
 
 import ast
 import os
@@ -202,6 +203,26 @@ for _ in range(10):
 assert F.to_dict(fb) == {"k": [1, 2], "t": "ab"}
 raw = F.get_all_changes(fa)[0]
 assert F.encode_change(F.decode_change(raw)) == raw
+# observability: the registry, the span ring, a profiled cycle and a
+# torch.profiler capture with the named ranges, all without JAX
+import json, tempfile
+from automerge_tpu_torch import obs, trace as amtrace
+from automerge_tpu_torch.obs import flight, heat, history, metrics, prof, spans, views
+obs.reset_all()
+tdir = tempfile.mkdtemp()
+odocs = [DeviceDoc.merge([sbase], device="cpu") for _ in range(3)]
+assert prof.torch_profile_start(tdir)["ok"]
+with prof.cycle(kind="iso") as cyc:
+    batched.apply_cross_doc([(d, [[sdeltas[i][0]]]) for i, d in enumerate(odocs)],
+                            device="cpu")
+stop = prof.torch_profile_stop()
+assert stop["ok"] and cyc.report["launches"] == 1 and cyc.report["docs"] == 3
+names = {e.get("name") for e in json.load(open(stop["trace"]))["traceEvents"]}
+assert "amtpu.batched_launch" in names, names
+assert "device_kernel_launches_total" in obs.render_prometheus()
+assert obs.export_trace(tdir + "/spans.json") > 0
+amtrace.count("iso.count")
+assert amtrace.counters["iso.count"] == 1
 maps = open("/proc/self/maps").read()
 assert str(native.library_path()) in maps
 bad = sorted(
