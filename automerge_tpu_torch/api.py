@@ -18,8 +18,9 @@ reads before it, the save's document order) runs through the merge kernels
 on ``device``: the card when it is None, and their plain PyTorch versions
 with ``device="cpu"``. Two documents sync by exchanging the bytes of
 ``generate_sync_message(state).encode()`` (``sync/``); a ``SyncSession``
-adds framing, retries and a resident ``DeviceDoc`` feed. The durable open
-(``storage/durable.py``) is not part of the port yet.
+adds framing, retries and a resident ``DeviceDoc`` feed.
+``AutoDoc.open(path, device=..., mirror=...)`` opens a crash-safe durable
+document (``storage/durable.py``).
 """
 
 from __future__ import annotations
@@ -363,6 +364,20 @@ class AutoDoc:
     def save_incremental_after(self, heads: List[bytes]) -> bytes:
         self.commit()
         return self.doc.save_incremental_after(heads)
+
+    @classmethod
+    def open(cls, path, **kw):
+        """Open (or create) a crash-safe durable document at ``path``
+        (storage/durable.py): commits and sync-absorbed changes are
+        journaled before acking, the journal compacts into atomic
+        snapshots, and reopening replays snapshot + journal with
+        torn-tail recovery. Returns a ``DurableDocument`` that delegates
+        the whole AutoDoc surface. ``device`` is the document's (None:
+        the card); ``mirror=True`` also keeps a resident ``DeviceDoc`` on
+        it."""
+        from .storage.durable import DurableDocument
+
+        return DurableDocument.open(path, doc_factory=cls, **kw)
 
     @classmethod
     def load(

@@ -1210,6 +1210,18 @@ class Document:
         return bytes(out)
 
     @classmethod
+    def open(cls, path, **kw):
+        """Open (or create) a crash-safe durable document at ``path``: every
+        committed or absorbed change is journaled before acking, the journal
+        compacts into atomic snapshots, and reopening replays snapshot +
+        journal with torn-tail recovery (storage/durable.py). ``device``
+        is the document's (None: the card); ``mirror=True`` also keeps a
+        resident ``DeviceDoc`` on it."""
+        from ..storage.durable import DurableDocument
+
+        return DurableDocument.open(path, doc_factory=cls, **kw)
+
+    @classmethod
     def load(
         cls,
         data: bytes,

@@ -31,13 +31,14 @@ append paths and the ARSN snapshot (``storage/runsnap.py``). It is host
 state only: the run-native staging of ``ops/merge.py`` builds its own
 run tables.
 
-``ENABLED`` (default True) is the reference's
-``AUTOMERGE_TPU_COMPRESSED``: with it False every path stays dense, the
-oracle the tests compare against.
+``ENABLED`` (default True) and the reference's knob
+``AUTOMERGE_TPU_COMPRESSED`` (``0`` turns it off) both gate ``enabled()``:
+off, every path stays dense, the oracle the tests compare against.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -62,8 +63,9 @@ _STATS = CounterView({
 
 
 def enabled() -> bool:
-    """Whether compressed residency is active."""
-    return ENABLED
+    """Whether compressed residency is active: ``ENABLED``, unless the
+    environment sets ``AUTOMERGE_TPU_COMPRESSED=0``."""
+    return ENABLED and os.environ.get("AUTOMERGE_TPU_COMPRESSED", "1") != "0"
 
 
 def stats() -> dict:

@@ -33,6 +33,7 @@ switch), not this module's.
 
 from __future__ import annotations
 
+import os
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -94,6 +95,12 @@ _COL_DTYPES = {
 
 class RunSnapError(Exception):
     """ARSN container is malformed or corrupt."""
+
+
+def enabled() -> bool:
+    """Write new snapshots in the run-coded format? (reader is always on;
+    ``AUTOMERGE_TPU_RUNSNAP=0`` writes change-chunk snapshots)"""
+    return os.environ.get("AUTOMERGE_TPU_RUNSNAP", "1") != "0"
 
 
 def is_runsnap(data: bytes) -> bool:

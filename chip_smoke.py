@@ -6,7 +6,10 @@ run images (``storage/runsnap.py``), the document layer catching up on
 both fan-ins (``api.AutoDoc``, ``core/document.py``: the stale read, the
 op-store rebuild, save and load) and over sync sessions (``sync/``: a
 replica fed over lossy channels, and 128 served documents fed by their
-sessions through the cross-document batcher), end to end through hand-written
+sessions through the cross-document batcher), durable storage
+(``storage/durable.py``: a journaled document with a resident mirror,
+reopened cold, moved through the tiered store, and followed through a
+replicated apply), end to end through hand-written
 CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
 over meshes of four and sixteen shards on the card, and historical views
@@ -249,12 +252,46 @@ Phases, each raising on failure (nothing is caught):
        share;
     q. what the instruments cost (``obs_cost``): fresh processes of
        ``chip_smoke.py --obs-cost TREE WORKLOAD`` (the served drain's first
-       16 batches through ``apply_batches``, then (p)'s drain), two an
-       arm in turns: this tree with spans recorded, this tree with
-       ``AUTOMERGE_TPU_SPAN_BUFFER=0`` and, where a parent checkout is
-       unpacked under ``build/parent``, the parent; printed: each
+       16 batches through ``apply_batches``, then (p)'s drain), one an
+       arm (OBS_COST_ROUNDS) in turns: this tree with spans recorded,
+       this tree with ``AUTOMERGE_TPU_SPAN_BUFFER=0`` and, where a parent
+       checkout is unpacked under ``build/parent``, the parent; printed: each
        process's served p50 a batch and cross-doc p50 a cycle, and each
        arm's p50 and quartiles over all its batches and cycles;
+    r. durable storage (after (m), before (j); ``durable_paths``), on
+       (a)'s 1,025 change chunks: written through ``AutoDoc.open(dir,
+       mirror=True, fsync="always", device="cuda")`` in a fresh directory
+       under the temp dir (all but the last DURABLE_TAIL chunks applied
+       and journaled, then fed to the mirror, an initial build through
+       the kernels; ``compact()`` writes the ARSN image of the mirror's
+       log, no ``compact.image_rebuild``; the tail applied and left in
+       the journal; closed); reopened cold with a mirror on the card,
+       each step timed (the snapshot and journal read from disk, the
+       journal scan, ``parse``, the document's apply of the image's
+       changes and of the journal's, ``to_oplog``, the resolve and the
+       replay's feed into the mirror; the collector's seconds in the
+       window, collected before it), then the mirror's first read and
+       the document's (its stale read, one merge): heads, ``doc_digest()``
+       and the read equal the fan-in's, the mirror's six READ_FETCH
+       arrays (a)'s document's, ``audit_columns()`` empty, the resolve's
+       launches the fan-in merge's kernel for kernel, the replay's feed
+       and the first read launching the served kernels (expand_runs,
+       succ_vis, forest, radix_sort, linearize), DURABLE_TAIL records
+       replayed and nothing re-encoded (the page cache warm: nothing
+       drops it); then a ``DocStore`` over ``DurableOps``: hot, warm
+       (the mirror dropped, its run image kept), cold (closed; the
+       compaction ``compact_on_demote`` decides), warm (hydrated on
+       access) and hot again (``touch``: promoted from the retained
+       image plus the journal's tail, nothing re-encoded), the read and
+       READ_FETCH arrays then (a)'s, ``store.promote_resident_bytes``
+       and each transition's seconds printed; then a follower directory:
+       ``apply_replicated_snapshot`` of the written image, its mirror
+       built from the adopted image, and ``apply_replicated`` of the
+       journal's tail records with ``device_feed`` into a
+       ``CrossDocBatcher(mode="1")``: the cursor persisted, the feed's
+       launches the served kernels', the follower's mirror equal to the
+       leader's on READ_FETCH, its heads and digest (a)'s. Every number
+       beside the card's name and power limit;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -2491,7 +2528,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OBS_DIR = os.path.join(ROOT, "build", "obs")  # captures, the cost workload
 PARENT_TREE = os.path.join(ROOT, "build", "parent")  # joins (q) when unpacked
 OBS_COST_BATCHES = 16  # (q): the served drain's first batches a process
-OBS_COST_ROUNDS = 2  # (q): processes an arm, in turns
+# (q): processes an arm, in turns; one keeps the smoke within its time
+# with phase (r) added (two took ~100 s of ~715 s on a slow host)
+OBS_COST_ROUNDS = 1
 
 
 def capture(name: str, fn):
@@ -2765,6 +2804,351 @@ def obs_cost(card: str) -> None:
               f" s, quartiles {quartiles(every_c)}) on {card}", flush=True)
     print(f"obs (q): {OBS_COST_ROUNDS} processes an arm in turns ({names}); the phase "
           f"took {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+
+# durable storage (r): the replica changes of (a) left in the journal after
+# the compaction, and the follower's cursors
+DURABLE_TAIL = 24
+DURABLE_CURSORS = (b"smoke-cursor-0", b"smoke-cursor-1")
+
+
+@contextlib.contextmanager
+def timed_calls(targets, seconds: dict, launches: dict = None):
+    """Within it, each ``(owner, attribute, label)`` of ``targets`` is
+    wrapped to append each call's wall seconds (the card synchronised at
+    the end of the call) to ``seconds[label]``; with ``launches``, the
+    kernel launches of its calls are added to ``launches[label]``. The
+    owners get their attributes back on exit."""
+    from automerge_tpu_torch import kernels
+
+    saved = []
+
+    def wrap(fn, label):
+        def timed(*a, **kw):
+            before = kernels.launch_counts() if launches is not None else None
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                seconds.setdefault(label, []).append(time.perf_counter() - t0)
+                if before is not None:
+                    after = kernels.launch_counts()
+                    got = launches.setdefault(label, dict.fromkeys(after, 0))
+                    for k, v in after.items():
+                        got[k] += v - before[k]
+        return timed
+
+    for owner, attr, label in targets:
+        raw = owner.__dict__[attr]
+        saved.append((owner, attr, raw))
+        if isinstance(raw, classmethod):
+            setattr(owner, attr, classmethod(wrap(raw.__func__, label)))
+        else:
+            setattr(owner, attr, wrap(raw, label))
+    try:
+        yield
+    finally:
+        for owner, attr, raw in reversed(saved):
+            setattr(owner, attr, raw)
+
+
+def check_fetch_equal(name: str, dev, want) -> None:
+    """``dev`` equals ``want`` on the six READ_FETCH arrays."""
+    import numpy as np
+
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+
+    if (dev.log.n, dev.log.n_objs) != (want.log.n, want.log.n_objs):
+        raise AssertionError(f"{name}: {dev.log.n} rows, {dev.log.n_objs} objects; "
+                             f"the fan-in's {want.log.n}, {want.log.n_objs}")
+    for k in DeviceDoc.READ_FETCH:
+        cut = dev.log.n_objs + 2 if k.startswith("obj_") else dev.log.n
+        if not np.array_equal(np.asarray(dev.res[k])[:cut], np.asarray(want.res[k])[:cut]):
+            raise AssertionError(f"{name}: {k} differs from the fan-in's")
+
+
+class DurableOps:
+    """The store's transitions over durable documents under one
+    directory, as a serving layer supplies them (``store/docstore.py``):
+    a cold open without a mirror, a close that compacts when asked, and
+    the mirror's drop and build; the open documents in ``docs``."""
+
+    def __init__(self, root: str, device):
+        self.root, self.device, self.docs = root, device, {}
+
+    def open_cold(self, name):
+        from automerge_tpu_torch.api import AutoDoc
+
+        ref = self.docs[name]
+        dd = AutoDoc.open(os.path.join(self.root, name), fsync=ref.fsync_policy,
+                          text_encoding=ref.text_encoding, device=self.device)
+        self.docs[name] = dd
+        return dd
+
+    def close_cold(self, name, compact):
+        from automerge_tpu_torch.store import ColdDocRef
+
+        dd = self.docs[name]
+        with dd.lock:
+            if compact and not dd.degraded:
+                dd.compact()
+            dd.close()
+            acked, appended = dd.acked_prefix()
+            ref = ColdDocRef(name, fsync_policy=dd.journal.fsync_policy,
+                             text_encoding=dd._core.text_encoding, acked=acked,
+                             appended=appended,
+                             replication_cursor=dd.replication_cursor)
+        self.docs[name] = ref
+        return ref
+
+    def drop_device(self, name):
+        dd = self.docs[name]
+        with dd.lock:
+            dd.drop_device_mirror()
+
+    def build_device(self, name):
+        self.docs[name].build_device_mirror()
+        return True
+
+
+def durable_paths(card: str, device) -> dict:
+    """(r) durable storage on (a)'s text fan-in (see the module
+    docstring). Returns the launch counts by path."""
+    import shutil
+    import tempfile
+
+    from automerge_tpu_torch import kernels, obs
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.core.document import Document
+    from automerge_tpu_torch.integrity import DigestState, finalize_digest
+    from automerge_tpu_torch.ops.batched import CrossDocBatcher
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.storage import durable as D
+    from automerge_tpu_torch.storage import journal as J
+    from automerge_tpu_torch.storage import runsnap as R
+    from automerge_tpu_torch.storage.change import parse_change
+    from automerge_tpu_torch.store import DocStore, StoreBudgets
+
+    t_phase = time.perf_counter()
+    held = FANINS["text"]
+    fan, text_obj, text = held["doc"], held["text_obj"], held["text"]
+    parsed = [parse_change(b)[0] for b in held["blobs"]]
+    head, tail = parsed[:-DURABLE_TAIL], parsed[-DURABLE_TAIL:]
+    want = DigestState()
+    want.recompute(c.hash for c in parsed)
+    want_digest = finalize_digest(*want.value(), fan.current_heads())
+    root = tempfile.mkdtemp(prefix="amtpu-durable-")
+    path = os.path.join(root, "text")
+    counts, seconds = {}, {}
+
+    def read_back(name, dd, dev):
+        if sorted(dd.get_heads()) != sorted(fan.current_heads()):
+            raise AssertionError(f"durable {name}: heads differ from the fan-in's")
+        if dd.doc_digest() != {"digest": want_digest, "changes": len(parsed)}:
+            raise AssertionError(f"durable {name}: doc_digest differs from the fan-in's")
+        check_fetch_equal(f"durable {name}", dev, fan)
+        if dev.text(text_obj) != text:
+            raise AssertionError(f"durable {name}: the mirror's text differs")
+        bad = dev.audit_columns()
+        if bad:
+            raise AssertionError(f"durable {name}: audit_columns() == {bad}")
+
+    try:
+        # write: the fan-in's changes journaled, fed to the mirror and
+        # compacted into an image of the mirror's log; a tail journaled
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        dd = AutoDoc.open(path, mirror=True, fsync="always", device=device)
+        dd.apply_changes(head)
+        t1 = time.perf_counter()
+        dd.device_doc.apply_changes(head)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts["durable write mirror"] = kernels.launch_counts()
+        check_launches("durable write mirror", counts["durable write mirror"],
+                       RUN_NATIVE, TRANSPORT_ONLY)
+        obs.reset_all()
+        if not dd.compact() or obs.counter_values("compact.image_rebuild", "") != {}:
+            raise AssertionError("durable write: the compaction did not take the "
+                                 "mirror's log")
+        t3 = time.perf_counter()
+        dd.apply_changes(tail)
+        dd.close()
+        t4 = time.perf_counter()
+        snap = open(os.path.join(path, D.SNAPSHOT_NAME), "rb").read()
+        jbytes = open(os.path.join(path, D.JOURNAL_NAME), "rb").read()
+        if not R.is_runsnap(snap):
+            raise AssertionError("durable write: the snapshot is not an ARSN image")
+        records = [(r.rec_type, r.payload) for r in J.scan_records(jbytes)[0]]
+        if len(records) != DURABLE_TAIL:
+            raise AssertionError(f"durable write: {len(records)} journal records, "
+                                 f"not the tail's {DURABLE_TAIL}")
+        print(f"durable (r) write: {len(head)} changes journaled in {t1 - t0:.6f} s "
+              f"(fsync=always, one fsync an ack), the mirror fed in {t2 - t1:.6f} s, "
+              f"compact (ARSN from the mirror's log, {len(snap)} bytes) "
+              f"{t3 - t2:.6f} s, {DURABLE_TAIL} tail changes journaled "
+              f"({len(jbytes)} bytes) and closed {t4 - t3:.6f} s on {card}",
+              flush=True)
+
+        # reopen cold with a mirror on the card, each step timed
+        class TimedFS(J.OsFS):
+            def read_bytes(self, p):
+                t = time.perf_counter()
+                try:
+                    return super().read_bytes(p)
+                finally:
+                    seconds.setdefault("read " + os.path.basename(p), []).append(
+                        time.perf_counter() - t)
+
+        launches = {}
+        targets = [(R, "parse", "parse"), (R.RunImage, "to_oplog", "to_oplog"),
+                   (J.Journal, "open", "journal scan"),
+                   (Document, "apply_changes", "document apply"),
+                   (DeviceDoc, "resolve", "resolve"),
+                   (DeviceDoc, "apply_changes", "replay feed")]
+        obs.reset_all()
+        gc.collect()
+        with gc_pauses() as pauses, timed_calls(targets, seconds, launches):
+            t0 = time.perf_counter()
+            dd = AutoDoc.open(path, mirror=True, fsync="always", device=device,
+                              fs=TimedFS())
+            t1 = time.perf_counter()
+            mirror_text = dd.device_doc.text(text_obj)
+            t2 = time.perf_counter()
+            kernels.reset_launches()
+            doc_text = dd.text(text_obj)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        counts["durable first read"] = kernels.launch_counts()
+        gc_s = sum(s for _, s in pauses)
+        counts["durable open resolve"] = launches["resolve"]
+        counts["durable replay"] = launches["replay feed"]
+        if not {"read snapshot.am", "read journal.waj"} <= set(seconds):
+            raise AssertionError(f"durable open: the reads from disk were not "
+                                 f"timed: {sorted(seconds)}")
+        if launches["resolve"] != held["counts"]:
+            raise AssertionError(
+                f"durable open: the resolve launched {json.dumps(launches['resolve'])},"
+                f" the fan-in merge {json.dumps(held['counts'])}")
+        check_launches("durable replay", launches["replay feed"], RUN_NATIVE,
+                       TRANSPORT_ONLY)
+        check_launches("durable first read", counts["durable first read"], RUN_NATIVE,
+                       TRANSPORT_ONLY)
+        if mirror_text != text or doc_text != text:
+            raise AssertionError("durable open: the read differs from the fan-in's")
+        read_back("open", dd, dd.device_doc)
+        replayed = obs.counter_values("journal.replayed_records", "")
+        reencode = obs.counter_values("oplog.hydrate_reencode", "")
+        if replayed != {"": DURABLE_TAIL} or reencode:
+            raise AssertionError(f"durable open: replayed {replayed}, re-encoded "
+                                 f"{reencode}")
+        steps = {k: [round(x, 6) for x in v] for k, v in seconds.items()}
+        print(f"durable (r) open (warm page cache): {t1 - t0:.6f} s to an open "
+              f"document with its mirror; by step (a list: one entry a call; "
+              f"document apply: the image's changes, then the journal's) "
+              + json.dumps(steps)
+              + f"; the mirror's first read {t2 - t1:.6f} s, the document's first "
+              f"read (its stale read: one merge) {t3 - t2:.6f} s; gc {gc_s:.6f} s "
+              f"in the window; hydrate_bytes "
+              + json.dumps(obs.counter_values("store.hydrate_bytes", "codec"))
+              + f" on {card}", flush=True)
+        print("durable (r) open: heads, doc_digest, the read and the six READ_FETCH "
+              "arrays equal the fan-in's; audit_columns() == []; the resolve's "
+              "launches the fan-in merge's " + json.dumps(launches["resolve"])
+              + "; the replay's feed " + json.dumps(
+                  {k: v for k, v in launches["replay feed"].items() if v})
+              + "; the first read " + json.dumps(
+                  {k: v for k, v in counts["durable first read"].items() if v}),
+              flush=True)
+
+        # through the store: hot, warm, cold, then hot again
+        ops = DurableOps(root, device)
+        ops.docs["text"] = dd
+        store = DocStore(ops, StoreBudgets(evict_interval_s=0.0))
+        store.admit("text", dd, mirror=True)
+        tiers = [store.tier("text")]
+        t0 = time.perf_counter()
+        store.demote("text", "warm")
+        tiers.append(store.tier("text"))
+        t1 = time.perf_counter()
+        store.demote("text", "cold")
+        tiers.append(store.tier("text"))
+        t2 = time.perf_counter()
+        warm = store.ensure_open("text")
+        tiers.append(store.tier("text"))
+        t3 = time.perf_counter()
+        obs.reset_all()
+        kernels.reset_launches()
+        gc.collect()
+        with gc_pauses() as pauses:
+            t4 = time.perf_counter()
+            store.touch("text")
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+        tiers.append(store.tier("text"))
+        counts["durable promote"] = kernels.launch_counts()
+        if tiers != ["hot", "warm", "cold", "warm", "hot"]:
+            raise AssertionError(f"durable store: tiers {tiers}")
+        check_launches("durable promote", counts["durable promote"],
+                       held["must"], TRANSPORT_ONLY)
+        promote_bytes = obs.counter_values("store.promote_resident_bytes", "")
+        if obs.counter_values("oplog.hydrate_reencode", "") or not promote_bytes:
+            raise AssertionError("durable store: the promotion re-encoded or "
+                                 "counted no resident bytes")
+        leader = warm
+        read_back("store round trip", leader, leader.device_doc)
+        if leader.text(text_obj) != text:
+            raise AssertionError("durable store: the read differs from the fan-in's")
+        print(f"durable (r) store: tiers {tiers}; hot->warm {t1 - t0:.6f} s, "
+              f"warm->cold {t2 - t1:.6f} s, cold->warm (hydrate) {t3 - t2:.6f} s, "
+              f"warm->hot (promote from the retained image) {t5 - t4:.6f} s "
+              f"(gc {sum(s for _, s in pauses):.6f} s), store.promote_resident_bytes "
+              f"{promote_bytes['']}; the read and READ_FETCH the fan-in's; promote "
+              "launches " + json.dumps(
+                  {k: v for k, v in counts["durable promote"].items() if v})
+              + f" on {card}", flush=True)
+
+        # a replicated apply: the written image, then the journal's tail
+        fol = AutoDoc.open(os.path.join(root, "follower"), mirror=True,
+                           fsync="always", device=device)
+        t0 = time.perf_counter()
+        fol.apply_replicated_snapshot(snap, DURABLE_CURSORS[0])
+        fol.drop_device_mirror()
+        fol.build_device_mirror()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        batcher = CrossDocBatcher(mode="1", device=device)
+        fed = []
+        kernels.reset_launches()
+        t2 = time.perf_counter()
+        n = fol.apply_replicated(records, DURABLE_CURSORS[1], device_feed=lambda doc, dev, chs:
+                                 fed.append(batcher.apply(dev, [chs])))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts["durable follower feed"] = kernels.launch_counts()
+        if n != DURABLE_TAIL or fed != [DURABLE_TAIL]:
+            raise AssertionError(f"durable follower: applied {n}, fed {fed}")
+        check_launches("durable follower feed", counts["durable follower feed"],
+                       RUN_NATIVE, TRANSPORT_ONLY)
+        if fol.replication_cursor != DURABLE_CURSORS[1]:
+            raise AssertionError("durable follower: the cursor was not persisted")
+        check_fetch_equal("durable follower", fol.device_doc, leader.device_doc)
+        read_back("follower", fol, fol.device_doc)
+        print(f"durable (r) follower: snapshot catch-up and promotion "
+              f"{t1 - t0:.6f} s, apply_replicated of {n} records with the feed "
+              f"through a CrossDocBatcher {t3 - t2:.6f} s; the mirror equals the "
+              "leader's; feed launches " + json.dumps(
+                  {k: v for k, v in counts["durable follower feed"].items() if v})
+              + f" on {card}", flush=True)
+        fol.close()
+        store.close()
+        leader.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"durable (r): the phase took {time.perf_counter() - t_phase:.3f} s on {card}",
+          flush=True)
+    return counts
 
 
 def cold_open_paths(card: str, device) -> dict:
@@ -3825,6 +4209,7 @@ def main() -> int:
     del text_out, record_out
     document_counts = document_paths(card, device)
     sync_counts = sync_paths(card, device)
+    durable_counts = durable_paths(card, device)
     cold_counts = cold_open_paths(card, device)
     sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
                                    record_log)
@@ -3835,7 +4220,8 @@ def main() -> int:
     from automerge_tpu_torch.ops.merge import condensed_caps
 
     by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
-               **document_counts, **sync_counts, **cold_counts, **sharded_counts}
+               **document_counts, **sync_counts, **durable_counts, **cold_counts,
+               **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,

@@ -1790,3 +1790,98 @@ def test_cycle_over_a_served_batch_notes_the_wrappers_launches(cuda):
                   "scatter"):
         assert stage in r["stages"], r["stages"]
     assert 0 < r["attributed_frac"] <= 1 and r["device_s"] > 0
+
+
+def _durable_dir(root, blobs, device, tail=8):
+    """A durable directory holding ``blobs``: all but the last ``tail``
+    compacted into the run image (written from the mirror's log), those
+    left in the journal."""
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.storage.change import parse_change as pc
+
+    parsed = [pc(b)[0] for b in blobs]
+    dd = AutoDoc.open(str(root), mirror=True, device=device, fsync="never")
+    dd.apply_changes(parsed[:-tail])
+    dd.drop_device_mirror()
+    dd.build_device_mirror()
+    assert dd.compact()
+    dd.apply_changes(parsed[-tail:])
+    dd.close()
+    return str(root)
+
+
+@pytest.mark.parametrize("name", ["text", "records"])
+def test_durable_open_with_a_mirror_on_card_equals_cpu(cuda, tmp_path, name):
+    """``open(mirror=True)`` on the card (the image's resolve, then the
+    journal's replay through the served kernels) equals the same open with
+    ``device="cpu"`` array for array; so does a ``build_device_mirror``
+    after ``drop_device_mirror``, which decodes the retained image."""
+    import shutil
+
+    from automerge_tpu_torch import obs
+    from automerge_tpu_torch.api import AutoDoc
+
+    blobs = next(b for n, b, _ in _view_docs() if n == name)
+    d = _durable_dir(tmp_path / "d", blobs, "cpu")
+    shutil.copytree(d, str(tmp_path / "c"))
+    obs.reset_all()
+    reset_launches()
+    card = AutoDoc.open(d, mirror=True, device=cuda)
+    counts = launch_counts()
+    assert counts["linearize"] >= L.LAUNCHES and counts["succ_vis"] >= 1, counts
+    assert obs.counter_values("oplog.hydrate_reencode", "") == {}
+    cpu = AutoDoc.open(str(tmp_path / "c"), mirror=True, device="cpu")
+    assert card.device_doc.device.type == cuda.type
+    _equal_docs(card.device_doc, cpu.device_doc, (name, "open"))
+    assert card.device_doc.hydrate() == cpu.device_doc.hydrate() == cpu.hydrate()
+    assert card.doc_digest() == cpu.doc_digest()
+    for dd in (card, cpu):
+        dd.drop_device_mirror()
+    reset_launches()
+    dev = card.build_device_mirror()
+    assert launch_counts()["linearize"] == L.LAUNCHES
+    _equal_docs(dev, cpu.build_device_mirror(), (name, "promote"))
+    assert dev.audit_columns() == []
+    card.close()
+    cpu.close()
+
+
+def test_replicated_apply_feeds_the_batcher_on_card(cuda, tmp_path):
+    """A follower on the card takes the leader's image, then its journal
+    tail through ``apply_replicated(..., device_feed=)`` into a
+    ``CrossDocBatcher``: its mirror equals the leader's, on the card and
+    against the CPU."""
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.ops.batched import CrossDocBatcher
+    from automerge_tpu_torch.storage.durable import JOURNAL_NAME
+    from automerge_tpu_torch.storage.journal import scan_records
+
+    blobs = next(b for n, b, _ in _view_docs() if n == "text")
+    lead_dir = _durable_dir(tmp_path / "lead", blobs, cuda)
+    leader = AutoDoc.open(lead_dir, mirror=True, device=cuda)
+    with open(f"{lead_dir}/{JOURNAL_NAME}", "rb") as f:
+        records = [(r.rec_type, r.payload) for r in scan_records(f.read())[0]]
+    image_log_changes = len(leader.device_doc.log.changes) - len(records)
+    assert image_log_changes > 0
+    followers = {}
+    for key, dev in (("card", cuda), ("cpu", "cpu")):
+        fol = AutoDoc.open(str(tmp_path / f"fol-{key}"), mirror=True, device=dev)
+        snap = AutoDoc.open(str(tmp_path / f"img-{key}"), device="cpu")
+        snap.apply_changes([c for c in leader.device_doc.log.changes[:image_log_changes]])
+        fol.apply_replicated_snapshot(snap.snapshot_bytes(), b"c1")
+        snap.close()
+        fol.drop_device_mirror()
+        fol.build_device_mirror()
+        batcher = CrossDocBatcher(mode="1", device=dev)
+        fed = []
+        reset_launches()
+        fol.apply_replicated(records, b"c2", device_feed=lambda doc, m, chs:
+                             fed.append(batcher.apply(m, [chs])))
+        assert fed == [len(records)]
+        if key == "card":  # the feed resolved through the kernels
+            assert launch_counts()["linearize"] == L.LAUNCHES
+        followers[key] = fol
+    _equal_docs(followers["card"].device_doc, leader.device_doc, "follower on card")
+    _equal_docs(followers["card"].device_doc, followers["cpu"].device_doc, "card vs cpu")
+    for d in (leader, *followers.values()):
+        d.close()

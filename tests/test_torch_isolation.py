@@ -3,9 +3,11 @@ of automerge_tpu (its sharded merge, ``parallel/``, its cross-document
 batching, ``ops/batched.py`` and ``ops/host_batch.py``, its compressed
 residency and run image, ``ops/compressed.py`` and
 ``storage/runsnap.py``, its document layer, ``api.py``, ``core/``,
-``storage/document.py`` and ``patches/``, and its observability layer,
-``obs/`` and ``trace.py``, included), and its entry points refuse to fall
-back to the CPU."""
+``storage/document.py`` and ``patches/``, its observability layer,
+``obs/`` and ``trace.py``, and its durable storage, ``storage/journal.py``,
+``storage/durable.py``, ``storage/crashsim.py``, ``integrity.py``,
+``degrade.py``, ``store/`` and ``testing.py``, included), and its entry
+points refuse to fall back to the CPU."""
 
 import ast
 import os
@@ -223,6 +225,39 @@ assert "device_kernel_launches_total" in obs.render_prometheus()
 assert obs.export_trace(tdir + "/spans.json") > 0
 amtrace.count("iso.count")
 assert amtrace.counters["iso.count"] == 1
+# durable storage: a journaled document with a mirror, its store and
+# scrubber, the crash harness and the test DSL
+from automerge_tpu_torch import degrade, integrity, testing
+from automerge_tpu_torch.storage import crashsim, durable, journal
+from automerge_tpu_torch.store import DocStore, StoreBudgets, docstore, policy
+ddir = tempfile.mkdtemp()
+dd = api.AutoDoc.open(ddir + "/d", mirror=True, device="cpu", actor=types.ActorId(bytes([13]) * 16))
+dt = dd.put_object("_root", "t", types.ObjType.TEXT)
+dd.splice_text(dt, 0, 0, "durable")
+dd.commit()
+assert dd.compact() and not degrade.brownout_active()
+dd.close()
+dd = document.Document.open(ddir + "/d", mirror=True, device="cpu")
+assert dd.device_doc.text(dt) == "durable" == dd.text(dt)
+assert dd.device_doc.audit_columns() == [] and dd.device_doc.device.type == "cpu"
+assert [r.ok for r in integrity.verify_doc_dir(ddir + "/d")] == [True, True]
+class _Ops:
+    def open_cold(self, name): raise AssertionError(name)
+    def close_cold(self, name, compact): raise AssertionError(name)
+    def drop_device(self, name): dd.drop_device_mirror()
+    def build_device(self, name): return dd.build_device_mirror() is not None
+st = DocStore(_Ops(), StoreBudgets(evict_interval_s=0.0))
+st.admit("d", dd, mirror=True)
+assert st.demote("d", "warm") == "warm" and dd.device_doc is None
+st.touch("d")
+assert st.tier("d") == "hot" and dd.device_doc.text(dt) == "durable"
+dd.close()
+sfs = crashsim.SimFS()
+j, recs, tail = journal.Journal.open("/j", fs=sfs)
+j.append_meta("k", b"v")
+j.close()
+assert journal.scan_records(sfs.read_bytes("/j"))[1].records == 1
+assert testing.realize(api.AutoDoc.load(adoc.save(), device="cpu"))[0] == "map"
 maps = open("/proc/self/maps").read()
 assert str(native.library_path()) in maps
 bad = sorted(
@@ -377,6 +412,24 @@ def test_entry_points_without_device_raise_when_no_gpu(monkeypatch):
     saved = AutoDoc(device="cpu").save()
     with pytest.raises(RuntimeError):
         AutoDoc.load(saved)
+
+
+def test_durable_open_without_device_raises_when_no_gpu(monkeypatch, tmp_path):
+    """A durable document, with or without its mirror, lives on the card
+    by default: without a GPU its open raises and leaves no journal lock
+    behind; ``device="cpu"`` opens it."""
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.core.document import Document
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = str(tmp_path / "d")
+    for call in (lambda: AutoDoc.open(d, mirror=True), lambda: AutoDoc.open(d),
+                 lambda: Document.open(d, mirror=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    dd = AutoDoc.open(d, mirror=True, device="cpu")
+    assert dd.device_doc.device == torch.device("cpu")
+    dd.close()
 
 
 def test_sync_and_functional_without_device_raise_when_no_gpu(monkeypatch):
