@@ -6,12 +6,16 @@ sources compile in parallel, one ``nvcc`` each, and link into
 ``build/automerge_tpu_torch/libamt_kernels_<hash>.so`` beside the package,
 where the hash covers the sources and the flags: a build is reused until
 a source changes. Nothing is built at import time; the first kernel launch
-(or ``build()``) builds.
+(or ``build()``) builds. Threads and processes that need the library at
+once build it once: one holds a lock on
+``build/automerge_tpu_torch/kernels.lock`` while ``nvcc`` runs, the others
+wait on it and then load what it moved into place.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -70,9 +74,19 @@ def build() -> float:
     out = library_path()
     if out.exists():
         return 0.0
-    t0 = time.perf_counter()
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one nvcc run at a time, across threads (a server's workers launching
+    # at once) and processes; the kernel releases the lock with its holder
+    with open(BUILD_DIR / "kernels.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # built by the holder this caller waited for
+            return 0.0
+        return _compile(nvcc, out)
+
+
+def _compile(nvcc: str, out: Path) -> float:
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
         for src in _sources():

@@ -758,9 +758,10 @@ TRACE_FILE = "torch_trace.json"
 
 
 def torch_profile_start(directory: Optional[str] = None) -> dict:
-    """Start a ``torch.profiler`` capture (CPU activity, and CUDA activity
-    when a card is present) whose Chrome trace ``torch_profile_stop``
-    writes into ``directory`` (a fresh temp dir when omitted). A profiler
+    """Start a ``torch.profiler`` capture (CPU activity on every thread,
+    and CUDA activity when a card is present) whose Chrome trace
+    ``torch_profile_stop`` writes into ``directory`` (a fresh temp dir
+    when omitted). A profiler
     that cannot start answers ``{"ok": false, "reason": ...}`` and counts
     ``device.profiler_unavailable{reason=}``: this is capture tooling,
     and no kernel changes its route because of it."""
@@ -774,6 +775,7 @@ def torch_profile_start(directory: Optional[str] = None) -> dict:
             directory = tempfile.mkdtemp(prefix="amtpu_torchprof_")
         try:
             import torch
+            from torch._C._profiler import _ExperimentalConfig
             from torch.profiler import ProfilerActivity, profile
 
             os.makedirs(directory, exist_ok=True)
@@ -781,7 +783,11 @@ def torch_profile_start(directory: Optional[str] = None) -> dict:
             acts = [ProfilerActivity.CPU]
             if cuda:
                 acts.append(ProfilerActivity.CUDA)
-            p = profile(activities=acts)
+            # every thread's ranges: a server starts the capture on a
+            # connection thread while its workers and the batcher's
+            # leader launch the kernels
+            p = profile(activities=acts, experimental_config=_ExperimentalConfig(
+                profile_all_threads=True))
             p.start()
         except Exception as e:  # noqa: BLE001 — answered, never raised
             _obs.count("device.profiler_unavailable",

@@ -9,7 +9,10 @@ replica fed over lossy channels, and 128 served documents fed by their
 sessions through the cross-document batcher), durable storage
 (``storage/durable.py``: a journaled document with a resident mirror,
 reopened cold, moved through the tiered store, and followed through a
-replicated apply), end to end through hand-written
+replicated apply), the serving layer (``rpc.py``, ``serve/``: a socket
+server whose mirrored documents are fed by sync-session peers over TCP
+through the cross-document batcher, and a fresh server process), end to
+end through hand-written
 CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
 over meshes of four and sixteen shards on the card, and historical views
@@ -292,6 +295,48 @@ Phases, each raising on failure (nothing is caught):
        launches the served kernels', the follower's mirror equal to the
        leader's on READ_FETCH, its heads and digest (a)'s. Every number
        beside the card's name and power limit;
+    s. the serving layer (after (r), before (j); ``serve_paths``): in
+       process, ``SocketRpcServer(host="127.0.0.1", port=0,
+       durable_dir=<a temp dir>, workers=8)`` on the card, the batcher at
+       its default (``AUTOMERGE_TPU_SERVE_BATCHED=auto``: mirrors on the
+       card batch); over TCP with ``clients/python/amtpu_client.py``
+       (which imports neither package) SRPC_DOCS durable documents opened
+       with ``{"device": true}`` (the GIL switch interval set as
+       ``rpc.main`` sets it for a server process, restored after), a
+       server session each
+       (``syncSessionNew``), and one peer thread a document holding
+       (i)/(m)'s serve-shaped base and document i's delta chunks in a CPU
+       ``AutoDoc``, driving its ``SyncSession`` against the server
+       (``syncSessionReceive`` of its frames, ``syncSessionPoll`` back)
+       for the base round, then SRPC_ROUNDS rounds of one delta chunk
+       each, the launch counts set to 0 just before the opens and read
+       after the rounds; round SRPC_CAPTURE_ROUND under
+       ``profileStart`` / ``profileStop`` over the RPC (it holds the
+       workers' ``amtpu.batched_launch`` ranges with their kernels), its
+       busy share the capture's kernel time over the round's wall. Checked: the
+       batcher's packed launches (``batched.stats()`` and
+       ``device.kernel_launches{path=batched}`` equal and above 0, no
+       packed-path error), no error answer, the served kernels launched;
+       every mirror's READ_FETCH arrays equal a ``DeviceDoc`` resolved
+       afresh on the card from the document's ``save()`` (over the RPC),
+       its live text the generator's, every ``materialize`` its peer's
+       ``hydrate()``; the first packed super-batch's columns merged on the
+       card equal the plain CPU merge. Then ``storeDemote`` of document 0
+       to warm and cold, a request that hydrates it (``docDigest`` by
+       name: warm) and one that promotes it (``materialize``: hot), the
+       promotion's launches the served kernels', the new mirror equal to
+       the one before. Printed: the base round and the delta rounds' p50
+       and max, a ``syncSessionReceive`` round trip's p50 and p95, the
+       batcher's drain cycles (p50, max, documents a cycle), the busy
+       share, the hydration's and the promotion's seconds, requests shed.
+       Then a fresh process, ``python -m automerge_tpu_torch.rpc --socket
+       127.0.0.1:0 --durable DIR`` (the card: no ``--device``), its
+       address read from its ``serving on`` line: ``openDurable``
+       with ``{"device": true}``, ``applyChanges`` of (a)'s change
+       chunks, ``text`` equal to (a)'s, ``metrics`` counting
+       ``device.kernel_launches`` above 0, ``shutdown`` and exit 0;
+       printed: spawn to the first answer, the apply and the read. The
+       server and the process are stopped on every exit path;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -314,7 +359,8 @@ Phases, each raising on failure (nothing is caught):
     tensors (exact equality: all integer arithmetic) at the shapes of
     each path that runs it: the text fan-in, the record fan-in, the
     last served batch's subset columns (whose prop ids are the whole
-    log's) and one packed super-batch of (i) ("cross-doc"); at the H1
+    log's), one packed super-batch of (i) ("cross-doc") and the first
+    packed super-batch of (s)'s served documents ("served rpc"); at the H1
     text view's columns ("text view": expand_runs at its
     run-native stacks and succ_vis on its covered mask; "text view
     packed": expand_runs, unpack_flags and emit_packed of VIEW_FETCH);
@@ -3151,6 +3197,387 @@ def durable_paths(card: str, device) -> dict:
     return counts
 
 
+# -- the serving layer on the card (phase s) ------------------------------------
+
+SRPC_DOCS = 32  # mirrored durable documents, one peer thread each
+SRPC_ROUNDS = 16  # sync rounds after the base's, one delta chunk a round
+SRPC_WORKERS = 8  # the server's shard workers
+SRPC_CAPTURE_ROUND = 8  # the round under a profileStart / profileStop capture
+SRPC_ACTOR = 0xC0  # the peers' actors 0xc0..
+
+
+def load_client():
+    """``clients/python/amtpu_client.py``, which imports neither package."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "clients", "python", "amtpu_client.py")
+    spec = importlib.util.spec_from_file_location("amtpu_client", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def wire_json(x):
+    """A value as the JSON-RPC wire carries it (``materialize``'s form)."""
+    import base64
+
+    return json.loads(json.dumps(x, default=lambda v: {
+        "$bytes": base64.b64encode(bytes(v)).decode("ascii")}))
+
+
+def serve_in_process(card: str, device, root: str) -> tuple:
+    """(s), in process: see the module docstring. Returns (launch counts
+    by path, the first packed super-batch's spec)."""
+    import base64
+    import threading
+
+    import numpy as np
+
+    from automerge_tpu_torch import kernels, obs
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.obs import prof
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.merge import merge_columns
+    from automerge_tpu_torch.ops.oplog import pad_columns
+    from automerge_tpu_torch.serve import SocketRpcServer
+    from automerge_tpu_torch.storage.change import parse_change
+    from automerge_tpu_torch.sync import SyncSession
+    from automerge_tpu_torch.types import ActorId
+
+    amtpu = load_client()
+    base, deltas, texts = W.serve_workload(SRPC_DOCS, SRPC_ROUNDS, SERVE_OPS,
+                                           SERVE_BALLAST)
+    base_ch = parse_change(base)[0]
+    peers = []
+    for i in range(SRPC_DOCS):
+        d = AutoDoc(ActorId(bytes([SRPC_ACTOR, i]) * 8), device="cpu")
+        d.apply_changes([base_ch])
+        peers.append(d)
+    srv = SocketRpcServer(host="127.0.0.1", port=0,
+                          durable_dir=os.path.join(root, "served"),
+                          workers=SRPC_WORKERS)
+    if srv.rpc.device.type != "cuda" or srv.batcher.device.type != "cuda":
+        raise AssertionError(f"served rpc: the server is on {srv.rpc.device}, its "
+                             f"batcher on {srv.batcher.device}")
+    flushes, captured = [], []
+    raw_flush = srv.batcher._flush
+
+    def timed_flush(gen):
+        t = time.perf_counter()
+        try:
+            raw_flush(gen)
+        finally:
+            flushes.append((time.perf_counter() - t, len(gen.subs) + len(gen.stages)))
+
+    srv.batcher._flush = timed_flush
+    dispatch = B._dispatch_packed
+
+    def noting_dispatch(cols, n_objs, n_props, *a, **k):
+        if not captured:
+            captured.append((pad_columns(cols, n_objs), n_objs, n_props))
+        return dispatch(cols, n_objs, n_props, *a, **k)
+
+    B._dispatch_packed = noting_dispatch
+    # the GIL switch interval a server process runs with (rpc.main)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(float(
+        os.environ.get("AUTOMERGE_TPU_SERVE_SWITCH_INTERVAL", "0.001")))
+    srv.start()
+    address = "%s:%d" % tuple(srv.address)
+    counts = {}
+    try:
+        ctl = amtpu.RetryingClient(address, deadline_s=120, timeout_s=120)
+        ctl.call("configure", syncTimeoutMs=600_000)
+        obs.reset_all()
+        B.reset_stats()
+        kernels.reset_launches()
+        t_open = time.perf_counter()
+        handles = [ctl.call("openDurable", name=f"s{i}", device=True)["doc"]
+                   for i in range(SRPC_DOCS)]
+        sessions = [ctl.call("syncSessionNew", doc=h, epoch=2)["session"]
+                    for h in handles]
+        t_open = time.perf_counter() - t_open
+        psess = [SyncSession(p, epoch=1) for p in peers]
+        clients = [amtpu.RetryingClient(address, deadline_s=120, timeout_s=120)
+                   for _ in range(SRPC_DOCS)]
+        rtts, round_s, wire = [], [], [0, 0]
+        lock = threading.Lock()
+
+        def converse(i, r):
+            c, ps, ss = clients[i], psess[i], sessions[i]
+            now = 1000.0 * (r + 1)
+            for k in range(40):
+                frame = ps.poll(now + k)
+                if frame is not None:
+                    t = time.perf_counter()
+                    c.call("syncSessionReceive", session=ss,
+                           data=base64.b64encode(frame).decode("ascii"))
+                    with lock:
+                        rtts.append(time.perf_counter() - t)
+                        wire[0] += len(frame)
+                back = c.call("syncSessionPoll", session=ss)
+                if back is not None:
+                    raw = base64.b64decode(back)
+                    with lock:
+                        wire[1] += len(raw)
+                    ps.receive(raw, now + k)
+                if (frame is None and back is None and ps.converged()
+                        and c.call("syncSessionStats", session=ss)["converged"]):
+                    return
+            raise AssertionError(f"served rpc round {r} document {i}: the sessions "
+                                 "did not converge")
+
+        def one_round(r):
+            errs = []
+
+            def worker(i):
+                try:
+                    if r:
+                        peers[i].apply_changes([parse_change(deltas[i][r - 1])[0]])
+                    converse(i, r)
+                except BaseException as e:  # noqa: BLE001 - raised below
+                    errs.append(e)
+
+            ts = [threading.Thread(target=worker, args=(i,)) for i in range(SRPC_DOCS)]
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            if errs:
+                raise errs[0]
+
+        cap = None
+        gc.collect()
+        for r in range(SRPC_ROUNDS + 1):
+            if r != SRPC_CAPTURE_ROUND:
+                one_round(r)
+                continue
+            d = os.path.join(OBS_DIR, "served_rpc")
+            start = ctl.call("profileStart", dir=d)
+            if not start["ok"]:
+                raise AssertionError(f"served rpc: profileStart answered {start}")
+            try:
+                one_round(r)
+            finally:
+                stop = ctl.call("profileStop")
+            if not stop["ok"]:
+                raise AssertionError(f"served rpc: profileStop answered {stop}")
+            # the capture holds the round and two requests around it: every
+            # kernel in it ran in the round, whose wall is the denominator
+            cap = prof.read_capture(stop["trace"])
+            cap["round_s"] = round_s[-1]
+            cap["busy_share"] = cap["busy_s"] / round_s[-1]
+        counts["served rpc"] = kernels.launch_counts()
+        stats = B.stats()
+        by_path = obs.counter_values("device.kernel_launches", "path")
+        check_launches("served rpc", counts["served rpc"],
+                       RUN_NATIVE + ("scatter_winners",), TRANSPORT_ONLY)
+        if stats["launches"] < 1 or by_path.get("batched", 0) != stats["launches"] \
+                or stats["batched_error"]:
+            raise AssertionError(f"served rpc: batcher {json.dumps(stats)}, launches by "
+                                 f"path {json.dumps(by_path)}: no packed launch, or an "
+                                 "error")
+        # the packed launches ran on the batcher's leader threads, the
+        # capture started on a connection thread: their ranges are in it
+        check_ranges("served rpc capture", cap, {"amtpu.batched_launch": 1})
+        shed = obs.counter_values("serve.shed", "class")
+        errors = obs.counter_values("rpc.errors", "type")
+        if errors:
+            raise AssertionError(f"served rpc: error answers {json.dumps(errors)}")
+
+        # every mirror a fresh resolve on the card of its document's save(),
+        # every document's materialize its peer's
+        t0 = time.perf_counter()
+        for i, h in enumerate(handles):
+            saved = base64.b64decode(ctl.call("save", doc=h))
+            fresh = DeviceDoc.merge([AutoDoc.load(saved, device="cpu")], device=device)
+            mirror = srv.rpc._docs[h].device_doc
+            if mirror is None or mirror.device.type != "cuda":
+                raise AssertionError(f"served rpc document {i}: no mirror on the card")
+            check_fetch_equal(f"served rpc document {i}", mirror, fresh)
+            if mirror.text(W.SERVE_LIVE) != texts[i]:
+                raise AssertionError(f"served rpc document {i}: live differs from the "
+                                     "generator's")
+            if ctl.call("materialize", doc=h) != wire_json(peers[i].hydrate()):
+                raise AssertionError(f"served rpc document {i}: materialize differs "
+                                     "from its peer's document")
+        t_check = time.perf_counter() - t0
+        # no CUDA error left behind by the server's threads: a device-wide
+        # synchronize raises a pending one, and this thread still launches
+        torch.cuda.synchronize()
+        if int((torch.ones(4, device=device) * 2).sum()) != 8:
+            raise AssertionError("served rpc: a launch after the rounds went wrong")
+        # captured: the first packed super-batch, against the plain CPU merge
+        (cols, n_objs, n_props) = captured[0]
+        plain = merge_columns(dict(cols), fetch=DeviceDoc.READ_FETCH, n_objs=n_objs,
+                              n_props=n_props, device="cpu")
+        card_res = merge_columns(dict(cols), fetch=DeviceDoc.READ_FETCH, n_objs=n_objs,
+                                 n_props=n_props, device=device)
+        for k in DeviceDoc.READ_FETCH:
+            if not np.array_equal(np.asarray(card_res[k]), np.asarray(plain[k])):
+                raise AssertionError(f"served rpc packed launch: {k} differs from the "
+                                     "plain CPU merge")
+
+        # the store: document 0 to warm and cold, a request that hydrates it
+        # (docDigest by name), one that promotes it (materialize)
+        name, h0 = "s0", handles[0]
+        before = srv.rpc._docs[h0].device_doc
+        tiers = [ctl.call("storeDemote", name=name, to="warm")["tier"],
+                 ctl.call("storeDemote", name=name, to="cold")["tier"]]
+        t0 = time.perf_counter()
+        ctl.call("docDigest", name=name)
+        t_hydrate = time.perf_counter() - t0
+        tiers.append(srv.rpc.store.tier(name))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ctl.call("materialize", doc=h0)
+        torch.cuda.synchronize()
+        t_promote = time.perf_counter() - t0
+        tiers.append(srv.rpc.store.tier(name))
+        counts["served rpc promote"] = kernels.launch_counts()
+        if tiers != ["warm", "cold", "warm", "hot"]:
+            raise AssertionError(f"served rpc store: tiers {tiers}")
+        check_launches("served rpc promote", counts["served rpc promote"],
+                       RUN_NATIVE + ("scatter_winners",), TRANSPORT_ONLY)
+        after = srv.rpc._docs[h0].device_doc
+        if after is before or after is None:
+            raise AssertionError("served rpc store: the promotion kept the old mirror")
+        check_fetch_equal("served rpc store round trip", after, before)
+
+        rt = {"p50": statistics.median(rtts), "p95": statistics.quantiles(rtts, n=20)[18]}
+        fl = [f for f, _ in flushes]
+        print(f"served rpc (s): {SRPC_DOCS} durable documents opened with "
+              f"{{\"device\": true}} in {t_open:.6f} s, their sessions fed by "
+              f"{SRPC_DOCS} peer threads over TCP (clients/python/amtpu_client.py): "
+              f"the base round (each mirror's first feed) {round_s[0]:.6f} s, then "
+              f"{SRPC_ROUNDS} delta rounds, p50 {statistics.median(round_s[1:]):.6f} s "
+              f"max {max(round_s[1:]):.6f} s; "
+              f"syncSessionReceive round trip p50 {rt['p50']:.6f} s p95 "
+              f"{rt['p95']:.6f} s over {len(rtts)} calls (switch interval "
+              f"{sys.getswitchinterval()} s, as a server process); bytes peer to "
+              f"server {wire[0]}, server to peer {wire[1]} on {card}", flush=True)
+        print(f"served rpc (s): the batcher's drain cycles {len(fl)}, p50 "
+              f"{statistics.median(fl):.6f} s max {max(fl):.6f} s, documents a cycle "
+              f"p50 {statistics.median(n for _, n in flushes)} max "
+              f"{max(n for _, n in flushes)}; packed launches {stats['launches']}, "
+              f"whales {stats['batched_fallback']}, useful rows "
+              f"{stats['useful_rows']} padded {stats['padded_rows']}; shed "
+              f"{json.dumps(shed)} on {card}", flush=True)
+        print(f"served rpc (s) capture of round {SRPC_CAPTURE_ROUND} (profileStart / "
+              f"profileStop over the RPC): the round {cap['round_s']:.6f} s (the "
+              f"trace's span {cap['window_s']:.6f} s), {cap['kernels']} kernels, device "
+              f"busy {cap['busy_s']:.6f} s, busy share of the round "
+              f"{cap['busy_share']:.7f}; ranges {json.dumps(cap['ranges'])} on {card}",
+              flush=True)
+        print(f"served rpc (s): every mirror equals a fresh resolve on the card of its "
+              f"document's save() on READ_FETCH, every materialize its peer's "
+              f"({t_check:.3f} s of checks); no CUDA error pending after the "
+              f"server's threads; the first packed super-batch (P "
+              f"{len(cols['action'])}) equals the plain CPU merge; launches "
+              + json.dumps({k: v for k, v in counts["served rpc"].items() if v}),
+              flush=True)
+        print(f"served rpc (s) store: tiers {tiers}; the hydrating request "
+              f"(docDigest) {t_hydrate:.6f} s, the promoting request (materialize) "
+              f"{t_promote:.6f} s, the mirror equal to the one before on READ_FETCH; "
+              "promote launches " + json.dumps(
+                  {k: v for k, v in counts["served rpc promote"].items() if v})
+              + f" on {card}", flush=True)
+        for c in clients + [ctl]:
+            c.close()
+    finally:
+        B._dispatch_packed = dispatch
+        srv.stop()
+        sys.setswitchinterval(switch)
+    return counts, captured[0]
+
+
+def serve_process(card: str, root: str) -> None:
+    """(s), a fresh process: ``python -m automerge_tpu_torch.rpc --socket
+    127.0.0.1:0 --durable DIR`` on the card (see the module docstring)."""
+    import ast
+    import base64
+    import threading
+
+    amtpu = load_client()
+    held = FANINS["text"]
+    data = base64.b64encode(b"".join(held["blobs"])).decode("ascii")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "automerge_tpu_torch.rpc", "--socket", "127.0.0.1:0",
+         "--durable", os.path.join(root, "process")],
+        cwd=ROOT, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    err_lines = []
+    try:
+        address = None
+        for line in proc.stderr:
+            err_lines.append(line)
+            if line.startswith("serving on "):
+                address = "%s:%d" % ast.literal_eval(line[len("serving on "):].strip())
+                break
+        if address is None:
+            raise AssertionError("served rpc process: no 'serving on' line: "
+                                 + "".join(err_lines)[-2000:])
+        drain = threading.Thread(target=lambda: err_lines.extend(proc.stderr),
+                                 daemon=True)
+        drain.start()
+        c = amtpu.RetryingClient(address, deadline_s=300, timeout_s=300)
+        h = c.call("openDurable", name="text", device=True)["doc"]
+        t_first = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        c.call("applyChanges", doc=h, data=data)
+        t2 = time.perf_counter()
+        text = c.call("text", doc=h, obj=held["text_obj"])
+        t3 = time.perf_counter()
+        snap = c.call("metrics", format="json")["metrics"]
+        launches = sum(e["value"] for e in snap if e["type"] == "counter"
+                       and e["name"] == "device.kernel_launches")
+        if text != held["text"]:
+            raise AssertionError("served rpc process: the text differs from (a)'s")
+        if not launches > 0:
+            raise AssertionError("served rpc process: metrics count no kernel launch")
+        if c.call("shutdown") is not None:
+            raise AssertionError("served rpc process: shutdown answered a value")
+        c.close()
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"served rpc process: exit code {rc}: "
+                                 + "".join(err_lines)[-2000:])
+        print(f"served rpc (s) process: spawn to the first answer {t_first:.6f} s, "
+              f"applyChanges of (a)'s {len(held['blobs'])} chunks ({len(data)} base64 "
+              f"bytes) {t2 - t1:.6f} s, the text read (one merge) {t3 - t2:.6f} s, "
+              f"equal to (a)'s; device.kernel_launches in metrics {launches}; "
+              f"shutdown, exit 0 on {card}", flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def serve_paths(card: str, device) -> tuple:
+    """(s) the serving layer: a socket server in process, then a fresh
+    server process. Returns (launch counts by path, the spec of one packed
+    super-batch of the served documents)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="amtpu-serve-")
+    try:
+        counts, spec = serve_in_process(card, device, root)
+        serve_process(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"served rpc (s): the phase took {time.perf_counter() - t_phase:.3f} s "
+          f"on {card}", flush=True)
+    return counts, spec
+
+
 def cold_open_paths(card: str, device) -> dict:
     """(j) the three fan-ins opened cold from images; releases them."""
     counts = {f"{name} cold open": cold_open(name, card, device) for name in COLD_ORDER}
@@ -4210,6 +4637,7 @@ def main() -> int:
     document_counts = document_paths(card, device)
     sync_counts = sync_paths(card, device)
     durable_counts = durable_paths(card, device)
+    serve_counts, serve_spec = serve_paths(card, device)
     cold_counts = cold_open_paths(card, device)
     sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
                                    record_log)
@@ -4220,8 +4648,8 @@ def main() -> int:
     from automerge_tpu_torch.ops.merge import condensed_caps
 
     by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
-               **document_counts, **sync_counts, **durable_counts, **cold_counts,
-               **sharded_counts}
+               **document_counts, **sync_counts, **durable_counts, **serve_counts,
+               **cold_counts, **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,
@@ -4234,7 +4662,7 @@ def main() -> int:
              "text view packed": (*view_cols, DeviceDoc.VIEW_FETCH),
              "records": record_cols,
              "records expand": record_cols, "records packed": record_cols,
-             "served": last, "cross-doc": cross_spec,
+             "served": last, "cross-doc": cross_spec, "served rpc": serve_spec,
              "text condensed": spec(text_log, True),
              "typing": spec(typing_log),
              "typing condensed": spec(typing_log, True),

@@ -1885,3 +1885,136 @@ def test_replicated_apply_feeds_the_batcher_on_card(cuda, tmp_path):
     _equal_docs(followers["card"].device_doc, followers["cpu"].device_doc, "card vs cpu")
     for d in (leader, *followers.values()):
         d.close()
+
+
+def _rpc_feed(call, d, n_peers=3, rounds=3, archive=600):
+    """Peers with fixed actors sync into durable document ``d`` through
+    ``call(method, **params)``: each writes an archive text first, then
+    types into a small live text, round by round."""
+    peers = []
+    for i in range(n_peers):
+        p = call("create", actor=f"{0x30 + i:02x}" * 16)["doc"]
+        arch = call("putObject", doc=p, obj="_root", prop="archive", type="text")["$obj"]
+        call("spliceText", doc=p, obj=arch, pos=0, text=f"{i}" * archive)
+        live = call("putObject", doc=p, obj="_root", prop="live", type="text")["$obj"]
+        call("commit", doc=p)
+        peers.append((p, live, call("syncStateNew")["sync"], call("syncStateNew")["sync"]))
+    for r in range(rounds + 1):
+        for p, live, _, _ in peers:
+            if r:
+                call("spliceText", doc=p, obj=live, pos=0, text=f"r{r} ")
+                call("commit", doc=p)
+        for _ in range(12):
+            moved = False
+            for p, _, sp, sd in peers:
+                m = call("generateSyncMessage", doc=p, sync=sp)
+                if m is not None:
+                    moved = True
+                    call("receiveSyncMessage", doc=d, sync=sd, data=m)
+                b = call("generateSyncMessage", doc=d, sync=sd)
+                if b is not None:
+                    moved = True
+                    call("receiveSyncMessage", doc=p, sync=sp, data=b)
+            if not moved:
+                break
+
+
+def test_rpc_server_on_card_equals_cpu(cuda, tmp_path):
+    """``RpcServer()`` serves the card: a mirrored durable document fed by
+    sync peers, compacted, demoted to warm and cold and promoted by a
+    request holds a mirror equal, array for array, to the same sequence
+    on ``RpcServer(device="cpu")``; the card's feeds launched the
+    kernels."""
+    from automerge_tpu_torch.rpc import RpcServer
+
+    mirrors = {}
+    for key, dev in (("card", None), ("cpu", "cpu")):
+        srv = RpcServer(durable_dir=str(tmp_path / key), device=dev)
+
+        def call(method, **params):
+            resp = srv.handle({"id": 1, "method": method, "params": params})
+            assert "error" not in resp, (method, resp)
+            return resp["result"]
+
+        reset_launches()
+        d = call("openDurable", name="doc", device=True)["doc"]
+        _rpc_feed(call, d)
+        fed = launch_counts()
+        call("durableCompact", doc=d)
+        assert call("storeDemote", name="doc", to="warm")["tier"] == "warm"
+        assert call("storeDemote", name="doc", to="cold")["tier"] == "cold"
+        reset_launches()
+        text = call("materialize", doc=d)
+        assert srv.store.tier("doc") == "hot"
+        promoted = launch_counts()
+        dd = srv._docs[d]
+        assert dd.device_doc.hydrate() == text == dd.hydrate()
+        if key == "card":
+            assert dd.device_doc.device.type == "cuda"
+            assert fed["linearize"] > 0 and promoted["linearize"] == L.LAUNCHES, (
+                fed, promoted)
+        mirrors[key] = (srv, dd.device_doc)
+    _equal_docs(mirrors["card"][1], mirrors["cpu"][1], "rpc server card vs cpu")
+    for srv, _ in mirrors.values():
+        srv.close_durables()
+
+
+def test_socket_server_on_card_batches_concurrent_peers(cuda, tmp_path):
+    """``SocketRpcServer()`` on the card with eight concurrent peers, each
+    over its own connection: their feeds ride the cross-document batcher
+    (packed launches), and every mirror equals a fresh resolve of its
+    document on the card."""
+    import json
+    import socket
+    import threading
+
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.serve import SocketRpcServer
+
+    srv = SocketRpcServer(host="127.0.0.1", port=0, durable_dir=str(tmp_path),
+                          workers=8)
+    srv.start()
+    try:
+        assert srv.batcher.device.type == "cuda"
+
+        def client():
+            sock = socket.create_connection(srv.address, timeout=120)
+            f = sock.makefile("r")
+
+            def call(method, **params):
+                sock.sendall((json.dumps({"id": 1, "method": method,
+                                          "params": params}) + "\n").encode())
+                resp = json.loads(f.readline())
+                assert "error" not in resp, (method, resp)
+                return resp["result"]
+
+            return sock, call
+
+        sock, call = client()
+        docs = [call("openDurable", name=f"m{i}", device=True)["doc"] for i in range(8)]
+        sock.close()
+        B.reset_stats()
+        errs = []
+
+        def peer(i):
+            try:
+                s, c = client()
+                _rpc_feed(c, docs[i], n_peers=1, rounds=4)
+                s.close()
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errs.append(f"{i}: {e!r}")
+
+        ts = [threading.Thread(target=peer, args=(i,)) for i in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+        assert not any(t.is_alive() for t in ts) and not errs, errs
+        assert B.stats()["launches"] > 0, B.stats()
+        for h in docs:
+            dd = srv.rpc._docs[h]
+            assert dd.device_doc.device.type == "cuda"
+            _equal_docs(dd.device_doc, DeviceDoc.merge([dd.doc], device=cuda),
+                        f"doc {h}")
+    finally:
+        srv.stop()

@@ -6,8 +6,9 @@ residency and run image, ``ops/compressed.py`` and
 ``storage/document.py`` and ``patches/``, its observability layer,
 ``obs/`` and ``trace.py``, and its durable storage, ``storage/journal.py``,
 ``storage/durable.py``, ``storage/crashsim.py``, ``integrity.py``,
-``degrade.py``, ``store/`` and ``testing.py``, included), and its entry
-points refuse to fall back to the CPU."""
+``degrade.py``, ``store/`` and ``testing.py``, and its serving layer,
+``rpc.py`` and ``serve/``, included), and its entry points refuse to fall
+back to the CPU."""
 
 import ast
 import os
@@ -258,6 +259,45 @@ j.append_meta("k", b"v")
 j.close()
 assert journal.scan_records(sfs.read_bytes("/j"))[1].records == 1
 assert testing.realize(api.AutoDoc.load(adoc.save(), device="cpu"))[0] == "map"
+# the serving layer: the stdio frontend and the socket server over TCP,
+# a mirrored durable document fed by a sync peer
+from automerge_tpu_torch import rpc
+from automerge_tpu_torch.serve import admission, server, shards
+from automerge_tpu_torch.serve import QueueFull, ShardPool, SocketRpcServer
+import io, socket as _socket
+srv = rpc.RpcServer(device="cpu")
+out = io.StringIO()
+srv.serve(stdin=io.StringIO('{"id":1,"method":"create","params":{}}\n'), stdout=out)
+assert json.loads(out.getvalue())["result"] == {"doc": 1}
+assert admission.priority_class("put") == (1, "mutation")
+sock_srv = SocketRpcServer(host="127.0.0.1", port=0, durable_dir=tempfile.mkdtemp(),
+                           device="cpu", workers=2)
+sock_srv.start()
+try:
+    conn = _socket.create_connection(sock_srv.address, timeout=60)
+    rf = conn.makefile("r")
+    def rcall(method, **params):
+        conn.sendall((json.dumps({"id": 1, "method": method, "params": params})
+                      + "\n").encode())
+        resp = json.loads(rf.readline())
+        assert "error" not in resp, resp
+        return resp["result"]
+    md = rcall("openDurable", name="iso", device=True)["doc"]
+    peer = rcall("create", actor="0e" * 16)["doc"]
+    rcall("put", doc=peer, obj="_root", prop="k", value=1)
+    rcall("commit", doc=peer)
+    sp, sd = rcall("syncStateNew")["sync"], rcall("syncStateNew")["sync"]
+    for _ in range(6):
+        m = rcall("generateSyncMessage", doc=peer, sync=sp)
+        if m is not None:
+            rcall("receiveSyncMessage", doc=md, sync=sd, data=m)
+        b = rcall("generateSyncMessage", doc=md, sync=sd)
+        if b is not None:
+            rcall("receiveSyncMessage", doc=peer, sync=sp, data=b)
+    assert sock_srv.rpc._docs[md].device_doc.hydrate() == {"k": 1}
+    conn.close()
+finally:
+    sock_srv.stop()
 maps = open("/proc/self/maps").read()
 assert str(native.library_path()) in maps
 bad = sorted(
@@ -447,6 +487,24 @@ def test_sync_and_functional_without_device_raise_when_no_gpu(monkeypatch):
             make()
     doc = F.load(saved, device="cpu")
     assert F.clone(doc)._auto.doc.device == torch.device("cpu")
+
+
+def test_servers_without_device_raise_when_no_gpu(monkeypatch, tmp_path):
+    """The JSON-RPC frontend and the socket server serve the card by
+    default: without a GPU they raise before any thread, socket or store
+    exists, and ``python -m automerge_tpu_torch.rpc`` exits 1."""
+    from automerge_tpu_torch import rpc
+    from automerge_tpu_torch.serve import SocketRpcServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (rpc.RpcServer, SocketRpcServer,
+                 lambda: rpc.RpcServer(durable_dir=str(tmp_path)),
+                 lambda: SocketRpcServer(host="127.0.0.1", port=0,
+                                         durable_dir=str(tmp_path))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert rpc.main(["--socket", "127.0.0.1:0"]) == 1
+    assert rpc.RpcServer(device="cpu").device == torch.device("cpu")
 
 
 def test_served_document_stays_on_its_device(monkeypatch):
