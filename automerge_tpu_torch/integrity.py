@@ -1,5 +1,5 @@
-"""End-to-end integrity: verifiable doc digests, the durable-tier scrub,
-and the device-mirror audit.
+"""End-to-end integrity: verifiable doc digests, anti-entropy scrub,
+and self-healing replicas.
 
 Every robustness layer so far defends against faults that announce
 themselves — crashes, partitions, ENOSPC, overload. This module detects
@@ -16,8 +16,16 @@ themselves — crashes, partitions, ENOSPC, overload. This module detects
   digest binds the accumulator, the change count, and the sorted heads
   under one SHA-256 (``finalize_digest``), so two documents agree iff
   they hold the same changes *and* the same frontier.
-* **Scrubber** (``Scrubber``) — a background loop on every serving
-  node, running the two passes below between the ack path's locks.
+* **Anti-entropy scrubber** (``Scrubber``) — a background loop on every
+  serving node. On a replication leader it exchanges digest-at-LSN with
+  each follower (compared only when both sides sit at the same stable
+  LSN, so live writes can never false-positive); a mismatch counts
+  ``cluster.divergence{kind}``, dumps a flight recording, and self-heals
+  by resetting the diverged replica from a fresh leader snapshot
+  (``replReset`` — a plain catch-up snapshot cannot remove *extra*
+  changes, CRDT merge is a union). A replica that re-diverges after a
+  repair is quarantined: dropped from the ack-gate quorum
+  (``cluster.quarantined`` gauge) rather than silently re-trusted.
 * **Device-mirror audit** — sampled spot-checks of the compressed /
   run-native resident image against the dense host oracle
   (``CompressedOpColumns.verify_against``); a mismatch drops the mirror
@@ -33,11 +41,11 @@ themselves — crashes, partitions, ENOSPC, overload. This module detects
   last resort for unreplicated docs. Counted as
   ``journal.scrub_corrupt{kind}`` / ``journal.scrub_repaired{kind}``.
 
-The port of ``automerge_tpu/integrity.py`` without the follower passes
-(the leader's digest exchange with each follower and its ``replReset``
-repair), which need the cluster layer the port does not have yet:
-``run_round`` covers the mirror audit and the file scrub, as the
-reference's does on a node with no replication hub.
+The port of ``automerge_tpu/integrity.py``. One ``except`` is narrowed:
+a follower repair counts ``scrub.repair_error`` for a refused snapshot
+(``ReplicationError``) or a failed call to the follower (a socket's
+``OSError``, the follower's error answer, a malformed answer) and lets
+any other failure propagate.
 
 Knobs: ``AUTOMERGE_TPU_SCRUB`` (master switch, default on),
 ``AUTOMERGE_TPU_SCRUB_INTERVAL`` (seconds between rounds, default 15),
@@ -341,6 +349,9 @@ class Scrubber:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._round_lock = threading.Lock()
+        # (follower addr, doc name) -> times repaired: the first
+        # divergence heals, a re-divergence after repair quarantines
+        self._repaired: dict = {}
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -380,6 +391,9 @@ class Scrubber:
                     summary["mirrors"] += self._audit_mirror(name, summary)
                 for name in names:
                     summary["files"] += self._scrub_files(name, summary)
+                hub = getattr(self.rpc, "hub", None)
+                if hub is not None:
+                    self._anti_entropy(hub, summary)
             obs.count("scrub.rounds")
             return summary
 
@@ -591,3 +605,86 @@ class Scrubber:
             obs.flight.dump(reason=reason)
         except Exception:  # noqa: BLE001 — diagnostics must not fail scrub
             pass
+
+    # -- anti-entropy (leader <-> follower digest exchange) ------------------
+
+    def _anti_entropy(self, hub, summary: dict) -> None:
+        names = hub.doc_names()
+        if not names:
+            return
+        names = sorted(names)
+        k = min(self.sample, len(names))
+        start = self._rr % len(names)
+        picked = [names[(start + i) % len(names)] for i in range(k)]
+        addrs = hub.follower_addrs()
+        for name in picked:
+            doc = self._live_doc(name)
+            if doc is None:
+                continue
+            lsn_a = hub.lsn(name)
+            try:
+                mine = doc.doc_digest()
+            except Exception:  # noqa: BLE001 — racing close/demote
+                continue
+            if hub.lsn(name) != lsn_a:
+                obs.count("scrub.digest_skipped", labels={"reason": "busy"})
+                continue
+            for addr in addrs:
+                self._compare_follower(hub, addr, name, lsn_a, mine, summary)
+
+    def _compare_follower(self, hub, addr: str, name: str, lsn: int,
+                          mine: dict, summary: dict) -> None:
+        try:
+            theirs = _admin_call(addr, "docDigest", {"name": name},
+                                 timeout=hub.io_timeout)
+        except Exception as e:  # noqa: BLE001 — link faults aren't rot
+            obs.count("scrub.peer_error", error=str(e)[:200])
+            return
+        if (theirs.get("stream") != hub.stream_id
+                or theirs.get("lsn") != lsn):
+            obs.count("scrub.digest_skipped", labels={"reason": "lagging"})
+            return
+        summary["digests"] += 1
+        if theirs.get("digest") == mine["digest"]:
+            obs.count("cluster.digest_ok")
+            return
+        # same stream, same LSN, different state: genuine divergence
+        summary["divergent"] += 1
+        obs.count("cluster.divergence", labels={"kind": "follower_digest"})
+        obs.event("cluster.divergence", follower=addr, doc=name, lsn=lsn,
+                  leader=mine["digest"], follower_digest=theirs.get("digest"))
+        self._flight_dump("divergence")
+        key = (addr, name)
+        if key in self._repaired:
+            # repaired once already and diverged again: the replica is
+            # not trustworthy — out of the ack quorum, loudly
+            hub.quarantine(addr)
+            summary["quarantined"] += 1
+            return
+        self._repaired[key] = 1
+        if self._repair_follower(hub, addr, name):
+            summary["repaired"] += 1
+
+    def _repair_follower(self, hub, addr: str, name: str) -> bool:
+        """Reset the diverged replica from a fresh leader snapshot. A
+        forced catch-up snapshot is NOT enough: CRDT merge is a union,
+        so a replica holding *extra* (corrupt or foreign) changes would
+        keep them — ``replReset`` wipes the replica's doc state first."""
+        from .cluster.replication import ReplicationError, encode_cursor
+
+        try:
+            data, lsn = hub.snapshot(name)
+            cursor = encode_cursor(hub.stream_id, lsn)
+            _admin_call(addr, "replReset", {
+                "name": name,
+                "stream": hub.stream_id,
+                "lsn": lsn,
+                "snapshot": base64.b64encode(data).decode("ascii"),
+                "cursor": base64.b64encode(cursor).decode("ascii"),
+            }, timeout=max(hub.io_timeout, 30.0))
+        except (ReplicationError, OSError, RuntimeError, ValueError) as e:
+            # a refused snapshot or a failed call to the follower
+            obs.count("scrub.repair_error", error=str(e)[:200])
+            return False
+        obs.count("cluster.divergence_repaired")
+        return True

@@ -45,8 +45,8 @@ each on purpose):
 * ``profileStart`` / ``profileStop`` drive a ``torch.profiler`` capture
   (``prof.torch_profile_start`` / ``torch_profile_stop``).
 * ``main``'s cluster mode (``--node-id``, ``--replicate-to``,
-  ``--follow``) needs ``cluster/``, which the port does not have yet:
-  ``main`` refuses those flags and returns 2.
+  ``--follow`` with ``--socket`` and ``--durable``) runs a
+  ``cluster.ClusterNode`` on ``--device`` (the card by default).
 
 Robustness: every malformed frame (bad JSON, unknown method, oversized
 request, undecodable base64) answers with an ``error`` response; EOF —
@@ -1560,7 +1560,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--node-id", default=None, metavar="ID",
         help="run as a cluster node (cluster/node.py) with this id; "
-             "requires --socket and --durable (not ported yet: refused)",
+             "requires --socket and --durable",
     )
     ap.add_argument(
         "--replicate-to", action="append", default=[], metavar="HOST:PORT",
@@ -1586,13 +1586,6 @@ def main(argv=None) -> int:
              "obs.merge_flights)",
     )
     args = ap.parse_args(argv)
-    if args.node_id or args.replicate_to or args.follow:
-        # cluster node mode needs cluster/ (ClusterNode, the replication
-        # hub), which the port does not have yet
-        print("cluster node mode (--node-id, --replicate-to, --follow) "
-              "needs automerge_tpu_torch.cluster, which is not ported yet "
-              "(ROADMAP §1.6.3)", file=sys.stderr)
-        return 2
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -1617,7 +1610,27 @@ def main(argv=None) -> int:
             os.environ.get("AUTOMERGE_TPU_SERVE_SWITCH_INTERVAL", "0.001")
         ))
 
-        if args.socket:
+        cluster = bool(args.node_id or args.replicate_to or args.follow)
+        if cluster:
+            from .cluster import ClusterNode
+
+            if not (args.socket and args.durable):
+                print("cluster node mode requires --socket and --durable",
+                      file=sys.stderr)
+                return 2
+            host, _, port = args.socket.rpartition(":")
+            srv = ClusterNode(
+                node_id=args.node_id or f"node-{os.getpid()}",
+                host=host or "127.0.0.1", port=int(port),
+                durable_dir=args.durable,
+                role="follower" if args.follow else "leader",
+                leader_addr=args.follow,
+                replicate_to=args.replicate_to,
+                ack_replicas=args.ack_replicas,
+                workers=args.workers,
+                device=device,
+            )
+        elif args.socket:
             host, _, port = args.socket.rpartition(":")
             srv = SocketRpcServer(
                 host=host or "127.0.0.1", port=int(port),

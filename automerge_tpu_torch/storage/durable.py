@@ -509,15 +509,18 @@ class DurableDocument:
 
     # -- device-mirror residency (tiered store hot <-> warm) -----------------
 
-    def drop_device_mirror(self):
+    def drop_device_mirror(self, keep_image: bool = True):
         """Demote hot -> warm: release the resident ``DeviceDoc`` (and
         its per-doc device gauges) while the host op-store keeps
         serving. Returns the dropped mirror (for callers that need to
-        detach it from live sessions) or None."""
+        detach it from live sessions) or None. ``keep_image=False`` keeps
+        no run image of the mirror's log (a mirror whose feed failed
+        may hold a part-spliced log)."""
         dev = self.device_doc
         self.device_doc = None
         if dev is not None:
             obs.remove_doc_gauges(self.obs_name, device_only=True)
+        if dev is not None and keep_image:
             # retain the run-coded column image of the dropped mirror: the
             # next warm→hot promotion (or compaction) rebuilds from run
             # tables instead of re-extracting every change — zero-encode

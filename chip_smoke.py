@@ -11,8 +11,10 @@ sessions through the cross-document batcher), durable storage
 reopened cold, moved through the tiered store, and followed through a
 replicated apply), the serving layer (``rpc.py``, ``serve/``: a socket
 server whose mirrored documents are fed by sync-session peers over TCP
-through the cross-document batcher, and a fresh server process), end to
-end through hand-written
+through the cross-document batcher, and a fresh server process), the
+cluster tier (``cluster/``: a leader replicating to a mirrored follower
+whose drains feed its mirrors in packed launches, a second group, a
+router, a failover and two migrations), end to end through hand-written
 CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
 over meshes of four and sixteen shards on the card, and historical views
@@ -237,15 +239,18 @@ Phases, each raising on failure (nothing is caught):
        ``amtpu.resolve`` with CUDA kernels inside it, the text (a)'s;
        printed: the window, its kernels and the device busy share (the
        union of the kernel intervals over the window's wall);
-    o. the served drain of (c) (the record base, 64 batches of 16) again,
-       one ``prof.cycle`` a batch (a step of ``apply_batches``' pipeline:
-       the batch spliced and launched, the one before read back): every
-       READ_FETCH array (b)'s, the cycles' ``launches`` notes equal to
+    o. the served drain of (c) (the record base, its first
+       OBS_SERVED_BATCHES = 16 batches of 16: cut from all 64 to make
+       room for (t)) again, one ``prof.cycle`` a batch (a step of
+       ``apply_batches``' pipeline: the batch spliced and launched, the
+       one before read back): every READ_FETCH array that of a merge on
+       the card of the base and those batches' changes, the cycles'
+       ``launches`` notes equal to
        ``obs``' ``device.kernel_launches{path=per_doc}``; printed: the
        cycles' ``attributed_frac``, host and device seconds and shares,
        overlap, stages and the collector's seconds inside the cycles; then
        the drain once more under a capture
-       (``amtpu.dispatch_async`` 64 times, with kernels) and its busy
+       (``amtpu.dispatch_async`` 16 times, with kernels) and its busy
        share;
     p. (i)'s 128 documents drained again by ``apply_cross_doc`` as (i)(a),
        one ``prof.cycle`` a cycle (the notes' launches those of
@@ -337,6 +342,52 @@ Phases, each raising on failure (nothing is caught):
        ``device.kernel_launches`` above 0, ``shutdown`` and exit 0;
        printed: spawn to the first answer, the apply and the read. The
        server and the process are stopped on every exit path;
+    t. the cluster tier (after (s), before (j); ``cluster_paths``), all in
+       process on the one card: group 0 a leader L0 (``ack_replicas=1``)
+       and a follower F0, group 1 a leader L1, a ``ClusterRouter`` over
+       both (heartbeat CLUSTER_HEARTBEAT s, 3 misses), each node
+       ``ClusterNode(..., workers=4)`` with no ``device`` (the card; every
+       node's server and batcher checked to be on CUDA), and a spare
+       follower F2; the launch counts, ``batched.stats()`` and ``obs`` set
+       to 0 once F0 has opened its mirrors (``openDurable {"device":
+       true}``: the fan-in and every serve document the ring places on
+       group 0) and read at the end. (a)'s 1,025 chunks written through
+       the router in CLUSTER_FANIN_PARTS ``applyChanges`` (each acked after
+       F0's drain), F0's mirror then (a)'s text and a fresh resolve on the
+       card of F0's history on READ_FETCH; CLUSTER_DOCS = 32 serve-shaped
+       documents ((s)'s, cut from SERVE_DOCS = 128) by CLUSTER_CLIENTS
+       client threads, the base then rounds of one 40-character delta
+       chunk, each an ``applyChanges`` through the router (its round trip
+       timed, and for group 0 the time from its ack to F0's mirror
+       holding the change), round CLUSTER_CAPTURE_ROUND under a capture
+       (``amtpu.batched_launch`` ranges and CUDA kernels in the window:
+       F0's drains, the round's only launches); after round
+       CLUSTER_FAILOVER_ROUND every leader's text the document's model
+       and every F0 mirror equal to a fresh resolve of F0's history and
+       its model's text; then L0's retained records of group 0's serve
+       documents shipped to F2 as one pipelined stream (each document's
+       base as a ``replSnapshot``, then every ``replApply`` frame in one
+       write): no error, some packed launch of F2's drains holding more
+       than one document, F2's mirrors checked the same way. Then L0 is
+       stopped; the router promotes F0 (the stop to the first acked
+       commit on F0 timed); every write acked before the stop reads back
+       through the router, the fan-in's text (a)'s; the remaining rounds
+       land on F0 (group 0's documents by ``syncSessionNew`` sessions of
+       CPU peers, which feed F0's mirrors through its batcher; group 1's
+       by ``applyChanges``), every text through the router then the
+       generator's and every F0 mirror its document's; then a serve
+       document demoted to warm, and the fan-in, migrate to group 1
+       (``clusterMigrate``, timed): texts unchanged through the router, F0
+       released both, L1 holds both. Checked too: the phase's launches and
+       F0's drains' own (``_feed_repl_mirrors`` wrapped: the served
+       kernels, not the packed transport's), ``cluster.repl_apply_batch_size``
+       observed, no ``cluster.repl_device_feed_error``, no CUDA error left
+       by the nodes' threads. Printed: the layout, the fan-in's acks and
+       F0's catch-up, its mirror's first read, the ``applyChanges`` round
+       trip (p50, p95), the replication lag (p50, max), F0's drains
+       (documents a drain, seconds, packed launches, documents a launch)
+       and F2's, the capture's busy share, the failover and migration
+       seconds, the phase's seconds;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -2574,6 +2625,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OBS_DIR = os.path.join(ROOT, "build", "obs")  # captures, the cost workload
 PARENT_TREE = os.path.join(ROOT, "build", "parent")  # joins (q) when unpacked
 OBS_COST_BATCHES = 16  # (q): the served drain's first batches a process
+# (o): the served drain's first batches, cycled and captured (cut from all
+# 64 to keep the smoke inside its budget)
+OBS_SERVED_BATCHES = 16
 # (q): processes an arm, in turns; one keeps the smoke within its time
 # with phase (r) added (two took ~100 s of ~715 s on a slow host)
 OBS_COST_ROUNDS = 1
@@ -2663,10 +2717,14 @@ def obs_paths(card: str, device) -> None:
     print_cap("obs (n) text fan-in", cap, card)
     del doc
 
-    # (o) the served drain, one cycle a batch, then again under a capture
+    # (o) the served drain's first OBS_SERVED_BATCHES batches, one cycle a
+    # batch, then again under a capture; each against a merge of the base
+    # and those batches' changes on the card
     records = FANINS["records"]
     base, reps = records["blobs"][0], records["blobs"][1:]
-    batches = W.record_batches(reps, RECORD_BATCH)
+    batches = W.record_batches(reps, RECORD_BATCH)[:OBS_SERVED_BATCHES]
+    drained = DeviceDoc.merge([base] + reps[:OBS_SERVED_BATCHES * RECORD_BATCH],
+                              device=device)
     served = DeviceDoc.merge([base], device=device)
     torch.cuda.synchronize()
     gc.collect()
@@ -2683,7 +2741,7 @@ def obs_paths(card: str, device) -> None:
                 if i == len(batches) - 1 and inflight is not None:
                     served._collect_async(inflight)
             reports.append(c.report)
-    check_serve_equal("obs (o) served, cycled", [served], [records["doc"]], -1)
+    check_serve_equal("obs (o) served, cycled", [served], [drained], -1)
     kl = obs.counter_values("device.kernel_launches", "path")
     so = cycle_summary(reports)
     so["gc_s"] = sum(t for _, t in pauses)
@@ -2698,10 +2756,10 @@ def obs_paths(card: str, device) -> None:
     torch.cuda.synchronize()
     gc.collect()
     _, cap = capture("served_drain", lambda: served.apply_batches(batches))
-    check_serve_equal("obs (o) served, captured", [served], [records["doc"]], -1)
+    check_serve_equal("obs (o) served, captured", [served], [drained], -1)
     check_ranges("obs (o) served drain", cap, {"amtpu.dispatch_async": len(batches)})
     print_cap("obs (o) served drain", cap, card)
-    del served
+    del served, drained
 
     # (p) the cross-document drain, one cycle a cycle, then under a capture
     doc0, cycle0, n0 = SERVE_BURST
@@ -3576,6 +3634,529 @@ def serve_paths(card: str, device) -> tuple:
     print(f"served rpc (s): the phase took {time.perf_counter() - t_phase:.3f} s "
           f"on {card}", flush=True)
     return counts, spec
+
+
+CLUSTER_DOCS = 32  # (t): serve-shaped documents, cut from SERVE_DOCS = 128
+CLUSTER_ROUNDS = 16  # delta rounds after the base
+CLUSTER_FAILOVER_ROUND = 8  # L0 stops after this round
+CLUSTER_CAPTURE_ROUND = 4  # the round under a prof capture
+CLUSTER_WORKERS = 4  # each node's shard workers
+CLUSTER_CLIENTS = 8  # client threads writing through the router
+CLUSTER_FANIN_PARTS = 8  # applyChanges requests carrying (a)'s chunks
+CLUSTER_HEARTBEAT = 0.25  # the router's liveness poll, seconds
+CLUSTER_ACTOR = 0xD0  # the sync peers' actors 0xd0.. after the failover
+CLUSTER_STREAM = "smoke/pipelined"  # the pipelined shipper's stream id
+
+
+def cluster_drains(f0, f2, drains: list):
+    """Note every follower drain of ``f0`` and ``f2`` in ``drains``: the
+    node, its seconds (synchronised), the documents it fed, its packed
+    launches (``resolve_stages``' documents packed and peeled) and its
+    kernels' launches (no other launch runs beside a drain until the
+    failover). Returns a function that restores ``resolve_stages``."""
+    import threading
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.ops import batched as B
+
+    raw_resolve = B.resolve_stages
+    local = threading.local()
+
+    def noting_resolve(stages, *a, **k):
+        out = raw_resolve(stages, *a, **k)
+        noted = getattr(local, "launches", None)
+        if noted is not None:  # a follower drain's, not a batcher's
+            noted.append(out)
+        return out
+
+    def wrap(node, label):
+        raw = node._feed_repl_mirrors
+
+        def noted(feeds):
+            local.launches = []
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            try:
+                return raw(feeds)
+            finally:
+                torch.cuda.synchronize()
+                after = kernels.launch_counts()
+                drains.append({"node": label, "s": time.perf_counter() - t0,
+                               "docs": len({id(f[1]) for f in feeds}),
+                               "launches": local.launches,
+                               "kernels": {k: v - before[k] for k, v in after.items()}})
+                local.launches = None
+        node._feed_repl_mirrors = noted
+
+    B.resolve_stages = noting_resolve
+    wrap(f0, "F0")
+    wrap(f2, "F2")
+
+    def restore():
+        B.resolve_stages = raw_resolve
+    return restore
+
+
+def cluster_in_process(card: str, device, root: str) -> dict:
+    """(t), see the module docstring. Returns the launch counts by path."""
+    import base64
+    import socket
+    import threading
+
+    from automerge_tpu_torch import kernels, obs
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.cluster import ClusterNode, ClusterRouter, HashRing
+    from automerge_tpu_torch.cluster.replication import encode_batch, encode_cursor
+    from automerge_tpu_torch.ops import batched as B
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.storage.change import parse_change
+    from automerge_tpu_torch.sync import SyncSession
+    from automerge_tpu_torch.types import ActorId
+
+    amtpu = load_client()
+    held = FANINS["text"]
+    base, deltas, texts = W.serve_workload(CLUSTER_DOCS, CLUSTER_ROUNDS, SERVE_OPS,
+                                           SERVE_BALLAST)
+    base_ch = parse_change(base)[0]
+    ring = HashRing([0, 1])
+    names = [f"c{i}" for i in range(CLUSTER_DOCS)]
+    fan = next(f"fanin{k}" for k in range(1000) if ring.member_for(f"fanin{k}") == 0)
+    group0 = [i for i, n in enumerate(names) if ring.member_for(n) == 0]
+    # each document's model at every round: what the router must read back
+    models = []
+    for i in range(CLUSTER_DOCS):
+        d = AutoDoc(ActorId(bytes([CLUSTER_ACTOR, i]) * 8), device="cpu")
+        d.apply_changes([base_ch])
+        models.append(d)
+
+    def node(name, **kw):
+        n = ClusterNode(node_id=name, host="127.0.0.1", port=0,
+                        durable_dir=os.path.join(root, name), workers=CLUSTER_WORKERS,
+                        **kw)
+        n.start()
+        return n
+
+    def addr(n):
+        return "%s:%d" % tuple(n.address)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(float(
+        os.environ.get("AUTOMERGE_TPU_SERVE_SWITCH_INTERVAL", "0.001")))
+    nodes, router = [], None
+    counts, drains = {}, []
+    restore = None
+    try:
+        # a promoted F0 has no follower of its own: it acks on its own disk
+        f0 = node("F0", role="follower", ack_replicas=0)
+        nodes.append(f0)
+        l0 = node("L0", role="leader", replicate_to=[addr(f0)], ack_replicas=1)
+        nodes.append(l0)
+        l1 = node("L1", role="leader")
+        nodes.append(l1)
+        f2 = node("F2", role="follower", ack_replicas=0)
+        nodes.append(f2)
+        for n in nodes:
+            if n.rpc.device.type != "cuda" or n.batcher.device.type != "cuda":
+                raise AssertionError(f"cluster: node {n.rpc.node_id} on {n.rpc.device}, "
+                                     f"its batcher on {n.batcher.device}")
+        router = ClusterRouter([[addr(l0), addr(f0)], [addr(l1)]],
+                               heartbeat=CLUSTER_HEARTBEAT, miss_limit=3)
+        router.start()
+        raddr = "%s:%d" % tuple(router.address)
+        print(f"cluster (t) layout: group 0 = leader L0 {addr(l0)} (ack_replicas=1) + "
+              f"follower F0 {addr(f0)}, group 1 = leader L1 {addr(l1)}, router "
+              f"{raddr} (heartbeat {CLUSTER_HEARTBEAT} s, 3 misses); a spare follower "
+              f"F2 {addr(f2)} for the pipelined drain; {CLUSTER_WORKERS} workers a node; "
+              f"every node and batcher on {f0.rpc.device}; the fan-in '{fan}' and "
+              f"{len(group0)} of {CLUSTER_DOCS} serve documents placed on group 0",
+              flush=True)
+        # F0's mirrors, opened before the first write
+        fc = amtpu.RetryingClient(addr(f0), deadline_s=300, timeout_s=300)
+        for name in [fan] + [names[i] for i in group0]:
+            fc.call("openDurable", name=name, device=True)
+        fc.close()
+        obs.reset_all()
+        B.reset_stats()
+        kernels.reset_launches()
+        restore = cluster_drains(f0, f2, drains)
+        t_phase0 = time.perf_counter()
+
+        # (a)'s fan-in in CLUSTER_FANIN_PARTS applyChanges requests
+        ctl = amtpu.RetryingClient(raddr, deadline_s=600, timeout_s=600)
+        fh = ctl.call("openDurable", name=fan)["doc"]
+        blobs = held["blobs"]
+        cut = [round(k * len(blobs) / CLUSTER_FANIN_PARTS)
+               for k in range(CLUSTER_FANIN_PARTS + 1)]
+        t0 = time.perf_counter()
+        fan_acks = []
+        for k in range(CLUSTER_FANIN_PARTS):
+            part = b"".join(blobs[cut[k]:cut[k + 1]])
+            ctl.call("applyChanges", doc=fh,
+                     data=base64.b64encode(part).decode("ascii"))
+            fan_acks.append(time.perf_counter() - t0)
+        # ack_replicas=1: the last ack came after F0's drain of the last part
+        fdoc = f0.rpc._docs[f0.rpc._durable_names[fan]]
+        lsn = l0.rpc.hub.lsn(fan)
+        got = f0.rpc.clusterStatus({})["docs"][fan]["cursor"]
+        if got is None or got["lsn"] != lsn:
+            raise AssertionError(f"cluster: F0's fan-in cursor {got}, L0's LSN {lsn}")
+        t1 = time.perf_counter()
+        with fdoc.lock:
+            fan_text = fdoc.device_doc.text(held["text_obj"])
+        t_first_read = time.perf_counter() - t1
+        if fan_text != held["text"]:
+            raise AssertionError("cluster: the fan-in's mirror on F0 differs from (a)'s")
+        print(f"cluster (t) fan-in: {len(blobs)} chunks in {CLUSTER_FANIN_PARTS} "
+              f"quorum-acked applyChanges through the router, acks at "
+              f"{json.dumps([round(x, 6) for x in fan_acks])} s: F0 level with L0 "
+              f"(cursor {lsn}) {fan_acks[-1]:.6f} s after the first request; its mirror's "
+              f"first read {t_first_read:.6f} s, equal to (a)'s on {card}", flush=True)
+
+        # the serve documents: the base, then rounds of one delta chunk, by
+        # CLUSTER_CLIENTS client threads through the router
+        clients = [amtpu.RetryingClient(raddr, deadline_s=300, timeout_s=300, seed=k)
+                   for k in range(CLUSTER_CLIENTS)]
+        handles = [None] * CLUSTER_DOCS
+        rtts, lags, round_s = [], [], []
+        lock = threading.Lock()
+        base64_base = base64.b64encode(base).decode("ascii")
+
+        def mirror_of(i):
+            return f0.rpc._docs[f0.rpc._durable_names[names[i]]]
+
+        def write(k, r):
+            c = clients[k]
+            for i in range(k, CLUSTER_DOCS, CLUSTER_CLIENTS):
+                if r == 0:
+                    handles[i] = c.call("openDurable", name=names[i])["doc"]
+                    data, want = base64_base, None
+                else:
+                    blob = deltas[i][r - 1]
+                    data, want = base64.b64encode(blob).decode("ascii"), \
+                        parse_change(blob)[0].hash
+                t = time.perf_counter()
+                c.call("applyChanges", doc=handles[i], data=data)
+                t_ack = time.perf_counter()
+                if want is not None and i in group0:
+                    # the leader acked after F0's durable apply: how long
+                    # until F0's mirror holds the change
+                    dd = mirror_of(i)
+                    while True:
+                        with dd.lock:
+                            if want in dd.device_doc.current_heads():
+                                break
+                        time.sleep(0.0005)
+                    with lock:
+                        lags.append(time.perf_counter() - t_ack)
+                with lock:
+                    rtts.append(t_ack - t)
+
+        def one_round(r):
+            errs = []
+
+            def worker(k):
+                try:
+                    write(k, r)
+                except BaseException as e:  # noqa: BLE001 - raised below
+                    errs.append(e)
+
+            ts = [threading.Thread(target=worker, args=(k,))
+                  for k in range(CLUSTER_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            if errs:
+                raise errs[0]
+            if r:
+                for i in range(CLUSTER_DOCS):
+                    models[i].apply_changes([parse_change(deltas[i][r - 1])[0]])
+
+        cap = None
+        for r in range(CLUSTER_FAILOVER_ROUND + 1):
+            if r == CLUSTER_CAPTURE_ROUND:
+                _, cap = capture("cluster_round", lambda: one_round(r))
+                cap["round_s"] = round_s[-1]
+            else:
+                one_round(r)
+        # F0's drains are the round's only launches; the trace's join of a
+        # range to its kernels (by the launching thread's id) has read
+        # 152, 76 and 0 of them on the same round in three runs, so the
+        # ranges and the window's kernels are checked apart
+        got = cap["ranges"].get("amtpu.batched_launch", {}).get("count", 0)
+        if got < 1 or cap["kernels"] < 1 or not 0 < cap["busy_share"] < 1:
+            raise AssertionError(f"cluster (t) capture: {got} amtpu.batched_launch "
+                                 f"ranges, {cap['kernels']} kernels, busy share "
+                                 f"{cap['busy_share']}")
+        t_rounds = time.perf_counter() - t_phase0
+
+        # every F0 mirror equals its leader's document, and a fresh resolve
+        # on the card of F0's host history
+        def check_mirrors(where, node, idxs, model_of):
+            for i in idxs:
+                dd = node.rpc._docs[node.rpc._durable_names[names[i]]]
+                with dd.lock:
+                    mirror = dd.device_doc
+                    if mirror is None or mirror.device.type != "cuda":
+                        raise AssertionError(f"{where} {names[i]}: no mirror on the card")
+                    fresh = DeviceDoc.merge([dd.doc], device=device)
+                    check_fetch_equal(f"{where} {names[i]}", mirror, fresh)
+                    if mirror.text(W.SERVE_LIVE) != model_of(i):
+                        raise AssertionError(f"{where} {names[i]}: live differs from "
+                                             "the document's")
+
+        t0 = time.perf_counter()
+        for i in group0:
+            got = ctl.call("text", doc=handles[i], obj=W.SERVE_LIVE)
+            if got != models[i].text(W.SERVE_LIVE):
+                raise AssertionError(f"cluster {names[i]}: the leader's text differs")
+        check_mirrors("cluster F0 mirror", f0, group0,
+                      lambda i: models[i].text(W.SERVE_LIVE))
+        with fdoc.lock:
+            check_fetch_equal("cluster F0 fan-in mirror", fdoc.device_doc,
+                              DeviceDoc.merge([fdoc.doc], device=device))
+        t_check = time.perf_counter() - t0
+
+        # the pipelined drain: L0's retained records of the group-0 serve
+        # documents shipped to F2 as one stream, each document's base as a
+        # snapshot (its mirror rebuilt), then every replApply frame of the
+        # deltas in one write, so F2's drains hold several documents
+        f2c = amtpu.RetryingClient(addr(f2), deadline_s=300, timeout_s=300)
+        frames = []
+        for i in group0:
+            f2c.call("openDurable", name=names[i], device=True)
+            f2c.call("replSnapshot", name=names[i], stream=CLUSTER_STREAM, lsn=1,
+                     snapshot=base64_base, cursor=base64.b64encode(
+                         encode_cursor(CLUSTER_STREAM, 1)).decode("ascii"))
+            records, last, _ = l0.rpc.hub.tail_after(names[i], 1)
+            frames.append({"id": 1000 + i, "method": "replApply", "params": {
+                "name": names[i], "stream": CLUSTER_STREAM, "prev": 1, "lsn": last,
+                "data": base64.b64encode(encode_batch(records)).decode("ascii"),
+                "cursor": base64.b64encode(
+                    encode_cursor(CLUSTER_STREAM, last)).decode("ascii")}})
+        f2c.close()
+        n_f2 = len(drains)
+        sock = socket.create_connection(f2.address, timeout=300)
+        t0 = time.perf_counter()
+        sock.sendall("".join(json.dumps(f) + "\n" for f in frames).encode())
+        rf = sock.makefile("r")
+        answers = [json.loads(rf.readline()) for _ in frames]
+        t_pipe = time.perf_counter() - t0
+        sock.close()
+        bad = [a for a in answers if "error" in a]
+        if bad:
+            raise AssertionError(f"cluster pipelined drain: {bad[:2]}")
+        check_mirrors("cluster F2 mirror", f2, group0,
+                      lambda i: models[i].text(W.SERVE_LIVE))
+        pipe = [d for d in drains[n_f2:] if d["node"] == "F2"]
+        packed = [x["batched"] for d in pipe for x in d["launches"] or ()]
+        if not packed or max(packed) < 2:
+            raise AssertionError(f"cluster pipelined drain: documents a packed launch "
+                                 f"{packed}")
+
+        # failover: L0 stops; the router promotes F0; the first acked write
+        # is a commit to a new document placed on group 0
+        probe = next(f"probe{k}" for k in range(1000) if ring.member_for(f"probe{k}") == 0)
+        t_stop = time.perf_counter()
+        l0.stop()
+        nodes.remove(l0)
+        ph = ctl.call("openDurable", name=probe)["doc"]
+        ctl.call("put", doc=ph, obj="_root", prop="after", value="failover")
+        ctl.call("commit", doc=ph)
+        t_failover = time.perf_counter() - t_stop
+        info = ctl.call("clusterInfo")
+        if info["groups"][0]["leader"] != addr(f0) or f0.rpc.cluster_role != "leader" \
+                or probe not in f0.rpc._durable_names:
+            raise AssertionError(f"cluster: F0 not promoted: {info['groups'][0]}")
+        # every write acked before the stop, read through the router
+        for i in range(CLUSTER_DOCS):
+            got = ctl.call("text", doc=handles[i], obj=W.SERVE_LIVE)
+            if got != models[i].text(W.SERVE_LIVE):
+                raise AssertionError(f"cluster {names[i]}: an acked write is missing "
+                                     "after the failover")
+        if ctl.call("text", doc=fh, obj=held["text_obj"]) != held["text"]:
+            raise AssertionError("cluster: the fan-in's text differs after the failover")
+
+        # the remaining rounds: group 0's documents synced into F0 (their
+        # sessions feed F0's mirrors through its batcher), group 1's applied
+        sessions = {}
+        for i in group0:
+            peer = AutoDoc(ActorId(bytes([CLUSTER_ACTOR + 1, i]) * 8), device="cpu")
+            peer.apply_changes(models[i].get_changes([]))
+            s = clients[i % CLUSTER_CLIENTS].call("syncSessionNew", doc=handles[i],
+                                                  epoch=2, timeoutMs=600_000)
+            sessions[i] = (peer, SyncSession(peer, epoch=1), s["session"])
+
+        def converse(c, i, now):
+            peer, ps, ss = sessions[i]
+            for k in range(40):
+                frame = ps.poll(now + k)
+                if frame is not None:
+                    c.call("syncSessionReceive", session=ss,
+                           data=base64.b64encode(frame).decode("ascii"))
+                back = c.call("syncSessionPoll", session=ss)
+                if back is not None:
+                    ps.receive(base64.b64decode(back), now + k)
+                if (frame is None and back is None and ps.converged()
+                        and c.call("syncSessionStats", session=ss)["converged"]):
+                    return
+            raise AssertionError(f"cluster {names[i]}: the sessions did not converge")
+
+        def write_after(k, r):
+            c = clients[k]
+            for i in range(k, CLUSTER_DOCS, CLUSTER_CLIENTS):
+                blob = deltas[i][r - 1]
+                if i in sessions:
+                    sessions[i][0].apply_changes([parse_change(blob)[0]])
+                    converse(c, i, 1000.0 * r)
+                else:
+                    c.call("applyChanges", doc=handles[i],
+                           data=base64.b64encode(blob).decode("ascii"))
+
+        for r in range(CLUSTER_FAILOVER_ROUND + 1, CLUSTER_ROUNDS + 1):
+            errs = []
+
+            def worker(k, r=r):
+                try:
+                    write_after(k, r)
+                except BaseException as e:  # noqa: BLE001 - raised below
+                    errs.append(e)
+
+            ts = [threading.Thread(target=worker, args=(k,))
+                  for k in range(CLUSTER_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            if errs:
+                raise errs[0]
+            for i in range(CLUSTER_DOCS):
+                models[i].apply_changes([parse_change(deltas[i][r - 1])[0]])
+        for i in range(CLUSTER_DOCS):
+            if models[i].text(W.SERVE_LIVE) != texts[i]:
+                raise AssertionError(f"cluster {names[i]}: the model is not the generator's")
+            if ctl.call("text", doc=handles[i], obj=W.SERVE_LIVE) != texts[i]:
+                raise AssertionError(f"cluster {names[i]}: the text through the router "
+                                     "differs from the generator's")
+        check_mirrors("cluster promoted F0 mirror", f0, group0, lambda i: texts[i])
+
+        # migration: a warm serve document, then the fan-in, to group 1
+        mig = {}
+        warm = names[group0[1]]
+        f0.rpc.store.demote(warm, "warm", "smoke")
+        for name, h, obj, want in ((warm, handles[group0[1]], W.SERVE_LIVE,
+                                    texts[group0[1]]),
+                                   (fan, fh, held["text_obj"], held["text"])):
+            t0 = time.perf_counter()
+            res = ctl.call("clusterMigrate", name=name, to=1)
+            mig[name] = time.perf_counter() - t0
+            if not res.get("migrated"):
+                raise AssertionError(f"cluster: {name} not migrated: {res}")
+            if ctl.call("text", doc=h, obj=obj) != want:
+                raise AssertionError(f"cluster: {name}'s text changed in the migration")
+            if name in f0.rpc._durable_names or f0.rpc.store.tier(name) is not None:
+                raise AssertionError(f"cluster: F0 did not release {name}")
+            if name not in l1.rpc._durable_names:
+                raise AssertionError(f"cluster: L1 does not hold {name}")
+        counts["cluster"] = kernels.launch_counts()
+        check_launches("cluster", counts["cluster"], RUN_NATIVE + ("scatter_winners",),
+                       TRANSPORT_ONLY)
+        # the follower drains' own: F0's feeds before the failover
+        f0d = [d for d in drains if d["node"] == "F0"]
+        fed = dict.fromkeys(counts["cluster"], 0)
+        for d in f0d:
+            for k, v in d["kernels"].items():
+                fed[k] += v
+        counts["cluster follower"] = fed
+        check_launches("cluster follower", fed, RUN_NATIVE + ("scatter_winners",),
+                       TRANSPORT_ONLY)
+        hist = [e for e in obs.snapshot() if e["name"] == "cluster.repl_apply_batch_size"]
+        if not hist or hist[0]["count"] < 1:
+            raise AssertionError("cluster: cluster.repl_apply_batch_size has no "
+                                 "observations")
+        errors = obs.counter_values("rpc.errors", "type")
+        feed_errors = obs.legacy_counters.get("cluster.repl_device_feed_error", 0)
+        if feed_errors:
+            raise AssertionError(f"cluster: {feed_errors} follower feed errors")
+        torch.cuda.synchronize()
+        if int((torch.ones(4, device=device) * 2).sum()) != 8:
+            raise AssertionError("cluster: a launch after the nodes' threads went wrong")
+
+        per_launch = [x["batched"] for d in f0d for x in d["launches"] or ()]
+        rt = {"p50": statistics.median(rtts), "p95": statistics.quantiles(rtts, n=20)[18]}
+        print(f"cluster (t) writes: {CLUSTER_DOCS} serve documents by {CLUSTER_CLIENTS} "
+              f"client threads through the router; quorum-acked applyChanges round "
+              f"trip p50 {rt['p50']:.6f} s p95 {rt['p95']:.6f} s over {len(rtts)} calls; "
+              f"rounds 0-{CLUSTER_FAILOVER_ROUND} {t_rounds:.6f} s (a round p50 "
+              f"{statistics.median(round_s[1:CLUSTER_FAILOVER_ROUND + 1]):.6f} s); "
+              f"replication lag (leader's ack to F0's mirror holding the change) p50 "
+              f"{statistics.median(lags):.6f} s max {max(lags):.6f} s over {len(lags)} "
+              f"writes on {card}", flush=True)
+        docs_a_drain = [d["docs"] for d in f0d]
+        print(f"cluster (t) F0 drains: {len(f0d)}, documents a drain mean "
+              f"{statistics.mean(docs_a_drain):.3f} max {max(docs_a_drain)}, drain s p50 "
+              f"{statistics.median(d['s'] for d in f0d):.6f} max "
+              f"{max(d['s'] for d in f0d):.6f}; packed launches {len(per_launch)}, "
+              f"documents a launch max {max(per_launch)} (one leader ships one "
+              f"replApply at a time); cluster.repl_apply_batch_size (F0 and F2) count "
+              f"{hist[0]['count']} mean {hist[0]['sum'] / hist[0]['count']:.3f} max "
+              f"{hist[0]['max']}; F2's pipelined drain of {len(frames)} documents in "
+              f"{t_pipe:.6f} s: drains {len(pipe)}, documents a packed launch "
+              f"{packed}; F0's drains launched "
+              + json.dumps({k: v for k, v in fed.items() if v}) + f" on {card}",
+              flush=True)
+        print(f"cluster (t) capture of round {CLUSTER_CAPTURE_ROUND}: the round "
+              f"{cap['round_s']:.6f} s, {cap['kernels']} kernels, device busy "
+              f"{cap['busy_s']:.6f} s, busy share {cap['busy_share']:.7f}; ranges "
+              f"{json.dumps(cap['ranges'])} on {card}", flush=True)
+        print(f"cluster (t) failover: L0 stopped after round {CLUSTER_FAILOVER_ROUND}; "
+              f"the stop to the first acked write on F0 {t_failover:.6f} s; every acked "
+              f"write read back through the router; rounds "
+              f"{CLUSTER_FAILOVER_ROUND + 1}-{CLUSTER_ROUNDS} p50 "
+              f"{statistics.median(round_s[CLUSTER_FAILOVER_ROUND + 1:]):.6f} s, group "
+              f"0's by sync sessions into F0's mirrors; every mirror equals its document "
+              f"and a fresh resolve ({t_check:.3f} s of checks before the failover) on "
+              f"{card}", flush=True)
+        print(f"cluster (t) migration to group 1: the warm serve document "
+              f"{mig[warm]:.6f} s, the fan-in {mig[fan]:.6f} s; texts unchanged, F0 "
+              f"released both; rpc errors {json.dumps(errors)}; launches "
+              + json.dumps({k: v for k, v in counts['cluster'].items() if v})
+              + f" on {card}", flush=True)
+        for c in clients + [ctl]:
+            c.close()
+    finally:
+        if restore is not None:
+            restore()
+        if router is not None:
+            router.stop()
+        for n in nodes:
+            n.stop()
+        sys.setswitchinterval(switch)
+    return counts
+
+
+def cluster_paths(card: str, device) -> dict:
+    """(t) the cluster tier: two groups and a router in process on the
+    card. Returns the launch counts by path."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="amtpu-cluster-")
+    try:
+        counts = cluster_in_process(card, device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"cluster (t): the phase took {time.perf_counter() - t_phase:.3f} s "
+          f"on {card}", flush=True)
+    return counts
 
 
 def cold_open_paths(card: str, device) -> dict:
@@ -4638,6 +5219,7 @@ def main() -> int:
     sync_counts = sync_paths(card, device)
     durable_counts = durable_paths(card, device)
     serve_counts, serve_spec = serve_paths(card, device)
+    cluster_counts = cluster_paths(card, device)
     cold_counts = cold_open_paths(card, device)
     sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
                                    record_log)
@@ -4649,7 +5231,7 @@ def main() -> int:
 
     by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
                **document_counts, **sync_counts, **durable_counts, **serve_counts,
-               **cold_counts, **sharded_counts}
+               **cluster_counts, **cold_counts, **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,

@@ -2018,3 +2018,150 @@ def test_socket_server_on_card_batches_concurrent_peers(cuda, tmp_path):
                         f"doc {h}")
     finally:
         srv.stop()
+
+
+class _LineClient:
+    """A JSON-line client with a read timeout, for the cluster nodes."""
+
+    def __init__(self, address):
+        import json
+        import socket
+
+        self.json = json
+        self.sock = socket.create_connection(tuple(address), timeout=120)
+        self.f = self.sock.makefile("r")
+
+    def call(self, method, **params):
+        self.sock.sendall((self.json.dumps({"id": 1, "method": method,
+                                            "params": params}) + "\n").encode())
+        resp = self.json.loads(self.f.readline())
+        assert "error" not in resp, (method, resp)
+        return resp.get("result")
+
+    def close(self):
+        self.sock.close()
+
+
+def _node(root, name, device, **kw):
+    from automerge_tpu_torch.cluster import ClusterNode
+
+    node = ClusterNode(node_id=name, host="127.0.0.1", port=0,
+                       durable_dir=str(root / name), device=device, **kw)
+    node.start()
+    return node
+
+
+def _addr(node):
+    return "%s:%d" % tuple(node.address)
+
+
+def _until(pred, what, timeout=120.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not pred():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.02)
+
+
+def _replica(node, name):
+    return node.rpc._docs[node.rpc._durable_names[name]]
+
+
+def test_mirrored_follower_on_card_equals_a_cpu_follower(cuda, tmp_path):
+    """A port leader (on the CPU) ships to two mirrored followers, one on
+    the card and one on the CPU (``ack_replicas=2``): after every acked
+    commit the card follower's mirror equals the CPU follower's on every
+    READ_FETCH array, and its batched drains launched the served kernels
+    on the card."""
+    fols = {"card": _node(tmp_path, "fc", None, role="follower"),
+            "cpu": _node(tmp_path, "fp", "cpu", role="follower")}
+    led = None
+    try:
+        assert fols["card"].rpc.device.type == "cuda"
+        assert fols["card"].batcher.device.type == "cuda"
+        names = ("ga", "gb")
+        for f in fols.values():
+            fc = _LineClient(f.address)
+            for name in names:
+                fc.call("openDurable", name=name, device=True)
+            fc.close()
+        led = _node(tmp_path, "l", "cpu", role="leader",
+                    replicate_to=[_addr(f) for f in fols.values()], ack_replicas=2)
+        c = _LineClient(led.address)
+        handles = {n: c.call("openDurable", name=n)["doc"] for n in names}
+        for name in names:
+            for f in fols.values():
+                _until(lambda: _replica(f, name).replication_cursor is not None,
+                       f"{name}'s snapshot")
+        texts = {n: c.call("putObject", doc=h, obj="_root", prop="t", type="text")["$obj"]
+                 for n, h in handles.items()}
+        reset_launches()
+        for step in range(8):
+            for name, h in handles.items():
+                c.call("spliceText", doc=h, obj=texts[name], pos=0, text=f"{step}-{name} ")
+                c.call("put", doc=h, obj="_root", prop=f"k{step % 3}", value=step)
+                c.call("commit", doc=h)
+                card = _replica(fols["card"], name)
+                cpu = _replica(fols["cpu"], name)
+                with card.lock, cpu.lock:
+                    assert card.device_doc.device.type == "cuda"
+                    _equal_docs(card.device_doc, cpu.device_doc, f"{name} step {step}")
+                    assert card.device_doc.hydrate() == cpu.device_doc.hydrate()
+        fed = launch_counts()
+        assert fed["expand_runs"] > 0 and fed["linearize"] > 0, fed
+        c.close()
+    finally:
+        if led is not None:
+            led.stop()
+        for f in fols.values():
+            f.stop()
+
+
+def test_follower_snapshot_resync_rebuilds_its_mirror_on_card(cuda, tmp_path):
+    """A mirrored replica on the card caught up by a snapshot that holds
+    changes: its mirror is rebuilt from the grown history through the
+    kernels and equals a fresh resolve on the card; the next tail feeds
+    the rebuilt mirror."""
+    fol = _node(tmp_path, "f", None, role="follower")
+    led = _node(tmp_path, "l", "cpu", role="leader")
+    try:
+        fc = _LineClient(fol.address)
+        fc.call("openDurable", name="rs", device=True)
+        c = _LineClient(led.address)
+        d = c.call("openDurable", name="rs")["doc"]
+        for i in range(4):
+            c.call("put", doc=d, obj="_root", prop=f"k{i}", value=i)
+            c.call("commit", doc=d)
+        reset_launches()
+        c.call("clusterReplicateTo", addr=_addr(fol))
+        doc = _replica(fol, "rs")
+        _until(lambda: doc.replication_cursor is not None, "the snapshot")
+        _until(lambda: doc.device_doc is not None
+               and doc.device_doc.hydrate().get("k3") == 3, "the rebuilt mirror")
+        assert launch_counts()["linearize"] == L.LAUNCHES
+        with doc.lock:
+            assert doc.device_doc.device.type == "cuda"
+            _equal_docs(doc.device_doc, DeviceDoc.merge([doc.doc], device=cuda), "resync")
+        c.call("put", doc=d, obj="_root", prop="k4", value=4)
+        c.call("commit", doc=d)
+        _until(lambda: doc.device_doc.hydrate().get("k4") == 4, "the fed tail")
+        with doc.lock:
+            _equal_docs(doc.device_doc, DeviceDoc.merge([doc.doc], device=cuda), "tail")
+        c.close()
+        fc.close()
+    finally:
+        led.stop()
+        fol.stop()
+
+
+def test_cluster_node_raises_without_a_gpu(monkeypatch, tmp_path):
+    """``ClusterNode()`` serves the card: without a GPU it raises before
+    any socket or thread exists, as leader and as follower."""
+    from automerge_tpu_torch.cluster import ClusterNode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for role in ("leader", "follower"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ClusterNode(node_id="n", host="127.0.0.1", port=0,
+                        durable_dir=str(tmp_path / role), role=role)

@@ -6,9 +6,9 @@ residency and run image, ``ops/compressed.py`` and
 ``storage/document.py`` and ``patches/``, its observability layer,
 ``obs/`` and ``trace.py``, and its durable storage, ``storage/journal.py``,
 ``storage/durable.py``, ``storage/crashsim.py``, ``integrity.py``,
-``degrade.py``, ``store/`` and ``testing.py``, and its serving layer,
-``rpc.py`` and ``serve/``, included), and its entry points refuse to fall
-back to the CPU."""
+``degrade.py``, ``store/`` and ``testing.py``, its serving layer,
+``rpc.py`` and ``serve/``, and its cluster tier, ``cluster/``, included),
+and its entry points refuse to fall back to the CPU."""
 
 import ast
 import os
@@ -298,6 +298,38 @@ try:
     conn.close()
 finally:
     sock_srv.stop()
+# the cluster tier: a leader, a mirrored follower and a router on the CPU
+from automerge_tpu_torch.cluster import (
+    ClusterNode, ClusterRouter, advisor, chaos, hashring, node, replication, router)
+croot = tempfile.mkdtemp()
+fol = ClusterNode(node_id="f", host="127.0.0.1", port=0, durable_dir=croot + "/f",
+                  role="follower", device="cpu")
+fol.start()
+led = ClusterNode(node_id="l", host="127.0.0.1", port=0, durable_dir=croot + "/l",
+                  role="leader", replicate_to=["%s:%d" % fol.address], ack_replicas=1,
+                  device="cpu")
+led.start()
+rtr = ClusterRouter([["%s:%d" % led.address, "%s:%d" % fol.address]], heartbeat=5.0)
+rtr.start()
+try:
+    fh = fol.rpc.openDurable({"name": "cd", "device": True})["doc"]
+    conn = _socket.create_connection(rtr.address, timeout=60)
+    rf = conn.makefile("r")
+    cd = rcall("openDurable", name="cd")["doc"]
+    import time as _time
+    deadline = _time.monotonic() + 60
+    while fol.rpc._docs[fh].replication_cursor is None:
+        assert _time.monotonic() < deadline, "no snapshot on the follower"
+        _time.sleep(0.02)
+    rcall("put", doc=cd, obj="_root", prop="k", value=1)
+    rcall("commit", doc=cd)
+    assert fol.rpc._docs[fh].device_doc.hydrate() == {"k": 1}
+    assert rcall("clusterInfo")["groups"][0]["up"] is True
+    conn.close()
+finally:
+    rtr.stop()
+    led.stop()
+    fol.stop()
 maps = open("/proc/self/maps").read()
 assert str(native.library_path()) in maps
 bad = sorted(
@@ -490,20 +522,29 @@ def test_sync_and_functional_without_device_raise_when_no_gpu(monkeypatch):
 
 
 def test_servers_without_device_raise_when_no_gpu(monkeypatch, tmp_path):
-    """The JSON-RPC frontend and the socket server serve the card by
-    default: without a GPU they raise before any thread, socket or store
-    exists, and ``python -m automerge_tpu_torch.rpc`` exits 1."""
+    """The JSON-RPC frontend, the socket server and a cluster node serve
+    the card by default: without a GPU they raise before any thread,
+    socket or store exists, and ``python -m automerge_tpu_torch.rpc``
+    exits 1, in cluster mode too."""
     from automerge_tpu_torch import rpc
+    from automerge_tpu_torch.cluster import ClusterNode, ClusterRpcServer
     from automerge_tpu_torch.serve import SocketRpcServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (rpc.RpcServer, SocketRpcServer,
                  lambda: rpc.RpcServer(durable_dir=str(tmp_path)),
                  lambda: SocketRpcServer(host="127.0.0.1", port=0,
-                                         durable_dir=str(tmp_path))):
+                                         durable_dir=str(tmp_path)),
+                 lambda: ClusterRpcServer(durable_dir=str(tmp_path), node_id="n"),
+                 lambda: ClusterNode(node_id="n", host="127.0.0.1", port=0,
+                                     durable_dir=str(tmp_path)),
+                 lambda: ClusterNode(node_id="f", host="127.0.0.1", port=0,
+                                     durable_dir=str(tmp_path), role="follower")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert rpc.main(["--socket", "127.0.0.1:0"]) == 1
+    assert rpc.main(["--socket", "127.0.0.1:0", "--durable", str(tmp_path / "n"),
+                     "--node-id", "n"]) == 1
     assert rpc.RpcServer(device="cpu").device == torch.device("cpu")
 
 

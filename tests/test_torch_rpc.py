@@ -14,10 +14,11 @@ after a promotion. Answers that are timing or process state (``metrics``,
 are compared by their keys.
 
 Then the port alone: the reference's subprocess and C-client cases on
-``python -m automerge_tpu_torch.rpc --device cpu``, the refused cluster
-flags, the no-GPU refusal, the ``torch.profiler`` capture, and the two
-narrowed ``except``s of ``rpc.py`` (a failed mirror feed, a failed
-promotion): each is counted and answers the request with its error.
+``python -m automerge_tpu_torch.rpc --device cpu``, the no-GPU refusal,
+the ``torch.profiler`` capture, and the two narrowed ``except``s of
+``rpc.py`` (a failed mirror feed, a failed promotion): each is counted
+and answers the request with its error. Cluster mode is tested in
+``tests/test_torch_cluster_router.py``.
 """
 
 import base64
@@ -748,15 +749,6 @@ def test_the_server_serves_on_its_device_and_refuses_without_a_gpu(monkeypatch, 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PR.RpcServer()
     assert PR.main(["--durable", str(tmp_path / "d")]) == 1
-
-
-@pytest.mark.parametrize("flags", [["--node-id", "n1"], ["--follow", "127.0.0.1:1"],
-                                   ["--replicate-to", "127.0.0.1:1"]])
-def test_cluster_mode_is_refused_until_cluster_is_ported(flags, capsys, tmp_path):
-    assert PR.main(flags + ["--socket", "127.0.0.1:0", "--durable", str(tmp_path),
-                            "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "automerge_tpu_torch.cluster" in err and "ROADMAP §1.6.3" in err
 
 
 def _spawn(args, **kw):
