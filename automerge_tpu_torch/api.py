@@ -21,6 +21,18 @@ with ``device="cpu"``. Two documents sync by exchanging the bytes of
 adds framing, retries and a resident ``DeviceDoc`` feed.
 ``AutoDoc.open(path, device=..., mirror=...)`` opens a crash-safe durable
 document (``storage/durable.py``).
+
+Its transactions type through the native edit sessions (``enable_sessions``
+on every autocommit transaction; ``put`` and ``splice_text`` keep a
+fast-call closure while one transaction lives, and every read drains the
+sessions first), as the reference's do. A commit of more than
+``Transaction.SMALL_TAIL_OPS`` session ops leaves the op store stale, so
+the next read is a stale read and rebuild through the merge kernels on
+``device``. Unlike the reference's, a commit keeps its text session for
+the next transaction when nothing else changed the document, so typing
+across commits never rebuilds the store, and a put takes the per-op path
+when its commit would drain the session anyway (the change bytes are the
+same either way). A missing native library raises ``NativeUnavailable``.
 """
 
 from __future__ import annotations
@@ -47,6 +59,13 @@ class AutoDoc:
         self._tx: Optional[Transaction] = None
         self._manual: Optional[Transaction] = None
         self._isolation: Optional[List[bytes]] = None
+        # (obj, tx, closure) memo for the per-edit splice hot path; valid
+        # only while the same autocommit transaction is live
+        self._splice_cache = None
+        # same shape for the per-op map-put hot path; _put_block pins the
+        # transaction whose values proved session-ineligible
+        self._put_cache = None
+        self._put_block = None
         self._diff_cursor: List[bytes] = []
         # persistent observer log (reference: autocommit.rs owns a PatchLog);
         # inactive until an observer is attached so the hot path pays nothing
@@ -105,11 +124,24 @@ class AutoDoc:
                 self._tx = self.doc.transaction_at(self._isolation)
             else:
                 self._tx = Transaction(self.doc)
+                # autocommit transactions may route text splices through
+                # the native edit session (core/transaction.py), starting
+                # from the one the last commit kept
+                self._tx.enable_sessions = True
+                self._tx.adopt_session_carry()
         return self._tx
+
+    def _sync_reads(self) -> None:
+        # pending native-session ops drain into the store before any read
+        if self._tx is not None:
+            self._tx._drain_all()
 
     def commit(self, message: Optional[str] = None, timestamp: Optional[int] = None) -> Optional[bytes]:
         tx = self._tx
         self._tx = None
+        self._splice_cache = None  # the closures retain the whole tx
+        self._put_cache = None
+        self._put_block = None
         if tx is None:
             return None
         if message is not None:
@@ -128,6 +160,9 @@ class AutoDoc:
     def rollback(self) -> int:
         tx = self._tx
         self._tx = None
+        self._splice_cache = None
+        self._put_cache = None
+        self._put_block = None
         return tx.rollback() if tx is not None else 0
 
     def pending_ops(self) -> int:
@@ -166,7 +201,34 @@ class AutoDoc:
     # -- mutation (delegates through the open transaction) ------------------
 
     def put(self, obj: str, prop, value) -> None:
-        self._ensure_tx().put(obj, prop, value)
+        c = self._put_cache
+        if c is not None and c[0] == obj and c[1] is self._tx:
+            r = c[2](prop, value)
+            if r > 0:
+                return
+            self._put_cache = None
+            if r < 0:
+                # key/value not session-eligible: stop rebuilding for this
+                # (transaction, object) or every such put would pay an
+                # O(keys) preload
+                self._put_block = (self._tx, obj)
+        tx = self._ensure_tx()
+        if self._put_block != (tx, obj):
+            # build the session BEFORE the first generic put: a pure-session
+            # transaction commits straight from arrays (no prefix rows)
+            fn = tx.fast_put_fn(obj)
+            if fn is None:
+                # ineligible object (conflicted key, wide ranks, no native):
+                # memoize or every put repeats the O(keys) eligibility scan
+                self._put_block = (tx, obj)
+            else:
+                r = fn(prop, value)
+                if r > 0:
+                    self._put_cache = (obj, tx, fn)
+                    return
+                if r < 0:
+                    self._put_block = (tx, obj)
+        tx.put(obj, prop, value)
 
     def put_object(self, obj: str, prop, obj_type: ObjType) -> str:
         return self._ensure_tx().put_object(obj, prop, obj_type)
@@ -184,10 +246,18 @@ class AutoDoc:
         self._ensure_tx().increment(obj, prop, by)
 
     def splice_text(self, obj: str, pos: int, delete: int, text: str) -> None:
-        self._ensure_tx().splice_text(obj, pos, delete, text)
+        c = self._splice_cache
+        if c is not None and c[0] == obj and c[1] is self._tx:
+            if c[2](pos, delete, text):
+                return
+            self._splice_cache = None  # session gone; rebuild below
+        tx = self._ensure_tx()
+        tx.splice_text(obj, pos, delete, text)
+        fn = tx.fast_splice_fn(obj)
+        self._splice_cache = (obj, tx, fn) if fn is not None else None
 
     def splice_text_many(self, obj: str, edits, clamp: bool = True) -> int:
-        """Bulk text ingest: many (pos, delete, text) edits."""
+        """Bulk text ingest: (pos, delete, text) edits in one native pass."""
         return self._ensure_tx().splice_text_many(obj, edits, clamp=clamp)
 
     def splice(self, obj: str, pos: int, delete: int, values) -> None:
@@ -214,51 +284,71 @@ class AutoDoc:
         return None
 
     def get(self, obj: str, prop, heads=None):
+        self._sync_reads()
         return self.doc.get(obj, prop, clock=self._read_clock(heads))
 
     def get_all(self, obj: str, prop, heads=None):
+        self._sync_reads()
         return self.doc.get_all(obj, prop, clock=self._read_clock(heads))
 
     def keys(self, obj: str = ROOT, heads=None):
+        self._sync_reads()
         return self.doc.keys(obj, clock=self._read_clock(heads))
 
     def length(self, obj: str = ROOT, heads=None) -> int:
+        if heads is None and self._tx is not None and self._tx._sessions:
+            n = self._tx.session_length(self.doc.import_id(obj))
+            if n is not None:
+                return n
+        self._sync_reads()
         return self.doc.length(obj, clock=self._read_clock(heads))
 
     def text(self, obj: str, heads=None) -> str:
+        self._sync_reads()
         return self.doc.text(obj, clock=self._read_clock(heads))
 
     def list_items(self, obj: str, heads=None):
+        self._sync_reads()
         return self.doc.list_items(obj, clock=self._read_clock(heads))
 
     def map_entries(self, obj: str = ROOT, heads=None):
+        self._sync_reads()
         return self.doc.map_entries(obj, clock=self._read_clock(heads))
 
     def hydrate(self, obj: str = ROOT, heads=None):
+        self._sync_reads()
         return self.doc.hydrate(obj, clock=self._read_clock(heads))
 
     def get_cursor(self, obj: str, position: int, heads=None) -> str:
+        self._sync_reads()
         return self.doc.get_cursor(obj, position, clock=self._read_clock(heads))
 
     def get_cursor_position(self, obj: str, cursor: str, heads=None) -> int:
+        self._sync_reads()
         return self.doc.get_cursor_position(obj, cursor, clock=self._read_clock(heads))
 
     def marks(self, obj: str, heads=None):
+        self._sync_reads()
         return self.doc.marks(obj, clock=self._read_clock(heads))
 
     def object_type(self, obj: str) -> ObjType:
+        self._sync_reads()
         return self.doc.object_type(obj)
 
     def map_range(self, obj: str = ROOT, start=None, end=None, heads=None):
+        self._sync_reads()
         return self.doc.map_range(obj, start, end, clock=self._read_clock(heads))
 
     def list_range(self, obj: str, start: int = 0, end=None, heads=None):
+        self._sync_reads()
         return self.doc.list_range(obj, start, end, clock=self._read_clock(heads))
 
     def values(self, obj: str = ROOT, heads=None):
+        self._sync_reads()
         return self.doc.values(obj, clock=self._read_clock(heads))
 
     def parents(self, obj: str, heads=None):
+        self._sync_reads()
         return self.doc.parents(obj, clock=self._read_clock(heads))
 
     # -- history -----------------------------------------------------------

@@ -51,7 +51,12 @@ purpose:
 * **A snapshot resync rebuilds the mirror.** ``replSnapshot`` and
   ``replReset`` that bring a mirrored replica new changes rebuild its
   mirror from the history (one resolve on the device); the reference
-  leaves the mirror as it was, missing the snapshot's changes.
+  leaves the mirror as it was, missing the snapshot's changes. The
+  rebuild runs inside the lock and ack scope that save the new cursor,
+  before it is saved, so the cursor never covers changes the mirror
+  lacks; a failed rebuild follows the failed feed's rule below it. A
+  ``replReset`` of a mirrored replica reopens it mirrored (the
+  reference's reopen drops the mirror).
 * **Narrowed ``except``s.** ``_warm_open`` skips a directory the durable
   layer refuses (the journal's, the image's and the document's errors,
   ``OSError``) and lets every other failure, the card's among them,
@@ -362,14 +367,48 @@ class ClusterRpcServer(RpcServer):
         index, so converging snapshots never conflict)."""
         name = p["name"]
         doc = self._repl_doc(name)
-        n = len(doc._core.history)
-        doc.apply_replicated_snapshot(
-            base64.b64decode(p["snapshot"]), base64.b64decode(p["cursor"]))
-        self._resync_mirror(name, doc, n)
-        obs.count("cluster.snapshots_applied")
+        self._apply_snapshot(name, doc, p, "cluster.snapshots_applied")
         self._note_applied(name, int(p["lsn"]),
                            p.get("now"), p.get("leaderLsn"))
         return {"lsn": int(p["lsn"])}
+
+    def _apply_snapshot(self, name, doc, p, counter: str) -> None:
+        """Apply a leader snapshot and its pinned cursor. A mirrored
+        replica's mirror is resynced inside the document's lock and ack
+        scope, after the snapshot and before the cursor is saved:
+        whoever reads the cursor (``clusterStatus``, a router) finds a
+        mirror that holds the changes it covers. The lock is held for the
+        whole rebuild, and its seconds are observed
+        (``cluster.resync_lock_seconds``). ``counter`` is counted there
+        too. A failed rebuild is counted
+        (``cluster.repl_device_feed_error``), its mirror dropped with no
+        run image kept (store hot -> warm), the cursor still saved, and
+        the error raised to the request."""
+        from ..storage.durable import REPL_CURSOR_KEY
+
+        failed = None
+        with doc.lock, doc.ack_scope():  # both re-entrant
+            t0 = time.perf_counter()
+            n = len(doc._core.history)
+            doc.apply_replicated_snapshot(base64.b64decode(p["snapshot"]), None)
+            try:
+                self._resync_mirror(name, doc, n)
+            except Exception as e:  # noqa: BLE001 — answered below
+                failed = e
+                obs.count("cluster.repl_device_feed_error")
+                obs.event("cluster.repl_device_feed_error",
+                          doc=str(getattr(doc, "obs_name", "")),
+                          error=str(e)[:200])
+                doc.drop_device_mirror(keep_image=False)
+            obs.count(counter)
+            doc.set_meta(REPL_CURSOR_KEY, base64.b64decode(p["cursor"]))
+            obs.observe("cluster.resync_lock_seconds", time.perf_counter() - t0)
+        if failed is not None:
+            # the store's demotion waits until the document's lock is free
+            store = self.store
+            if store is not None and store.tier(name) == "hot":
+                store.demote(name, "warm", reason="resync_error")
+            raise failed
 
     def _resync_mirror(self, name, doc, n_before: int) -> None:
         """A mirrored replica whose history a snapshot grew gets its
@@ -468,18 +507,21 @@ class ClusterRpcServer(RpcServer):
         deleted and the doc re-opened empty before the leader's save is
         applied with its pinned cursor. The handle survives (same
         aliasing as ``durableReopen``); the leader's ship loop recovers
-        from the cursor jump via its normal snapshot-resync fallback."""
+        from the cursor jump via its normal snapshot-resync fallback.
+        A mirrored replica reopens mirrored, and its mirror is rebuilt
+        before the new cursor is saved."""
         name = p["name"]
-        res = self.durableReopen({"name": name, "wipe": True})
+        with self._lock:
+            old = self._docs.get(self._durable_names.get(name))
+        reopen = {"name": name, "wipe": True}
+        if getattr(old, "device_doc", None) is not None:
+            reopen["device"] = True
+        res = self.durableReopen(reopen)
         h = res["doc"]
         doc = self._ensure_resident(h)
         if doc is None:
             doc = self._docs[h]
-        n = len(doc._core.history)
-        doc.apply_replicated_snapshot(
-            base64.b64decode(p["snapshot"]), base64.b64decode(p["cursor"]))
-        self._resync_mirror(name, doc, n)
-        obs.count("cluster.repl_resets")
+        self._apply_snapshot(name, doc, p, "cluster.repl_resets")
         out = {"reset": True, "lsn": int(p.get("lsn", 0))}
         try:
             out["digest"] = doc.doc_digest()["digest"]

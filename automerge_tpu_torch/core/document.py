@@ -133,6 +133,11 @@ class Document:
         # reads made from them (_history_merge); history is append-only so
         # its length keys the doc state
         self._merge_memo = None
+        # the text session of the last autocommit transaction, kept past
+        # its commit for the next one (Transaction.adopt_session_carry):
+        # (obj, session, drained mark, actor, history length, change hash,
+        # text encoding), or None
+        self._session_carry = None
         # live manual transactions (registered by Transaction); a device
         # merge or save while one is open would silently miss its ops.
         # Weak refs: an abandoned (unreachable, never committed) transaction

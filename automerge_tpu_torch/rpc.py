@@ -790,6 +790,11 @@ class RpcServer:
         obs.remove_doc_gauges(None, queue_key=h)
         return ref
 
+    # Lock order: a document's ``lock`` before the server's ``_lock``.
+    # These two helpers take ``_lock`` and may run while the caller holds
+    # the document's lock (a cluster node's snapshot resync rebuilds the
+    # mirror inside it); nothing may take a document's lock while holding
+    # ``_lock``.
     def _store_drop_device(self, name: str) -> None:
         """Demote hot -> warm: release the device mirror and detach it
         from live sessions (which would otherwise keep feeding — and

@@ -14,7 +14,11 @@ server whose mirrored documents are fed by sync-session peers over TCP
 through the cross-document batcher, and a fresh server process), the
 cluster tier (``cluster/``: a leader replicating to a mirrored follower
 whose drains feed its mirrors in packed launches, a second group, a
-router, a failover and two migrations), end to end through hand-written
+router, a failover and two migrations), the native edit sessions, the
+command line and the dot dump (``cli.py``, ``native/session.cpp``,
+``visualisation.py``: typing and puts through the sessions, their
+rebuilds through the merge kernels, a merge of eight files), end to end
+through hand-written
 CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
 over meshes of four and sixteen shards on the card, and historical views
@@ -381,13 +385,57 @@ Phases, each raising on failure (nothing is caught):
        released both, L1 holds both. Checked too: the phase's launches and
        F0's drains' own (``_feed_repl_mirrors`` wrapped: the served
        kernels, not the packed transport's), ``cluster.repl_apply_batch_size``
-       observed, no ``cluster.repl_device_feed_error``, no CUDA error left
+       and ``cluster.resync_lock_seconds`` (the seconds a snapshot resync
+       holds its document's lock) observed, no
+       ``cluster.repl_device_feed_error``, no CUDA error left
        by the nodes' threads. Printed: the layout, the fan-in's acks and
        F0's catch-up, its mirror's first read, the ``applyChanges`` round
        trip (p50, p95), the replication lag (p50, max), F0's drains
        (documents a drain, seconds, packed launches, documents a launch)
        and F2's, the capture's busy share, the failover and migration
        seconds, the phase's seconds;
+    u. the command line, the native edit sessions and the dot dump
+       (after (t), before (j); ``cli_sessions_paths``), all on the card:
+       the fastcall extension built and loaded; the 260,000 edits of
+       ``workload.load_trace`` typed one ``splice_text`` at a time through
+       an ``AutoDoc`` with the sessions on, a commit every U_COMMIT_EVERY
+       = 1,000 edits, the launch counts set to 0 just before and read just
+       after (none: each commit leaves the op store stale and keeps its
+       session for the next transaction, so nothing rebuilds); then,
+       under a capture, ``text()`` (the stale read: one merge, launches
+       checked) and ``length()`` (the op-store rebuild from that merge),
+       the text the trace's; then the first U_COMPARE_EDITS = 24,000
+       edits (cut from 260,000: the Python path types about 5,000 edits
+       a second) typed both with the sessions and without them (the
+       Python path): ``save()`` byte for byte equal; then (b)'s 65,536
+       records (8 fields each) put field by field through
+       ``AutoDoc.put``, one commit, and again with the sessions off:
+       equal saves, the save's launches checked (a put into a map made
+       in the same commit takes the per-op path: that commit would drain
+       a session through it); then one field of each record put into a
+       flat map made in an earlier commit, through the put cache and its
+       map session, and again with the sessions off: equal saves;
+       then U_DURABLE_EDITS = 8,192 of the trace's edits typed through
+       the sessions into ``AutoDoc.open(dir, mirror=True)``, each
+       commit's change fed to the mirror (``DeviceDoc.apply_changes``):
+       the mirror, and the one a reopen builds, equal a fresh resolve of
+       the history; then ``cli.main`` with ``--device cuda``: ``merge``
+       of U_CLI_FILES = 8 files written from (a)'s chunks (each the base
+       and 128 replicas' changes: a replica's changes need the base), its
+       launches read around it, the merged text (a)'s through
+       ``export``; ``examine`` (1,025 changes); ``change`` with a splice
+       script on the typed durable document's save (its text then "cli "
+       and the trace's); ``metrics``, ``journal-info --verify`` and
+       ``compact`` on the typed durable directory; then ``python -m
+       automerge_tpu_torch export`` of the merged file as a fresh process
+       with no ``--device`` (the card): exit 0 and the in-process export's
+       JSON byte for byte; then
+       ``visualisation.doc_to_dot`` of a small session-typed document.
+       Printed: the typing rate in edits/s and the rebuilds it ran (0),
+       the stale read's and the rebuild's seconds and the capture's busy
+       share, both paths' rates on the compared prefix, the puts' rates
+       both ways, every command's seconds, the process's, and each step's
+       launches;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -4081,6 +4129,11 @@ def cluster_in_process(card: str, device, root: str) -> dict:
         if not hist or hist[0]["count"] < 1:
             raise AssertionError("cluster: cluster.repl_apply_batch_size has no "
                                  "observations")
+        lock_hist = [e for e in obs.snapshot()
+                     if e["name"] == "cluster.resync_lock_seconds"]
+        if not lock_hist or lock_hist[0]["count"] < len(group0):
+            raise AssertionError("cluster: the snapshot resyncs observed no "
+                                 "cluster.resync_lock_seconds")
         errors = obs.counter_values("rpc.errors", "type")
         feed_errors = obs.legacy_counters.get("cluster.repl_device_feed_error", 0)
         if feed_errors:
@@ -4109,7 +4162,10 @@ def cluster_in_process(card: str, device, root: str) -> dict:
               f"{hist[0]['count']} mean {hist[0]['sum'] / hist[0]['count']:.3f} max "
               f"{hist[0]['max']}; F2's pipelined drain of {len(frames)} documents in "
               f"{t_pipe:.6f} s: drains {len(pipe)}, documents a packed launch "
-              f"{packed}; F0's drains launched "
+              f"{packed}; a snapshot resync held its document's lock (the mirror "
+              f"rebuilt inside it; cluster.resync_lock_seconds) {lock_hist[0]['count']} "
+              f"times, mean {lock_hist[0]['sum'] / lock_hist[0]['count']:.6f} s, max "
+              f"{lock_hist[0]['max']:.6f} s; F0's drains launched "
               + json.dumps({k: v for k, v in fed.items() if v}) + f" on {card}",
               flush=True)
         print(f"cluster (t) capture of round {CLUSTER_CAPTURE_ROUND}: the round "
@@ -4156,6 +4212,399 @@ def cluster_paths(card: str, device) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     print(f"cluster (t): the phase took {time.perf_counter() - t_phase:.3f} s "
           f"on {card}", flush=True)
+    return counts
+
+
+# -- the command line, the native edit sessions and the dot dump (phase u) -----
+# (u) the typing trace's 260,000 edits through the sessions; its first
+# U_COMPARE_EDITS typed both ways for the bytes (cut from 260,000: the Python
+# path types about 5,000 edits a second on the card's host); (b)'s 65,536
+# records put both ways; a mirrored durable document and the command line
+U_COMPARE_EDITS = 24_000
+U_COMMIT_EVERY = 1_000
+U_DURABLE_EDITS = 8_192
+U_CLI_FILES = 8  # the base and the first 128 replicas, then 7 x 128 replicas
+U_ACTOR = bytes([0x75]) * 16
+
+
+def replay_text(edits) -> str:
+    """The text ``edits`` ([pos, ndel, *chars]) leave, replayed on a list."""
+    text = []
+    for pos, ndel, *chars in edits:
+        del text[pos:pos + ndel]
+        text[pos:pos] = "".join(chars)
+    return "".join(text)
+
+
+def session_doc(device, sessions: bool):
+    """An ``AutoDoc`` on ``device`` whose transactions use the native edit
+    sessions, or (``sessions=False``) the Python path alone."""
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.types import ActorId
+
+    class PlainDoc(AutoDoc):
+        def _ensure_tx(self):
+            tx = super()._ensure_tx()
+            tx.enable_sessions = False
+            return tx
+
+    return (AutoDoc if sessions else PlainDoc)(ActorId(U_ACTOR), device=device)
+
+
+def type_trace(doc, edits, every: int, after_commit=None) -> tuple:
+    """``edits`` typed one ``splice_text`` at a time into a new text object
+    "text", a commit every ``every`` edits; returns (text object, seconds,
+    commits)."""
+    from automerge_tpu_torch.types import ObjType
+
+    t = doc.put_object("_root", "text", ObjType.TEXT)
+    doc.commit(timestamp=1)
+    commits = 0
+    t0 = time.perf_counter()
+    for i, (pos, ndel, *chars) in enumerate(edits):
+        doc.splice_text(t, pos, ndel, "".join(chars))
+        if i % every == every - 1:
+            doc.commit(timestamp=2)
+            commits += 1
+            if after_commit is not None:
+                after_commit()
+    if doc.commit(timestamp=2) is not None:
+        commits += 1
+        if after_commit is not None:
+            after_commit()
+    return t, time.perf_counter() - t0, commits
+
+
+def put_records(doc, n: int) -> float:
+    """(b)'s record store put field by field through ``AutoDoc.put``: each
+    record a map under ``records`` with its seven scalar fields and its
+    ``votes`` counter, as ``workload.record_base_change`` makes them; one
+    commit. Returns the seconds."""
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.types import ObjType, ScalarValue
+
+    base = W.record_base_change(n)
+    t0 = time.perf_counter()
+    records = doc.put_object("_root", "records", ObjType.MAP)
+    ops = base.ops
+    for r in range(n):
+        make = ops[1 + r * W._OPS_PER_RECORD]
+        rec = doc.put_object(records, make.key.prop, ObjType.MAP)
+        for op in ops[2 + r * W._OPS_PER_RECORD:1 + (r + 1) * W._OPS_PER_RECORD]:
+            v = op.value
+            doc.put(rec, op.key.prop,
+                    ScalarValue("counter", v.value) if v.tag == "counter" else v.to_py())
+    doc.commit(timestamp=3)
+    return time.perf_counter() - t0
+
+
+def put_flat(doc, n: int) -> float:
+    """One field of each of (b)'s first ``n`` records put into one flat map
+    ``index`` made in an earlier commit, all in one commit: with the
+    sessions on, every put goes through the put cache and its map session.
+    Returns the seconds."""
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.types import ObjType
+
+    index = doc.put_object("_root", "index", ObjType.MAP)
+    doc.commit(timestamp=5)
+    values = [W._field_value(W.RECORD_FIELDS[0][1], i).to_py() for i in range(n)]
+    keys = [W._record_key(i) for i in range(n)]
+    t0 = time.perf_counter()
+    for k, v in zip(keys, values):
+        doc.put(index, k, v)
+    if doc._tx.enable_sessions and not doc._tx._msessions:
+        raise AssertionError("flat puts: the put cache held no map session")
+    doc.commit(timestamp=6)
+    return time.perf_counter() - t0
+
+
+def check_doc_merge(path: str, counts: dict) -> None:
+    """A document's merge ran on the card: the run-native staging's kernels
+    and one of the two winners kernels, none of the packed transport's."""
+    check_launches(path, counts, RUN_NATIVE, TRANSPORT_ONLY)
+    if counts["scatter_winners"] + counts["sort_winners"] < 1:
+        raise AssertionError(f"{path}: no winners kernel launched")
+
+
+def cli_main(argv) -> int:
+    from automerge_tpu_torch import cli
+
+    return cli.main(["--device", "cuda", *argv])
+
+
+def cli_sessions_paths(card: str, device) -> dict:
+    """(u) the native edit sessions, the command line and the dot dump on
+    the card (see the module docstring). Returns the launch counts by
+    path."""
+    import shutil
+    import tempfile
+
+    from automerge_tpu_torch import kernels, native, visualisation
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.core.transaction import Transaction
+    from automerge_tpu_torch.ops.device_doc import DeviceDoc
+    from automerge_tpu_torch.ops.oplog import OpLog
+    from automerge_tpu_torch.types import ActorId
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fc = native.fastcall()
+    print(f"sessions (u): the fastcall extension {fc.__name__} "
+          f"({native._fastcall_path().name}) loaded in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    counts = {}
+    text_must = (RUN_NATIVE + ("scatter_winners",), ("sort_winners",) + TRANSPORT_ONLY)
+
+    # 1. the typing trace through the sessions, then a prefix of it both ways
+    edits = W.load_trace()
+    want = replay_text(edits)
+    doc = session_doc(device, True)
+    kernels.reset_launches()
+    with gc_pauses() as pauses:
+        text_obj, typed_s, commits = type_trace(doc, edits, U_COMMIT_EVERY)
+        torch.cuda.synchronize()
+    typing_counts = kernels.launch_counts()
+    counts["typing sessions"] = typing_counts
+    if not doc.doc._ops_stale:
+        raise AssertionError("typing: the last session commit left the op store live")
+    merges = typing_counts["succ_vis"] // SV_LAUNCHES
+    if any(typing_counts.values()):
+        raise AssertionError(f"typing: the commits rebuilt the op store: {typing_counts}")
+    print(f"typing sessions (u): {len(edits)} edits (load_trace's "
+          f"{W.TRACE_EDITS}) in {typed_s:.3f} s, {len(edits) / typed_s:.1f} edits/s "
+          f"(gc {sum(s for _, s in pauses):.3f} s), {commits} commits of "
+          f"{U_COMMIT_EVERY}, each past SMALL_TAIL_OPS = "
+          f"{Transaction.SMALL_TAIL_OPS}, each keeping its session: {merges} "
+          f"rebuilds, no launches on {card}", flush=True)
+    seconds = {}
+
+    def read_and_rebuild():
+        t0 = time.perf_counter()
+        got = doc.text(text_obj)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = doc.length(text_obj)
+        torch.cuda.synchronize()
+        seconds["read"], seconds["rebuild"] = t1 - t0, time.perf_counter() - t1
+        return got, n
+
+    kernels.reset_launches()
+    (got, n), cap = capture("typing_rebuild", read_and_rebuild)
+    counts["typing sessions read"] = kernels.launch_counts()
+    check_doc_merge("typing sessions read", counts["typing sessions read"])
+    if got != want or n != len(want):
+        raise AssertionError("typing: the text after the session commits is not "
+                             "the trace's")
+    if doc.doc._ops_stale:
+        raise AssertionError("typing: the read left the op store stale")
+    t0 = time.perf_counter()
+    data = doc.save()
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    print(f"typing sessions (u): the stale read {seconds['read']:.6f} s, the "
+          f"op-store rebuild {seconds['rebuild']:.6f} s (window {cap['window_s']:.6f} "
+          f"s, busy share {cap['busy_share']:.7f}, {cap['kernels']} kernels), the "
+          f"text the trace's {len(want)} characters; save {save_s:.6f} s, "
+          f"{len(data)} bytes; read launches "
+          + json.dumps({k: v for k, v in counts["typing sessions read"].items() if v})
+          + f" on {card}", flush=True)
+    del doc, data
+    prefix = edits[:U_COMPARE_EDITS]
+    typed, rate = {}, {}
+    for sessions in (True, False):
+        typed[sessions] = session_doc(device, sessions)
+        with gc_pauses():
+            _, secs_, _ = type_trace(typed[sessions], prefix, U_COMMIT_EVERY)
+        rate[sessions] = len(prefix) / secs_
+    data = typed[True].save()
+    if data != typed[False].save():
+        raise AssertionError("typing: the sessions' save differs from the Python path's")
+    print(f"typing sessions (u): the first {len(prefix)} edits typed both ways, "
+          f"{rate[True]:.1f} edits/s through the sessions and {rate[False]:.1f} on "
+          f"the Python path; saves equal, {len(data)} bytes", flush=True)
+    del typed, data
+
+    # 2. the record store's puts through the put cache, then with them off
+    docs, secs = {}, {}
+    for sessions in (True, False):
+        docs[sessions] = session_doc(device, sessions)
+        secs[sessions] = put_records(docs[sessions], W.RECORDS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    data = docs[True].save()
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    counts["records sessions save"] = kernels.launch_counts()
+    check_doc_merge("records sessions save", counts["records sessions save"])
+    if data != docs[False].save():
+        raise AssertionError("records: the sessions' save differs from the Python path's")
+    back = AutoDoc.load(data, device=device)
+    if len(back.keys(back.get("_root", "records")[0][2])) != W.RECORDS:
+        raise AssertionError("records: the loaded document lost records")
+    puts = W.RECORDS * (1 + len(W.RECORD_FIELDS) + 1)
+    print(f"records sessions (u): {W.RECORDS} records x "
+          f"{len(W.RECORD_FIELDS) + 1} fields, {puts} puts through AutoDoc.put in "
+          f"{secs[True]:.3f} s ({puts / secs[True]:.1f} puts/s), the Python path "
+          f"{secs[False]:.3f} s ({puts / secs[False]:.1f} puts/s); save "
+          f"{save_s:.6f} s, {len(data)} bytes, equal; save launches " + json.dumps(
+              {k: v for k, v in counts["records sessions save"].items() if v})
+          + f" on {card}", flush=True)
+    del docs, back, data
+    docs, secs = {}, {}
+    for sessions in (True, False):
+        docs[sessions] = session_doc(device, sessions)
+        secs[sessions] = put_flat(docs[sessions], W.RECORDS)
+    data = docs[True].save()
+    if data != docs[False].save():
+        raise AssertionError("flat puts: the sessions' save differs from the Python path's")
+    print(f"flat puts (u): {W.RECORDS} puts into one map through the put cache in "
+          f"{secs[True]:.3f} s ({W.RECORDS / secs[True]:.1f} puts/s), the Python path "
+          f"{secs[False]:.3f} s ({W.RECORDS / secs[False]:.1f} puts/s); saves equal, "
+          f"{len(data)} bytes", flush=True)
+    del docs, data
+
+    root = tempfile.mkdtemp(prefix="amtpu-cli-")
+    try:
+        # 3. a mirrored durable document typed through the sessions, its
+        # mirror fed each commit's change
+        path = os.path.join(root, "typed")
+        dd = AutoDoc.open(path, mirror=True, device=device, actor=ActorId(U_ACTOR))
+        fed = []
+
+        def feed():
+            heads = fed[-1] if fed else []
+            new = dd.get_changes(heads)
+            dd.device_doc.apply_changes([c.raw_bytes for c in new])
+            fed.append(dd.get_heads())
+
+        kernels.reset_launches()
+        dtext, dur_s, dcommits = type_trace(dd, edits[:U_DURABLE_EDITS],
+                                            U_COMMIT_EVERY, feed)
+        torch.cuda.synchronize()
+        counts["durable sessions feed"] = kernels.launch_counts()
+        check_launches("durable sessions feed", counts["durable sessions feed"],
+                       RUN_NATIVE, TRANSPORT_ONLY)
+        fresh = DeviceDoc.resolve(OpLog.from_changes(
+            [a.stored for a in dd.doc.history]), device=device)
+        check_fetch_equal("durable sessions mirror", dd.device_doc, fresh)
+        dwant = replay_text(edits[:U_DURABLE_EDITS])
+        if dd.device_doc.text(dtext) != dwant or dd.text(dtext) != dwant:
+            raise AssertionError("durable sessions: the mirror's text is not the trace's")
+        dd.close()
+        again = AutoDoc.open(path, mirror=True, device=device)
+        check_fetch_equal("durable sessions reopened", again.device_doc, fresh)
+        typed = os.path.join(root, "typed.automerge")
+        with open(typed, "wb") as fh:
+            fh.write(again.save())
+        again.close()
+        print(f"durable sessions (u): {U_DURABLE_EDITS} edits through the sessions "
+              f"into AutoDoc.open(mirror=True) in {dur_s:.3f} s, {dcommits} commits "
+              f"each fed to the mirror; the mirror, and the one reopened, equal a "
+              f"fresh resolve; feed launches " + json.dumps(
+                  {k: v for k, v in counts["durable sessions feed"].items() if v})
+              + f" on {card}", flush=True)
+
+        # 4. the command line in process on the card
+        held = FANINS["text"]
+        blobs, text = held["blobs"], held["text"]
+        per = (len(blobs) - 1) // U_CLI_FILES
+        files = []
+        for i in range(U_CLI_FILES):
+            f = os.path.join(root, f"replicas{i}.automerge")
+            with open(f, "wb") as fh:
+                fh.write(b"".join([blobs[0], *blobs[1 + i * per:1 + (i + 1) * per]]))
+            files.append(f)
+        merged = os.path.join(root, "merged.automerge")
+        cli_s = {}
+
+        def run(name, argv, path=None):
+            if path is not None:
+                kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli_main(argv)
+            torch.cuda.synchronize()
+            cli_s[name] = time.perf_counter() - t0
+            if path is not None:
+                counts[path] = kernels.launch_counts()
+            if rc != 0:
+                raise AssertionError(f"cli {name}: exit {rc}")
+
+        run("merge", ["merge", *files, "-o", merged], "cli merge")
+        check_launches("cli merge", counts["cli merge"], *text_must)
+        run("export", ["export", merged, "-o", merged + ".json"], "cli export")
+        check_doc_merge("cli export", counts["cli export"])
+        with open(merged + ".json") as fh:
+            exported = json.load(fh)
+        if exported.get("text") != text:
+            raise AssertionError("cli merge: the merged text is not (a)'s")
+        run("examine", ["examine", merged, "-o", merged + ".changes.json"])
+        with open(merged + ".changes.json") as fh:
+            changes = json.load(fh)
+        if len(changes) != len(blobs):
+            raise AssertionError(f"cli examine: {len(changes)} changes, not {len(blobs)}")
+        del changes
+        changed = os.path.join(root, "changed.automerge")
+        run("change", ["change", typed, "splice .text 0 0 'cli '", "-o", changed],
+            "cli change")
+        check_doc_merge("cli change", counts["cli change"])
+        run("export changed", ["export", changed, "-o", changed + ".json"])
+        with open(changed + ".json") as fh:
+            if json.load(fh)["text"] != "cli " + dwant:
+                raise AssertionError("cli change: the splice did not land")
+        run("metrics", ["metrics", path, "-o", os.path.join(root, "metrics.prom")])
+        run("journal-info", ["journal-info", path, "--verify",
+                             "-o", os.path.join(root, "info.json")])
+        with open(os.path.join(root, "info.json")) as fh:
+            info = json.load(fh)
+        if not all(v["ok"] for v in info["verify"]):
+            raise AssertionError(f"cli journal-info: {info['verify']}")
+        run("compact", ["compact", path, "-o", os.path.join(root, "compact.json")])
+        with open(os.path.join(root, "compact.json")) as fh:
+            if json.load(fh)["compacted"] is not True:
+                raise AssertionError("cli compact: not compacted")
+        print(f"cli (u): merge of {U_CLI_FILES} files ({sum(map(os.path.getsize, files))} "
+              f"bytes: the base with {per} replicas' changes each) {cli_s['merge']:.3f} s, "
+              f"the merged text (a)'s; seconds " + json.dumps(
+                  {k: round(v, 6) for k, v in cli_s.items()})
+              + "; merge launches " + json.dumps(
+                  {k: v for k, v in counts["cli merge"].items() if v})
+              + f" on {card}", flush=True)
+
+        # 5. the command line as a process, on the card by default
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "automerge_tpu_torch", "export",
+                            merged, "-o", merged + ".sub.json"], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"python -m automerge_tpu_torch export: exit "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+        with open(merged + ".json", "rb") as a, open(merged + ".sub.json", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("python -m automerge_tpu_torch export: the "
+                                     "JSON differs from the in-process export's")
+        print(f"cli (u): python -m automerge_tpu_torch export of the merged file "
+              f"(the card by default) exit 0 in {sub_s:.3f} s, the same JSON",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # 6. a dot dump of a small document typed through the sessions
+    small = session_doc(device, True)
+    st, _, _ = type_trace(small, edits[:300], 100)
+    small.put("_root", "k", 1)
+    small.commit(timestamp=4)
+    dot = visualisation.doc_to_dot(small)
+    if not dot.startswith("digraph automerge") or dot.count("subgraph") != 2:
+        raise AssertionError("dot: not a two-object dump")
+    print(f"dot (u): {len(dot)} characters, {dot.count('->')} edges; "
+          f"changes_to_dot {len(visualisation.changes_to_dot(small))} characters",
+          flush=True)
+    print(f"sessions (u): the phase took {time.perf_counter() - t_phase:.3f} s on "
+          f"{card}", flush=True)
     return counts
 
 
@@ -5220,6 +5669,7 @@ def main() -> int:
     durable_counts = durable_paths(card, device)
     serve_counts, serve_spec = serve_paths(card, device)
     cluster_counts = cluster_paths(card, device)
+    sessions_counts = cli_sessions_paths(card, device)
     cold_counts = cold_open_paths(card, device)
     sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
                                    record_log)
@@ -5231,7 +5681,7 @@ def main() -> int:
 
     by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
                **document_counts, **sync_counts, **durable_counts, **serve_counts,
-               **cluster_counts, **cold_counts, **sharded_counts}
+               **cluster_counts, **sessions_counts, **cold_counts, **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,

@@ -15,6 +15,7 @@ scrubber's follower passes and ``rpc.main``'s cluster mode are in
 ``tests/test_torch_cluster_router.py``.
 """
 
+import base64
 import json
 import os
 import socket
@@ -30,7 +31,9 @@ import automerge_tpu_torch.cluster as PC
 from automerge_tpu import obs as robs
 from automerge_tpu.cluster import node as rnode
 from automerge_tpu_torch import obs as pobs
+from automerge_tpu_torch import api as PA
 from automerge_tpu_torch.cluster import node as pnode
+from automerge_tpu_torch.cluster import replication as PRepl
 from automerge_tpu_torch.ops.device_doc import DeviceDoc as PDeviceDoc
 from automerge_tpu_torch.ops.oplog import OpLog as POpLog
 from automerge_tpu_torch.storage import durable as PD
@@ -564,6 +567,100 @@ def test_a_snapshot_resync_rebuilds_the_mirror(tmp_path, seq):
         finally:
             led.stop()
             fol.stop()
+
+
+def _watch_cursor_writes(monkeypatch, fol, name):
+    """Record, at the moment a replica's cursor is written, the LSN that
+    ``clusterStatus`` then reports and the mirror's contents."""
+    seen = []
+    orig = PD.DurableDocument.set_meta
+
+    def set_meta(self, key, blob):
+        orig(self, key, blob)
+        if key == PD.REPL_CURSOR_KEY:
+            dev = self.device_doc
+            seen.append((cursor_lsn(fol, name),
+                         None if dev is None else dev.hydrate()))
+
+    monkeypatch.setattr(PD.DurableDocument, "set_meta", set_meta)
+    return seen
+
+
+@pytest.mark.parametrize("method", ["replSnapshot", "replReset"])
+def test_a_resynced_cursor_is_never_seen_before_its_mirror(
+        tmp_path, seq, monkeypatch, method):
+    """When the cursor a snapshot pins is written, the mirror already
+    holds the snapshot's changes (the cursor used to be saved before the
+    mirror was rebuilt, and ``clusterStatus`` reported the snapshot's LSN
+    beside the old mirror). The seconds the resync holds the document's
+    lock are observed (``cluster.resync_lock_seconds``)."""
+    fol = start_node("port", tmp_path, "f", role="follower")
+    try:
+        fc = Client(fol.address)
+        fc.call("openDurable", name="dr", device=True)
+        src = PA.AutoDoc(device="cpu")
+        for i in range(3):
+            src.put("_root", f"k{i}", i)
+            src.commit()
+        seen = _watch_cursor_writes(monkeypatch, fol, "dr")
+        held = pobs.registry.histogram("cluster.resync_lock_seconds")
+        n_held = held.n
+        stream = "s-" + method
+        fc.call(method, name="dr", lsn=3,
+                snapshot=base64.b64encode(src.save()).decode("ascii"),
+                cursor=base64.b64encode(
+                    PRepl.encode_cursor(stream, 3)).decode("ascii"))
+        assert seen == [(3, {"k0": 0, "k1": 1, "k2": 2})]
+        # the seconds the resync held the document's lock are observed
+        assert held.n == n_held + 1 and held.vmax > 0
+        doc = replica(fol, "dr")
+        with doc.lock:
+            assert_same_mirror(doc.device_doc, fresh_resolve(doc), method)
+        fc.close()
+    finally:
+        fol.stop()
+
+
+def test_a_failed_resync_drops_the_mirror_and_answers(tmp_path, seq, monkeypatch):
+    """A failed rebuild is counted, leaves no mirror and no run image
+    (store hot -> warm), still saves the cursor, and answers the request
+    with the error; the next access rebuilds the mirror."""
+    fol = start_node("port", tmp_path, "f", role="follower")
+    try:
+        fc = Client(fol.address)
+        fc.call("openDurable", name="dr", device=True)
+        src = PA.AutoDoc(device="cpu")
+        src.put("_root", "k", 1)
+        src.commit()
+        seen = _watch_cursor_writes(monkeypatch, fol, "dr")
+
+        real_build = PD.DurableDocument.build_device_mirror
+        fail = [True]
+
+        def broken(self):
+            if fail[0]:
+                raise RuntimeError("injected rebuild failure")
+            return real_build(self)
+
+        monkeypatch.setattr(PD.DurableDocument, "build_device_mirror", broken)
+        resp = fc.call("replSnapshot", allow_error=True, name="dr", lsn=1,
+                       snapshot=base64.b64encode(src.save()).decode("ascii"),
+                       cursor=base64.b64encode(
+                           PRepl.encode_cursor("s", 1)).decode("ascii"))
+        assert "injected rebuild failure" in json.dumps(resp["error"])
+        assert seen == [(1, None)]
+        doc = replica(fol, "dr")
+        assert doc.device_doc is None and doc._run_image is None
+        assert pobs.legacy_counters.get("cluster.repl_device_feed_error") == 1
+        if fol.rpc.store is not None:
+            assert fol.rpc.store.tier("dr") != "hot"
+        fail[0] = False
+        with doc.lock:
+            dev = doc.build_device_mirror()
+            assert dev.hydrate() == {"k": 1}
+        fc.close()
+    finally:
+        fol.stop()
 
 
 def test_node_device_and_warm_open_rules(tmp_path, monkeypatch):

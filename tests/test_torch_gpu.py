@@ -2165,3 +2165,73 @@ def test_cluster_node_raises_without_a_gpu(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ClusterNode(node_id="n", host="127.0.0.1", port=0,
                         durable_dir=str(tmp_path / role), role=role)
+
+
+def _typed(device, edits, every):
+    """``edits`` typed one ``splice_text`` at a time through the native
+    sessions into an ``AutoDoc`` on ``device``, committing every
+    ``every``; returns (document, text object)."""
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.types import ActorId, ObjType
+
+    d = AutoDoc(ActorId(bytes([0x5A]) * 16), device=device)
+    t = d.put_object("_root", "text", ObjType.TEXT)
+    d.commit(timestamp=1)
+    for i, (pos, ndel, *chars) in enumerate(edits):
+        d.splice_text(t, pos, ndel, "".join(chars))
+        if i % every == every - 1:
+            d.commit(timestamp=2)
+    d.commit(timestamp=2)
+    return d, t
+
+
+def test_session_typed_document_rebuilds_on_card_equal_to_cpu(cuda):
+    """A trace typed through the native sessions on the card: each large
+    session commit leaves the op store stale and keeps its session, so the
+    typing launches nothing, and the first read runs the merge kernels on
+    the card; text, save and hydrate equal the same typing on the CPU."""
+    from automerge_tpu_torch.core.transaction import Transaction
+
+    edits = W.load_trace(3000)
+    every = Transaction.SMALL_TAIL_OPS * 4
+    reset_launches()
+    card, tc = _typed(cuda, edits, every)
+    # each commit kept its session for the next transaction: no rebuild ran
+    assert not any(launch_counts().values())
+    cpu, tp = _typed("cpu", edits, every)
+    assert card.doc._ops_stale
+    reset_launches()
+    assert card.text(tc) == cpu.text(tp)
+    assert _doc_merge_launched(launch_counts())
+    assert card.save() == cpu.save()
+    assert card.hydrate() == cpu.hydrate()
+
+
+def test_cli_merge_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """``cli.main(["--device", "cuda", "merge", ...])``: the bulk catch-up
+    of the merged files runs the merge kernels on the card, and its output
+    equals the same merge on the CPU."""
+    from automerge_tpu_torch import cli
+    from automerge_tpu_torch.core.document import Document
+
+    monkeypatch.setattr(Document, "BULK_MIN_OPS", 1)
+    trace = W.load_trace(3000)
+    base = W.build_base(trace, 2000)
+    reps = W.synth_fanin(base, trace, 8, 50, 2000)
+    files = []
+    for i, chunk in enumerate([base.changes] + [reps[k::4] for k in range(4)]):
+        p = tmp_path / f"in{i}.automerge"
+        p.write_bytes(b"".join(c.raw_bytes for c in chunk))
+        files.append(str(p))
+    out = {}
+    for dev in (str(cuda), "cpu"):
+        reset_launches()
+        assert cli.main(["--device", dev, "merge", *files, "-o",
+                         str(tmp_path / f"{dev}.automerge")]) == 0
+        if dev == "cuda":
+            assert _doc_merge_launched(launch_counts())
+        out[dev] = (tmp_path / f"{dev}.automerge").read_bytes()
+        assert cli.main(["--device", dev, "export", str(tmp_path / f"{dev}.automerge"),
+                         "-o", str(tmp_path / f"{dev}.json")]) == 0
+    assert out[str(cuda)] == out["cpu"]
+    assert (tmp_path / f"{cuda}.json").read_bytes() == (tmp_path / "cpu.json").read_bytes()

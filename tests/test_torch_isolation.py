@@ -7,8 +7,10 @@ residency and run image, ``ops/compressed.py`` and
 ``obs/`` and ``trace.py``, and its durable storage, ``storage/journal.py``,
 ``storage/durable.py``, ``storage/crashsim.py``, ``integrity.py``,
 ``degrade.py``, ``store/`` and ``testing.py``, its serving layer,
-``rpc.py`` and ``serve/``, and its cluster tier, ``cluster/``, included),
-and its entry points refuse to fall back to the CPU."""
+``rpc.py`` and ``serve/``, its cluster tier, ``cluster/``, its command
+line, ``cli.py`` and ``__main__.py``, its native edit sessions and
+fastcall extension, and ``visualisation.py`` included), and its entry
+points refuse to fall back to the CPU."""
 
 import ast
 import os
@@ -330,14 +332,44 @@ finally:
     rtr.stop()
     led.stop()
     fol.stop()
+# the native edit sessions and the command line
+from automerge_tpu_torch import cli, visualisation
+from automerge_tpu_torch.core.transaction import Transaction
+tdoc = api.AutoDoc(types.ActorId(bytes([14]) * 16), device="cpu")
+tt = tdoc.put_object("_root", "t", types.ObjType.TEXT)
+tdoc.commit()
+for i in range(Transaction.SMALL_TAIL_OPS + 44):
+    tdoc.splice_text(tt, i, 0, "abc"[i % 3])
+assert len(tdoc._tx._sessions) == 1
+tdoc.commit()
+assert tdoc.doc._ops_stale
+for i in range(8):
+    tdoc.put("_root", f"k{i}", i)
+assert len(tdoc._tx._msessions) == 1
+tdoc.commit()
+assert tdoc.text(tt) == ("abc" * 100)[:300] and not tdoc.doc._ops_stale
+assert "digraph" in visualisation.doc_to_dot(tdoc)
+cdir = tempfile.mkdtemp()
+fork = tdoc.fork(types.ActorId(bytes([15]) * 16))
+fork.splice_text(tt, 0, 0, "fork ")
+fork.commit()
+open(cdir + "/a.am", "wb").write(tdoc.save())
+open(cdir + "/b.am", "wb").write(fork.save())
+assert cli.main(["--device", "cpu", "merge", cdir + "/a.am", cdir + "/b.am",
+                 "-o", cdir + "/m.am"]) == 0
+assert cli.main(["--device", "cpu", "export", cdir + "/m.am",
+                 "-o", cdir + "/m.json"]) == 0
+assert json.load(open(cdir + "/m.json"))["t"] == "fork " + ("abc" * 100)[:300]
 maps = open("/proc/self/maps").read()
 assert str(native.library_path()) in maps
+assert str(native._fastcall_path()) in maps
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "automerge_tpu") or m.startswith(("jax.", "automerge_tpu."))
 )
 bad += sorted({line.split()[-1] for line in maps.splitlines()
-               if "automerge_tpu/native/" in line or "_codecs-" in line})
+               if "automerge_tpu/native/" in line or "_codecs-" in line
+               or "_am_fastcall-" in line})
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
 """
