@@ -17,7 +17,9 @@ whose drains feed its mirrors in packed launches, a second group, a
 router, a failover and two migrations), the native edit sessions, the
 command line and the dot dump (``cli.py``, ``native/session.cpp``,
 ``visualisation.py``: typing and puts through the sessions, their
-rebuilds through the merge kernels, a merge of eight files), end to end
+rebuilds through the merge kernels, a merge of eight files), the C ABI
+(``capi/``: the reference's five C suites on the card, ``am_load`` and
+typing through the library's hot-call cache), end to end
 through hand-written
 CUDA kernels, with the columns staged as run tables (run-native, the default), the
 packed transport, the chain-condensed document order, the sharded merge
@@ -435,7 +437,31 @@ Phases, each raising on failure (nothing is caught):
        the stale read's and the rebuild's seconds and the capture's busy
        share, both paths' rates on the compared prefix, the puts' rates
        both ways, every command's seconds, the process's, and each step's
-       launches;
+       launches. U_RECORDS = 16,384 of (b)'s records are put both ways
+       (cut from 65,536 to make room for (v));
+    v. the C ABI on the card (after (u), before (j); ``capi_paths``): the
+       port's cdylib built with g++ (``capi.build``), the five C suites
+       and the typist ``capi/type_edits.c`` (as a program and as a
+       shared library) with gcc, the seconds printed; the five suites
+       and the typist on (u)'s first U_COMPARE_EDITS edits run as six
+       processes at once with no ``AUTOMERGE_TPU_TORCH_DEVICE`` (the
+       card) and this interpreter's path as ``PYTHONPATH``: each exits 0,
+       each suite prints "all assertions passed", the typist's save is
+       (u)'s prefix save byte for byte, and each process's seconds, the
+       typist's ``am_init`` and its first ``am_text`` (the process's CUDA
+       context, the kernels' library and a merge) printed; then in this
+       process through ``ctypes`` (``am_init`` joins the running
+       interpreter): ``am_load`` of the file (u)'s CLI ``merge`` wrote and
+       ``am_text``, the launch counts set to 0 just before and read just
+       after, held to one merge of the whole log, the text (a)'s; then
+       all 260,000 trace edits typed by the typist's ``type_edits``
+       through ``am_splice_text``'s hot-call cache, a commit every
+       U_COMMIT_EVERY, no launch while typing, the read after it one
+       merge and the trace's text, ``am_save`` (u)'s session-typed save
+       byte for byte; then the first U_COMPARE_EDITS edits through
+       per-call ``shim.call("splice_text", ...)``, its save (u)'s prefix
+       save. Printed: both rates in edits/s, the read's seconds and
+       launches, the phase's seconds;
     h. historical views, each ``at`` with the launch counts set to 0 just
        before and read just after, held to what its merge of the whole
        log runs (expand_runs a stack, succ_vis 2, the winners, forest and
@@ -511,6 +537,7 @@ Phases, each raising on failure (nothing is caught):
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
 import os
@@ -952,6 +979,9 @@ SHARED = ("succ_vis", "forest", "radix_sort", "linearize")
 RUN_NATIVE = SHARED + ("expand_runs",)
 PACKED = SHARED + ("expand_runs", "unpack_flags", "emit_packed")
 TRANSPORT_ONLY = ("unpack_flags", "emit_packed")
+# a merge of (a)'s whole log: the run-native staging's kernels and the
+# scatter winners, neither the sort-based winners nor the packed transport
+TEXT_MERGE_MUST = (RUN_NATIVE + ("scatter_winners",), ("sort_winners",) + TRANSPORT_ONLY)
 # merge_kernel_condensed's kernels, and those it must not launch
 CONDENSED = ("succ_vis", "sort_winners", "forest", "radix_sort",
              "linearize_condensed")
@@ -2270,7 +2300,7 @@ def document_paths(card: str, device) -> dict:
             print(f"{path} launches {json.dumps(counts[path])}", flush=True)
         return out
 
-    text_must = (RUN_NATIVE + ("scatter_winners",), ("sort_winners",) + TRANSPORT_ONLY)
+    text_must = TEXT_MERGE_MUST
 
     # text: the bulk apply, the stale read, the rebuild, save and load
     held = FANINS["text"]
@@ -4218,10 +4248,13 @@ def cluster_paths(card: str, device) -> dict:
 # -- the command line, the native edit sessions and the dot dump (phase u) -----
 # (u) the typing trace's 260,000 edits through the sessions; its first
 # U_COMPARE_EDITS typed both ways for the bytes (cut from 260,000: the Python
-# path types about 5,000 edits a second on the card's host); (b)'s 65,536
-# records put both ways; a mirrored durable document and the command line
+# path types about 5,000 edits a second on the card's host); U_RECORDS of
+# (b)'s records put both ways (cut from 65,536, 50 s both ways, to keep the
+# smoke near its time with (v) added); a mirrored durable document and the
+# command line
 U_COMPARE_EDITS = 24_000
 U_COMMIT_EVERY = 1_000
+U_RECORDS = 16_384
 U_DURABLE_EDITS = 8_192
 U_CLI_FILES = 8  # the base and the first 128 replicas, then 7 x 128 replicas
 U_ACTOR = bytes([0x75]) * 16
@@ -4253,22 +4286,22 @@ def session_doc(device, sessions: bool):
 
 def type_trace(doc, edits, every: int, after_commit=None) -> tuple:
     """``edits`` typed one ``splice_text`` at a time into a new text object
-    "text", a commit every ``every`` edits; returns (text object, seconds,
-    commits)."""
+    "text", a commit every ``every`` edits (no timestamp, as ``am_commit``
+    makes them); returns (text object, seconds, commits)."""
     from automerge_tpu_torch.types import ObjType
 
     t = doc.put_object("_root", "text", ObjType.TEXT)
-    doc.commit(timestamp=1)
+    doc.commit()
     commits = 0
     t0 = time.perf_counter()
     for i, (pos, ndel, *chars) in enumerate(edits):
         doc.splice_text(t, pos, ndel, "".join(chars))
         if i % every == every - 1:
-            doc.commit(timestamp=2)
+            doc.commit()
             commits += 1
             if after_commit is not None:
                 after_commit()
-    if doc.commit(timestamp=2) is not None:
+    if doc.commit() is not None:
         commits += 1
         if after_commit is not None:
             after_commit()
@@ -4355,7 +4388,7 @@ def cli_sessions_paths(card: str, device) -> dict:
           f"({native._fastcall_path().name}) loaded in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     counts = {}
-    text_must = (RUN_NATIVE + ("scatter_winners",), ("sort_winners",) + TRANSPORT_ONLY)
+    text_must = TEXT_MERGE_MUST
 
     # 1. the typing trace through the sessions, then a prefix of it both ways
     edits = W.load_trace()
@@ -4410,6 +4443,7 @@ def cli_sessions_paths(card: str, device) -> dict:
           f"{len(data)} bytes; read launches "
           + json.dumps({k: v for k, v in counts["typing sessions read"].items() if v})
           + f" on {card}", flush=True)
+    CAPI_INPUT.update(typed=data, text=want)
     del doc, data
     prefix = edits[:U_COMPARE_EDITS]
     typed, rate = {}, {}
@@ -4421,6 +4455,7 @@ def cli_sessions_paths(card: str, device) -> dict:
     data = typed[True].save()
     if data != typed[False].save():
         raise AssertionError("typing: the sessions' save differs from the Python path's")
+    CAPI_INPUT["prefix"] = data
     print(f"typing sessions (u): the first {len(prefix)} edits typed both ways, "
           f"{rate[True]:.1f} edits/s through the sessions and {rate[False]:.1f} on "
           f"the Python path; saves equal, {len(data)} bytes", flush=True)
@@ -4430,7 +4465,7 @@ def cli_sessions_paths(card: str, device) -> dict:
     docs, secs = {}, {}
     for sessions in (True, False):
         docs[sessions] = session_doc(device, sessions)
-        secs[sessions] = put_records(docs[sessions], W.RECORDS)
+        secs[sessions] = put_records(docs[sessions], U_RECORDS)
     kernels.reset_launches()
     t0 = time.perf_counter()
     data = docs[True].save()
@@ -4441,10 +4476,10 @@ def cli_sessions_paths(card: str, device) -> dict:
     if data != docs[False].save():
         raise AssertionError("records: the sessions' save differs from the Python path's")
     back = AutoDoc.load(data, device=device)
-    if len(back.keys(back.get("_root", "records")[0][2])) != W.RECORDS:
+    if len(back.keys(back.get("_root", "records")[0][2])) != U_RECORDS:
         raise AssertionError("records: the loaded document lost records")
-    puts = W.RECORDS * (1 + len(W.RECORD_FIELDS) + 1)
-    print(f"records sessions (u): {W.RECORDS} records x "
+    puts = U_RECORDS * (1 + len(W.RECORD_FIELDS) + 1)
+    print(f"records sessions (u): {U_RECORDS} of (b)'s records x "
           f"{len(W.RECORD_FIELDS) + 1} fields, {puts} puts through AutoDoc.put in "
           f"{secs[True]:.3f} s ({puts / secs[True]:.1f} puts/s), the Python path "
           f"{secs[False]:.3f} s ({puts / secs[False]:.1f} puts/s); save "
@@ -4533,6 +4568,8 @@ def cli_sessions_paths(card: str, device) -> dict:
 
         run("merge", ["merge", *files, "-o", merged], "cli merge")
         check_launches("cli merge", counts["cli merge"], *text_must)
+        with open(merged, "rb") as fh:
+            CAPI_INPUT["merged"] = fh.read()
         run("export", ["export", merged, "-o", merged + ".json"], "cli export")
         check_doc_merge("cli export", counts["cli export"])
         with open(merged + ".json") as fh:
@@ -4605,6 +4642,255 @@ def cli_sessions_paths(card: str, device) -> dict:
           flush=True)
     print(f"sessions (u): the phase took {time.perf_counter() - t_phase:.3f} s on "
           f"{card}", flush=True)
+    return counts
+
+
+# -- the C ABI on the card (phase v) ---------------------------------------------
+# what (u) leaves for (v): the session-typed save of the whole trace and its
+# text, the save of its first U_COMPARE_EDITS edits, and the CLI's merged file
+CAPI_INPUT = {}
+CAPI_TIMEOUT = 600  # seconds a C process of (v) may take
+
+
+def c_calls(lib) -> ctypes.CDLL:
+    """``lib`` (the port's cdylib) loaded with the signatures (v) calls."""
+    am = ctypes.CDLL(lib)
+    vp, cp, sz = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t
+    for name, res, args in (
+            ("am_init", ctypes.c_int, []),
+            ("am_load", vp, [ctypes.c_char_p, sz]),
+            ("am_map_get", vp, [vp, cp, cp]),
+            ("am_text", vp, [vp, cp]),
+            ("am_save", vp, [vp]),
+            ("am_result_status", ctypes.c_int, [vp]),
+            ("am_result_error", cp, [vp]),
+            ("am_item_str", cp, [vp, sz]),
+            ("am_item_bytes", ctypes.POINTER(ctypes.c_uint8),
+             [vp, sz, ctypes.POINTER(sz)]),
+            ("am_result_free", None, [vp]),
+            ("am_doc_free", None, [vp])):
+        getattr(am, name).restype = res
+        getattr(am, name).argtypes = args
+    return am
+
+
+def c_result(am, r, what: str, kind: str = "str"):
+    """The first item of result ``r`` (freed), raising on an error."""
+    try:
+        if am.am_result_status(r) != 0:
+            raise AssertionError(f"{what}: {am.am_result_error(r).decode()}")
+        if kind == "bytes":
+            n = ctypes.c_size_t()
+            p = am.am_item_bytes(r, 0, ctypes.byref(n))
+            return ctypes.string_at(p, n.value)
+        return am.am_item_str(r, 0).decode()
+    finally:
+        am.am_result_free(r)
+
+
+def run_c_processes(cmds: dict, env: dict, root: str) -> dict:
+    """``cmds`` (name -> argv) run at once; returns name -> (seconds,
+    stdout). Each must exit 0 within CAPI_TIMEOUT."""
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    for name, argv in cmds.items():
+        fh = open(os.path.join(root, f"{name}.out"), "w+")
+        procs[name] = (subprocess.Popen(argv, stdout=fh, stderr=subprocess.STDOUT,
+                                        env=env, cwd=root), fh)
+    try:
+        while len(out) < len(procs):
+            if time.perf_counter() - t0 > CAPI_TIMEOUT:
+                raise AssertionError(f"C processes still running after {CAPI_TIMEOUT} "
+                                     f"s: {sorted(set(procs) - set(out))}")
+            for name, (p, fh) in procs.items():
+                if name not in out and p.poll() is not None:
+                    fh.seek(0)
+                    out[name] = (time.perf_counter() - t0, fh.read())
+                    if p.returncode != 0:
+                        raise AssertionError(f"C process {name}: exit {p.returncode}: "
+                                             f"{out[name][1][-3000:]}")
+            time.sleep(0.02)
+    finally:
+        for p, fh in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            fh.close()
+    return out
+
+
+def capi_paths(card: str, device) -> dict:
+    """(v) the C ABI on the card (see the module docstring). Returns the
+    launch counts by path."""
+    import re
+    import shutil
+    import tempfile
+
+    from automerge_tpu_torch import capi, kernels
+    from automerge_tpu_torch import workload as W
+    from automerge_tpu_torch.capi import edits as E
+    from automerge_tpu_torch.capi import shim
+
+    t_phase = time.perf_counter()
+    counts = {}
+    root = tempfile.mkdtemp(prefix="amtpu-capi-")
+    try:
+        # 1. the library, the five suites and the typist
+        t0 = time.perf_counter()
+        lib = capi.build()
+        lib_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exes = {src: capi.build_test(lib, root, source=src) for src in capi.TEST_SOURCES}
+        typist = capi.build_test(lib, root, source="type_edits.c")
+        typist_so = capi.build_test(lib, root, source="type_edits.c", shared=True)
+        print(f"capi (v): {os.path.basename(lib)} in {lib_s:.3f} s (g++, with cache "
+              f"check), the five suites and the typist (executable and shared "
+              f"library) in {time.perf_counter() - t0:.3f} s (gcc)", flush=True)
+
+        # 2. the suites and the typist on (u)'s compared prefix as processes at
+        # once, on the card: no device setting
+        edits = W.load_trace()
+        prefix_file = os.path.join(root, "prefix.bin")
+        with open(prefix_file, "wb") as fh:
+            fh.write(E.encode(E.from_trace(edits[:U_COMPARE_EDITS])))
+        env = {k: v for k, v in os.environ.items() if k != "AUTOMERGE_TPU_TORCH_DEVICE"}
+        env["PYTHONPATH"] = capi.python_path()
+        cmds = {os.path.splitext(src)[0]: [exe] for src, exe in exes.items()}
+        cmds["type_edits"] = [typist, prefix_file, str(U_COMMIT_EVERY),
+                              os.path.join(root, "prefix.automerge"), U_ACTOR.hex()]
+        done = run_c_processes(cmds, env, root)
+        for name in cmds:
+            if name != "type_edits" and "all assertions passed" not in done[name][1]:
+                raise AssertionError(f"C suite {name}: {done[name][1][-3000:]}")
+        with open(os.path.join(root, "prefix.automerge"), "rb") as fh:
+            if fh.read() != CAPI_INPUT["prefix"]:
+                raise AssertionError("capi: the C typist's save of the prefix differs "
+                                     "from the sessions' in (u)")
+        line = done["type_edits"][1].strip().splitlines()[-1]
+        m = re.match(r"typed (\d+) records in ([\d.]+) s \(am_init ([\d.]+) s, first "
+                     r"am_text ([\d.]+) s\)", line)
+        if m is None or int(m.group(1)) != U_COMPARE_EDITS:
+            raise AssertionError(f"capi: the C typist printed {line!r}")
+        print("capi (v): the five suites and the typist as processes at once "
+              "on the card, seconds " + json.dumps(
+                  {k: round(v[0], 6) for k, v in done.items()})
+              + "; suites all assertions passed", flush=True)
+        print(f"capi (v): the C typist process typed the first {U_COMPARE_EDITS} "
+              f"edits in {float(m.group(2)):.6f} s ({U_COMPARE_EDITS / float(m.group(2)):.1f} "
+              f"edits/s); am_init {float(m.group(3)):.6f} s (the embedded interpreter, "
+              f"torch imported); the first am_text {float(m.group(4)):.6f} s (the "
+              f"process's CUDA context, the kernels' library and the stale read's "
+              f"merge); its save (u)'s byte for byte on {card}", flush=True)
+
+        # 3. in this process through ctypes: am_load of (u)'s merged file, am_text
+        am = c_calls(lib)
+        t0 = time.perf_counter()
+        if am.am_init() != 0:
+            raise AssertionError("capi: am_init failed")
+        init_s = time.perf_counter() - t0
+        held = FANINS["text"]
+        merged = CAPI_INPUT["merged"]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        doc = am.am_load(merged, len(merged))
+        if not doc:
+            raise AssertionError("capi: am_load of the merged file failed")
+        load_s = time.perf_counter() - t0
+        text = c_result(am, am.am_text(doc, held["text_obj"].encode()), "am_text")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0 - load_s
+        counts["capi load"] = kernels.launch_counts()
+        check_launches("capi load", counts["capi load"], *TEXT_MERGE_MUST)
+        if counts["capi load"]["succ_vis"] != SV_LAUNCHES:
+            raise AssertionError(f"capi load: {counts['capi load']['succ_vis']} succ_vis "
+                                 f"launches, not one merge's {SV_LAUNCHES}")
+        if text != held["text"]:
+            raise AssertionError("capi: am_text of the merged file is not (a)'s text")
+        am.am_doc_free(doc)
+        print(f"capi (v): am_init in this process {init_s:.6f} s (joins the running "
+              f"interpreter); am_load of (u)'s merged file ({len(merged)} bytes) "
+              f"{load_s:.6f} s, am_text {read_s:.6f} s, (a)'s text; launches "
+              + json.dumps({k: v for k, v in counts["capi load"].items() if v})
+              + f" on {card}", flush=True)
+
+        # 4. the trace typed through the C hot-call cache in this process
+        drv = ctypes.CDLL(typist_so)
+        drv.type_edits.restype = ctypes.c_void_p
+        drv.type_edits.argtypes = [
+            ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_long)]
+        trace_file = os.path.join(root, "trace.bin")
+        with open(trace_file, "wb") as fh:
+            fh.write(E.encode(E.from_trace(edits)))
+        errors = os.path.join(root, "errors.txt")
+        obj = ctypes.create_string_buffer(64)
+        secs, n = ctypes.c_double(), ctypes.c_long()
+        kernels.reset_launches()
+        with gc_pauses() as pauses:
+            doc = drv.type_edits(trace_file.encode(), U_COMMIT_EVERY, U_ACTOR,
+                                 errors.encode(), obj, ctypes.byref(secs), ctypes.byref(n))
+            torch.cuda.synchronize()
+        counts["capi typing"] = kernels.launch_counts()
+        with open(errors) as fh:
+            failed = fh.read()
+        if not doc or n.value != len(edits) or failed:
+            raise AssertionError(f"capi: typing through the C cache: {n.value} of "
+                                 f"{len(edits)} edits, errors {failed[:2000]!r}")
+        if any(counts["capi typing"].values()):
+            raise AssertionError(f"capi typing: the commits rebuilt the op store: "
+                                 f"{counts['capi typing']}")
+        c_rate = len(edits) / secs.value
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        text = c_result(am, am.am_text(doc, obj.value), "am_text")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        counts["capi typing read"] = kernels.launch_counts()
+        check_doc_merge("capi typing read", counts["capi typing read"])
+        if text != CAPI_INPUT["text"]:
+            raise AssertionError("capi: the text typed through the C cache is not "
+                                 "the trace's")
+        t0 = time.perf_counter()
+        data = c_result(am, am.am_save(doc), "am_save", "bytes")
+        save_s = time.perf_counter() - t0
+        am.am_doc_free(doc)
+        if data != CAPI_INPUT["typed"]:
+            raise AssertionError("capi: the C cache's save differs from the sessions' "
+                                 "save in (u)")
+        print(f"capi typing (v): {len(edits)} edits through am_splice_text's hot-call "
+              f"cache in this process in {secs.value:.6f} s, {c_rate:.1f} edits/s "
+              f"(gc {sum(s for _, s in pauses):.3f} s), a commit every "
+              f"{U_COMMIT_EVERY}, no launches; the read after typing {read_s:.6f} s, "
+              f"the trace's {len(text)} characters, launches " + json.dumps(
+                  {k: v for k, v in counts["capi typing read"].items() if v})
+              + f"; am_save {save_s:.6f} s, {len(data)} bytes, (u)'s session-typed "
+              f"save byte for byte on {card}", flush=True)
+
+        # the compared prefix through per-call shim.call dispatch
+        h = shim.call("create", U_ACTOR)[0][1]
+        t = shim.call("put_object", h, "_root", "text", 2)[0][1]
+        shim.call("commit", h, "")
+        t0 = time.perf_counter()
+        for i, (pos, ndel, *chars) in enumerate(edits[:U_COMPARE_EDITS]):
+            shim.call("splice_text", h, t, pos, ndel, "".join(chars))
+            if i % U_COMMIT_EVERY == U_COMMIT_EVERY - 1:
+                shim.call("commit", h, "")
+        shim.call("commit", h, "")
+        call_s = time.perf_counter() - t0
+        data = shim.call("save", h)[0][1]
+        shim.call("free", h)
+        if data != CAPI_INPUT["prefix"]:
+            raise AssertionError("capi: the per-call shim's save of the prefix differs "
+                                 "from the sessions' in (u)")
+        print(f"capi typing (v): the first {U_COMPARE_EDITS} edits through per-call "
+              f"shim.call('splice_text', ...) in {call_s:.6f} s, "
+              f"{U_COMPARE_EDITS / call_s:.1f} edits/s, against the C cache's "
+              f"{c_rate:.1f}; save (u)'s byte for byte", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"capi (v): the phase took {time.perf_counter() - t_phase:.3f} s on {card}",
+          flush=True)
     return counts
 
 
@@ -5670,6 +5956,7 @@ def main() -> int:
     serve_counts, serve_spec = serve_paths(card, device)
     cluster_counts = cluster_paths(card, device)
     sessions_counts = cli_sessions_paths(card, device)
+    capi_counts = capi_paths(card, device)
     cold_counts = cold_open_paths(card, device)
     sharded_counts = sharded_paths(card, device, (text_log, text_obj), typing_log,
                                    record_log)
@@ -5681,7 +5968,8 @@ def main() -> int:
 
     by_path = {**text_counts, **record_counts, **cross_counts, **condensed_counts,
                **document_counts, **sync_counts, **durable_counts, **serve_counts,
-               **cluster_counts, **sessions_counts, **cold_counts, **sharded_counts}
+               **cluster_counts, **sessions_counts, **capi_counts, **cold_counts,
+               **sharded_counts}
 
     def spec(log, condensed=False):
         return (log.padded_columns(include_aorder=condensed), log.n_objs,

@@ -2235,3 +2235,234 @@ def test_cli_merge_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
                          "-o", str(tmp_path / f"{dev}.json")]) == 0
     assert out[str(cuda)] == out["cpu"]
     assert (tmp_path / f"{cuda}.json").read_bytes() == (tmp_path / "cpu.json").read_bytes()
+
+
+# -- the C ABI on the card -------------------------------------------------------
+
+
+def _c_env():
+    """A C program's environment: the port's documents on the card (no
+    device setting) and this interpreter's import path."""
+    import os
+
+    from automerge_tpu_torch import capi
+
+    env = dict(os.environ, PYTHONPATH=capi.python_path())
+    env.pop("AUTOMERGE_TPU_TORCH_DEVICE", None)
+    return env
+
+
+@pytest.mark.parametrize("source", ["test_am.c", "test_basic.c", "test_sync.c",
+                                    "test_ported2.c", "test_ported3.c"])
+def test_c_suite_on_card(cuda, tmp_path, source):
+    """The reference's C suites, unchanged, against the port's library
+    with the device left unset: every document they make is on the card."""
+    import subprocess
+
+    from automerge_tpu_torch import capi
+
+    assert source in capi.TEST_SOURCES
+    exe = capi.build_test(capi.build(), str(tmp_path), source=source)
+    r = subprocess.run([exe], capture_output=True, text=True, timeout=600,
+                       env=_c_env())
+    assert r.returncode == 0, f"stdout: {r.stdout}\nstderr: {r.stderr}"
+    assert "all assertions passed" in r.stdout
+
+
+def test_typist_on_card_equals_the_session_path(cuda, tmp_path):
+    """``type_edits.c`` types a trace through the C hot-call cache on the
+    card, a commit every 1,000 edits; its save equals the same edits typed
+    through ``AutoDoc.splice_text``'s sessions on the card, and its text
+    the trace's."""
+    import subprocess
+
+    from automerge_tpu_torch import capi
+    from automerge_tpu_torch.api import AutoDoc
+    from automerge_tpu_torch.capi import edits as E
+    from automerge_tpu_torch.types import ActorId
+
+    trace = W.load_trace(6000)
+    records = E.from_trace(trace)
+    path = tmp_path / "edits.bin"
+    path.write_bytes(E.encode(records))
+    exe = capi.build_test(capi.build(), str(tmp_path), source="type_edits.c")
+    out = tmp_path / "typed.automerge"
+    actor = bytes([0x5B]) * 16
+    r = subprocess.run([exe, str(path), "1000", str(out), actor.hex()],
+                       capture_output=True, text=True, timeout=600, env=_c_env())
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert f"typed {len(records)} records" in r.stdout and "record " not in r.stdout
+    doc = AutoDoc(ActorId(actor), device=cuda)
+    assert E.type_records(doc, records, 1000) == []
+    assert out.read_bytes() == doc.save()
+    text = []
+    for pos, ndel, *chars in trace:
+        del text[pos:pos + ndel]
+        text[pos:pos] = chars
+    back = AutoDoc.load(out.read_bytes(), device=cuda)
+    assert back.text(back.get("_root", "text")[0][2]) == "".join(text)
+
+
+# -- the integration corpus on the card --------------------------------------------
+
+CORPUS = __import__("pathlib").Path(__file__).with_name("test_ported.py")
+
+
+def _corpus_scenarios():
+    import ast
+
+    tree = ast.parse(CORPUS.read_text())
+    return sorted(n.name for n in tree.body
+                  if isinstance(n, ast.FunctionDef) and n.name.startswith("test_"))
+
+
+def _compress_chunk(chunk_bytes):
+    """A change chunk deflated into a compressed chunk (type 2), its
+    checksum the uncompressed one's: the input of the corpus's compressed
+    change scenario, which the port reads but does not write."""
+    import zlib
+
+    from automerge_tpu_torch.storage.chunk import MAGIC_BYTES, parse_chunk
+    from automerge_tpu_torch.utils.leb128 import encode_uleb
+
+    chunk, _ = parse_chunk(chunk_bytes)
+    co = zlib.compressobj(level=6, wbits=-15)
+    deflated = co.compress(chunk.data) + co.flush()
+    out = bytearray(MAGIC_BYTES)
+    out += chunk.checksum
+    out.append(2)
+    encode_uleb(len(deflated), out)
+    return bytes(out + deflated)
+
+
+def _corpus_names(device):
+    """What ``tests/test_ported.py`` imports from the JAX package, bound to
+    the port's names with its documents and merges on ``device``."""
+    import types
+
+    import automerge_tpu_torch.patches.patch as ppatch
+    import automerge_tpu_torch.storage.change as pchange
+    import automerge_tpu_torch.testing as PTS
+    from automerge_tpu_torch import expanded
+    from automerge_tpu_torch.api import AutoDoc as _AutoDoc
+    from automerge_tpu_torch.core.document import Document as _Document
+    from automerge_tpu_torch.errors import AutomergeError
+    from automerge_tpu_torch.types import ActorId, ObjType, ScalarValue
+
+    class AutoDoc(_AutoDoc):
+        def __init__(self, actor=None, document=None, text_encoding=None,
+                     device=device):
+            super().__init__(actor, document, text_encoding, device=device)
+
+        @classmethod
+        def load(cls, data, *a, **kw):
+            kw.setdefault("device", device)
+            return super().load(data, *a, **kw)
+
+    class Document(_Document):
+        def __init__(self, actor=None, text_encoding=None, device=device):
+            super().__init__(actor, text_encoding, device=device)
+
+        @classmethod
+        def load(cls, data, *a, **kw):
+            kw.setdefault("device", device)
+            return super().load(data, *a, **kw)
+
+    class CorpusDeviceDoc(DeviceDoc):
+        @classmethod
+        def merge(cls, changes, device=device, **kw):
+            return super().merge(changes, device=device, **kw)
+
+    def module(name, **names):
+        m = types.ModuleType(name)
+        m.__dict__.update(names)
+        return m
+
+    dsl = {k: getattr(PTS, k) for k in ("assert_doc", "assert_obj", "list_", "map_",
+                                        "realize", "sorted_actors", "text_")}
+    return {
+        "automerge_tpu": module("automerge_tpu"),
+        "automerge_tpu.api": module("automerge_tpu.api", AutoDoc=AutoDoc),
+        "automerge_tpu.core": module("automerge_tpu.core"),
+        "automerge_tpu.core.document": module("automerge_tpu.core.document",
+                                              Document=Document),
+        "automerge_tpu.errors": module("automerge_tpu.errors",
+                                       AutomergeError=AutomergeError),
+        "automerge_tpu.expanded": module("automerge_tpu.expanded",
+                                         collapse_change=expanded.collapse_change,
+                                         expand_change=expanded.expand_change),
+        "automerge_tpu.ops": module("automerge_tpu.ops", DeviceDoc=CorpusDeviceDoc),
+        "automerge_tpu.testing": module(
+            "automerge_tpu.testing", **dsl,
+            new_doc=lambda seed=None: PTS.new_doc(seed, device=device)),
+        "automerge_tpu.types": module("automerge_tpu.types", ActorId=ActorId,
+                                      ObjType=ObjType, ScalarValue=ScalarValue),
+        "automerge_tpu.storage": module("automerge_tpu.storage"),
+        "automerge_tpu.storage.chunk": module("automerge_tpu.storage.chunk",
+                                              compress_chunk=_compress_chunk),
+        "automerge_tpu.storage.change": pchange,
+        "automerge_tpu.patches": module("automerge_tpu.patches"),
+        "automerge_tpu.patches.patch": ppatch,
+    }
+
+
+def _corpus_run(device, name, monkeypatch, tmp_path):
+    """Scenario ``name`` of the corpus on the port on ``device``: its own
+    assertions, and every document it realizes, in order."""
+    import importlib.util
+    import inspect
+    import os
+    import random
+    import sys
+    import zlib
+
+    import automerge_tpu_torch.testing as PTS
+
+    seen = []
+    with monkeypatch.context() as m:
+        for k, v in _corpus_names(device).items():
+            m.setitem(sys.modules, k, v)
+        spec = importlib.util.spec_from_file_location(f"corpus_{device.type}", CORPUS)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        rng = random.Random(zlib.crc32(name.encode()))
+        m.setattr(os, "urandom", lambda n: rng.randbytes(n))
+        realize, assert_doc, assert_obj = mod.realize, mod.assert_doc, mod.assert_obj
+
+        def rec_realize(doc, heads=None):
+            out = realize(doc, heads=heads)
+            seen.append(("realize", out))
+            return out
+
+        def rec_assert_doc(doc, expected, heads=None):
+            seen.append(("doc", realize(doc, heads=heads)))
+            return assert_doc(doc, expected, heads=heads)
+
+        def rec_assert_obj(doc, obj, expected, heads=None):
+            seen.append(("obj", obj, PTS.realize_obj(doc, obj, heads=heads)))
+            return assert_obj(doc, obj, expected, heads=heads)
+
+        mod.realize, mod.assert_doc, mod.assert_obj = (
+            rec_realize, rec_assert_doc, rec_assert_obj)
+        fn = getattr(mod, name)
+        kwargs = {}
+        if "tmp_path" in inspect.signature(fn).parameters:
+            kwargs["tmp_path"] = tmp_path / device.type
+            kwargs["tmp_path"].mkdir()
+        fn(**kwargs)
+    return seen
+
+
+def test_corpus_on_card_is_the_whole_corpus():
+    assert len(_corpus_scenarios()) == 63
+
+
+@pytest.mark.parametrize("name", _corpus_scenarios())
+def test_corpus_scenario_on_card_equals_cpu(cuda, name, monkeypatch, tmp_path):
+    """A scenario of the reference's integration corpus on the port with
+    its documents and device merges on the card: its own assertions pass,
+    and every document it realizes equals the port's realization on the
+    CPU at the same point (actor ids from one seeded stream)."""
+    got = _corpus_run(cuda, name, monkeypatch, tmp_path)
+    want = _corpus_run(torch.device("cpu"), name, monkeypatch, tmp_path)
+    assert got == want

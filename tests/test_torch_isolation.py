@@ -604,3 +604,47 @@ def test_cpu_is_taken_only_when_asked():
     assert isinstance(out["winner"], np.ndarray)
     assert set(automerge_tpu_torch.__all__) == {"DeviceDoc", "OpLog", "merge_columns"}
     assert automerge_tpu_torch.DeviceDoc is DeviceDoc
+
+
+_CAPI_RUN = r"""
+import ctypes, sys
+from automerge_tpu_torch import capi
+lib = ctypes.CDLL(capi.build())
+lib.am_create.restype = ctypes.c_void_p
+assert lib.am_init() == 0
+assert lib.am_create(b"\x01" * 16, 16)
+assert "automerge_tpu_torch.capi.shim" in sys.modules
+print("FORBIDDEN", sorted(m for m in sys.modules
+                          if m in ("jax", "automerge_tpu")
+                          or m.startswith(("jax.", "automerge_tpu."))))
+"""
+
+
+def test_c_abi_in_a_fresh_process_imports_no_jax():
+    """The port's cdylib, loaded through ``ctypes``: ``am_init`` imports the
+    port's shim into the running interpreter and ``am_create`` makes a CPU
+    document, with neither JAX nor the JAX package imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["AUTOMERGE_TPU_TORCH_DEVICE"] = "cpu"
+    r = subprocess.run([sys.executable, "-c", _CAPI_RUN], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "FORBIDDEN []" in r.stdout
+
+
+CAPI_SOURCES = sorted(p for p in (ROOT / "automerge_tpu_torch" / "capi").iterdir()
+                      if p.suffix in (".c", ".h", ".cpp"))
+
+
+@pytest.mark.parametrize("path", CAPI_SOURCES, ids=lambda p: p.name)
+def test_c_abi_sources_name_no_jax_or_the_reference(path):
+    """The C sources import only the port's shim into the interpreter they
+    embed, and name neither JAX nor the JAX package (``am.h`` keeps the
+    reference's include guard: its declarations are the reference's)."""
+    import re
+
+    text = path.read_text()
+    assert re.findall(r'PyImport_ImportModule\("([^"]*)"\)', text) == (
+        ["automerge_tpu_torch.capi.shim"] if path.name == "am_embed.cpp" else [])
+    assert not re.search(r"\bjax\b", text, re.IGNORECASE)
+    assert not re.search(r"\bautomerge_tpu\b(?!_torch)|AUTOMERGE_TPU_(?!TORCH|AM_H)", text)
